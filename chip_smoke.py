@@ -13,8 +13,10 @@ prints one JSON line per phase:
 3. kernels — each kernel's wrapper against its plain PyTorch version on
    the card, at the main path's shapes and at edge cases (GQA,
    non-causal, segment ids with rows that match no key, a ragged T,
-   head dim 64); then kernel, plain-version and library times (CUDA
-   events, median of 20) at the Llama-2-7B forward shape.
+   head dim 64): the forward (``flash_fwd``) and the backward
+   (``flash_bwd_dq``, ``flash_bwd_dkv``) on the same inputs; then
+   kernel, plain-version and library times (CUDA events, median of 20)
+   at the Llama-2-7B shape (B=2, T=2048, H=32, D=128, causal).
 4. forward — Llama-2-7B at full width (bf16 weights, random from a
    seeded generator), tokens (2, 2048): the flash kernel must launch
    once per layer, and the logits must agree with the dense-attention
@@ -22,31 +24,34 @@ prints one JSON line per phase:
 5. serve   — ``serve.make_app`` on the same weights; 4 concurrent greedy
    requests (prompt lengths 5, 17, 64, 200; 32 new tokens) through the
    WSGI callable, each row equal to ``generate_fused`` on the batch.
+6. train_grad — Llama-2-7B width at 4 layers, one packed row of 2048:
+   the gradients of every parameter through the kernels and through
+   dense attention must be equally close to a float32 forward's; with
+   remat on, ``flash_fwd`` launches twice per layer and each backward
+   kernel once.
+7. train   — the trainer's main path: full Llama-2-7B, bf16 frozen base,
+   rank-16 LoRA on wq/wv, 6 steps of B=2×2048 packed documents through
+   ``training.loop.fit``: finite losses that fall, the base bit-identical,
+   the adapters trained, the kernels launched as counted above.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
-line, and last ``{"ok": true, "device": {...}}``. Any failed check
-raises, so the script exits non-zero and prints no result line; so does
-a process without CUDA.
+line, and last ``{"ok": true, "device": {...}}``. A failed check ends
+its phase; the later phases still run (so one run reports every fault),
+and the script then exits non-zero without the result lines. So does a
+process without CUDA.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import statistics
 import subprocess
 import sys
 import threading
 import time
+import traceback
 from dataclasses import replace
-
-#: dense peaks from NVIDIA's data sheets (bf16 FLOP/s, HBM bytes/s),
-#: matched on the device name; the SXM part is the default
-PEAKS = (
-    ("H100 PCIe", 756e12, 2.0e12),
-    ("H100 NVL", 835e12, 3.9e12),
-    ("H200", 989e12, 4.8e12),
-    ("H100", 989e12, 3.35e12),
-)
 
 O_TOL = dict(atol=2e-2, rtol=2e-2)   # bf16 output: p is rounded to bf16
 LSE_ATOL = 1e-3                      # fp32 on both sides
@@ -56,6 +61,12 @@ LSE_ATOL = 1e-3                      # fp32 on both sides
 # rounding noise, so the gate is that both are equally close to float32.
 RATIO_MAX = 1.25                     # mean |logit error| ratio, either way
 ARGMAX_GAP = 0.02                    # argmax-vs-float32 agreement gap
+# backward kernels vs the plain version (float32 on the same bf16
+# inputs): P and dS are rounded to bf16 before their products and the
+# outputs are bf16, so the relative Frobenius error is ~3e-3
+BWD_REL_MAX = 1e-2
+# LoRA training: the learning rate of the 6-step run (warmup 1 step)
+TRAIN_LR = 1e-3
 
 
 def emit(phase: str, **kw) -> None:
@@ -126,10 +137,17 @@ def device_profile(fn, top: int = 6) -> dict:
 
 
 def peaks_for(name: str):
-    for key, flops, bw in PEAKS:
-        if key in name:
-            return key, flops, bw
-    return "H100", 989e12, 3.35e12
+    """(key, bf16 FLOP/s, bytes/s) of the card from the port's table; an
+    unknown card is taken as the H100 SXM."""
+    from kubeflow_rm_tpu_torch.utils.flops import device_peaks
+
+    return device_peaks(name) or device_peaks("H100")
+
+
+def rel_err(a, ref) -> float:
+    """||a - ref||_F / ||ref||_F in float32."""
+    a, ref = a.float(), ref.float()
+    return float((a - ref).norm() / ref.norm())
 
 
 def phase_device():
@@ -156,7 +174,8 @@ def phase_build():
     libs = build.build()
     secs = time.perf_counter() - t0
     ptxas = {n: [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln or "smem" in ln]
+                 if any(w in ln for w in ("entry function", "registers",
+                                          "spill", "smem"))]
              for n, log in build.build_logs.items()}
     emit("build", seconds=round(secs, 3),
          libraries={n: p.name for n, p in libs.items()}, ptxas=ptxas)
@@ -172,28 +191,76 @@ def _qkv(gen, B, T, H, KVH, D):
     return r(H), r(KVH), r(KVH)
 
 
+KERNEL_CASES = [
+    ("llama2_7b_causal", dict(B=2, T=2048, H=32, KVH=32, D=128), True, None),
+    ("llama3_8b_gqa_causal", dict(B=2, T=2048, H=32, KVH=8, D=128), True, None),
+    ("llama3_8b_gqa_noncausal", dict(B=2, T=2048, H=32, KVH=8, D=128), False, None),
+    ("segments_with_orphan_rows", dict(B=2, T=1024, H=8, KVH=4, D=128), True, "seg"),
+    ("ragged_T1000", dict(B=1, T=1000, H=8, KVH=2, D=128), True, None),
+    ("head_dim_64", dict(B=2, T=512, H=8, KVH=8, D=64), True, None),
+]
+
+
+def to_bh(t):
+    """(B, T, H, D) -> the kernels' contiguous (B·H, T, D)."""
+    B, T, H, D = t.shape
+    return t.transpose(1, 2).reshape(B * H, T, D).contiguous()
+
+
+def check_backward(name, s, causal, qh, kh, vh, out, lse, segq, segkv, gen):
+    """``flash_bwd`` (both kernels) against ``flash_attention_bwd_reference``
+    in float32 on the same (q, k, v, O, lse, dO); returns the max |Δ| of
+    dq and of dk/dv."""
+    import torch
+
+    from kubeflow_rm_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_reference, flash_bwd,
+    )
+
+    B, T, H, KVH, D = s["B"], s["T"], s["H"], s["KVH"], s["D"]
+    do = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
+    kw = dict(heads=H, group=H // KVH, causal=causal)
+    got = flash_bwd(qh, kh, vh, out, lse, do, segq, segkv, **kw)
+    ref = flash_attention_bwd_reference(
+        qh.float(), kh.float(), vh.float(), out.float(), lse, do.float(),
+        segq, segkv, **kw)
+    torch.cuda.synchronize()
+    res = {}
+    for what, g, r in zip(("dq", "dk", "dv"), got, ref):
+        res[what] = dict(rel=rel_err(g, r),
+                         max_abs=float((g.float() - r).abs().max()),
+                         finite=bool(torch.isfinite(g).all()))
+    orphan_zero = None
+    if segq is not None:
+        orphan_zero = bool((got[0].view(B, H, T, D)[0, :, 300:340] == 0).all())
+    emit("kernels", case=name + "_backward", causal=causal, **s, **res,
+         orphan_dq_zero=orphan_zero)
+    for what, r in res.items():
+        check(r["finite"], f"flash_bwd {name}: non-finite {what}")
+        check(r["rel"] <= BWD_REL_MAX,
+              f"flash_bwd {name}: {what} rel err {r['rel']} > {BWD_REL_MAX}")
+    if segq is not None:
+        check(orphan_zero, f"flash_bwd {name}: orphan rows must give dq = 0")
+    return res["dq"]["max_abs"], max(res["dk"]["max_abs"],
+                                     res["dv"]["max_abs"])
+
+
 def phase_kernels(device_name: str):
     import torch
     import torch.nn.functional as F
 
     from kubeflow_rm_tpu_torch.ops.attention import NEG_INF
     from kubeflow_rm_tpu_torch.ops.flash_attention import (
-        flash_attention_reference, flash_attention_with_lse, flash_fwd,
+        flash_attention_bwd_reference, flash_attention_reference,
+        flash_attention_with_lse, flash_bwd_dkv, flash_bwd_dq, flash_fwd,
     )
 
-    cases = [
-        ("llama2_7b_causal", dict(B=2, T=2048, H=32, KVH=32, D=128), True, None),
-        ("llama3_8b_gqa_causal", dict(B=2, T=2048, H=32, KVH=8, D=128), True, None),
-        ("llama3_8b_gqa_noncausal", dict(B=2, T=2048, H=32, KVH=8, D=128), False, None),
-        ("segments_with_orphan_rows", dict(B=2, T=1024, H=8, KVH=4, D=128), True, "seg"),
-        ("ragged_T1000", dict(B=1, T=1000, H=8, KVH=2, D=128), True, None),
-        ("head_dim_64", dict(B=2, T=512, H=8, KVH=8, D=64), True, None),
-    ]
-    worst = 0.0
-    for i, (name, s, causal, seg) in enumerate(cases):
+    worst = dict(flash_fwd=0.0, flash_bwd_dq=0.0, flash_bwd_dkv=0.0)
+    for i, (name, s, causal, seg) in enumerate(KERNEL_CASES):
         gen = torch.Generator(device="cuda").manual_seed(100 + i)
         q, k, v = _qkv(gen, **s)
         kw = {}
+        segq = segkv = None
         if seg:
             B, T = s["B"], s["T"]
             ids = torch.arange(T, device="cuda") // 200 + 1   # 200-token docs
@@ -201,14 +268,16 @@ def phase_kernels(device_name: str):
             segq = segkv.clone()
             segq[0, 300:340] = 99          # rows that match no key
             kw = dict(segment_ids_q=segq, segment_ids_kv=segkv)
-        out, lse = flash_attention_with_lse(q, k, v, causal=causal, **kw)
-        ref, ref_lse = flash_attention_reference(q, k, v, causal=causal, **kw)
+        with torch.no_grad():
+            out, lse = flash_attention_with_lse(q, k, v, causal=causal, **kw)
+            ref, ref_lse = flash_attention_reference(q, k, v, causal=causal,
+                                                     **kw)
         torch.cuda.synchronize()
         o, r = out.float(), ref.float()
         err = float((o - r).abs().max())
         lse_err = float((lse - ref_lse).abs().max())
         ok = bool(((o - r).abs() <= O_TOL["atol"] + O_TOL["rtol"] * r.abs()).all())
-        worst = max(worst, err)
+        worst["flash_fwd"] = max(worst["flash_fwd"], err)
         emit("kernels", case=name, causal=causal, **s, max_abs_err=err,
              lse_max_abs_err=lse_err, within_tol=ok)
         check(ok, f"flash_fwd {name}: output outside atol=rtol=2e-2 "
@@ -220,35 +289,81 @@ def phase_kernels(device_name: str):
                   "orphan rows must give O = 0")
             check(bool((lse[0, :, 300:340] == NEG_INF).all()),
                   "orphan rows must give lse = NEG_INF")
+        B, T, H = s["B"], s["T"], s["H"]
+        dq_err, dkv_err = check_backward(
+            name, s, causal, to_bh(q), to_bh(k), to_bh(v), to_bh(out),
+            lse.reshape(B * H, T).contiguous(), segq, segkv, gen)
+        worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], dq_err)
+        worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], dkv_err)
         del q, k, v, out, lse, ref, ref_lse, o, r
 
-    # timing at the main path's shape: one layer of the 7B forward
+    # timing at the main path's shape: one layer of the 7B forward and
+    # backward. Least time for the work: causal pairs T(T+1)/2 per head;
+    # the forward does 2 products (4·D FLOP a pair), dq 3 (S, dP, dQ:
+    # 6·D), dkv 4 (S, dP, dV, dK: 8·D); each input read once, each
+    # output written once.
     B, T, H, D = 2, 2048, 32, 128
+    peak_key, peak_flops, peak_bw = peaks_for(device_name)
+    pairs = B * H * T * (T + 1) / 2
+    mat = B * H * T * D * 2                  # one bf16 (B·H, T, D) tensor
+    row = B * H * T * 4                      # one float32 (B·H, T) row stat
+
+    def bound(flops, nbytes):
+        t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
+        return dict(bound_ms=max(t_ops, t_bytes),
+                    bound_by="operations" if t_ops >= t_bytes else "bytes",
+                    flops=flops, bytes=nbytes, peak=peak_key)
+
     gen = torch.Generator(device="cuda").manual_seed(7)
     q, k, v = _qkv(gen, B, T, H, H, D)
-    qh = q.transpose(1, 2).reshape(B * H, T, D).contiguous()
-    kh = k.transpose(1, 2).reshape(B * H, T, D).contiguous()
-    vh = v.transpose(1, 2).reshape(B * H, T, D).contiguous()
-    ms = cuda_time_ms(lambda: flash_fwd(qh, kh, vh, heads=H, group=1,
-                                        causal=True))
+    qh, kh, vh = to_bh(q), to_bh(k), to_bh(v)
+    kw = dict(heads=H, group=1, causal=True)
+    timing = {}
+    ms = cuda_time_ms(lambda: flash_fwd(qh, kh, vh, **kw))
     plain_ms = cuda_time_ms(
         lambda: flash_attention_reference(q, k, v, causal=True))
     qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
     library_ms = cuda_time_ms(
         lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True))
-    # least time for this work: causal pairs T(T+1)/2 per head, two
-    # matmuls of 2·D FLOP per pair; q, k, v, O read/written once + lse
-    peak_key, peak_flops, peak_bw = peaks_for(device_name)
-    flops = 4.0 * D * B * H * T * (T + 1) / 2
-    nbytes = 4 * B * T * H * D * 2 + B * H * T * 4
-    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
-    timing = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                  bound_ms=max(t_ops, t_bytes),
-                  bound_by="operations" if t_ops >= t_bytes else "bytes",
-                  flops=flops, bytes=nbytes, peak=peak_key,
-                  tflops_achieved=flops / ms / 1e9)
+    timing["flash_fwd"] = dict(ms=ms, plain_ms=plain_ms,
+                               library_ms=library_ms,
+                               **bound(4.0 * D * pairs, 4 * mat + row))
+    timing["flash_fwd"]["tflops_achieved"] = \
+        timing["flash_fwd"]["flops"] / ms / 1e9
     emit("kernels", case="timing_llama2_7b_forward_shape", B=B, T=T, H=H,
-         D=D, **timing)
+         D=D, **timing["flash_fwd"])
+
+    out, lse = flash_fwd(qh, kh, vh, **kw)
+    do = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
+    delta = (do.float() * out.float()).sum(-1)
+    dq_ms = cuda_time_ms(lambda: flash_bwd_dq(qh, kh, vh, do, lse, delta,
+                                              **kw))
+    dkv_ms = cuda_time_ms(lambda: flash_bwd_dkv(qh, kh, vh, do, lse, delta,
+                                                **kw))
+    plain_ms = cuda_time_ms(lambda: flash_attention_bwd_reference(
+        qh, kh, vh, out, lse, do, **kw))
+    # the library's backward alone: autograd.grad of SDPA's output
+    qs, ks, vs = (t.detach().requires_grad_(True) for t in (qs, ks, vs))
+    o_lib = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    do_lib = do.view(B, H, T, D)
+    library_ms = cuda_time_ms(lambda: torch.autograd.grad(
+        o_lib, (qs, ks, vs), do_lib, retain_graph=True))
+    shared = dict(plain_ms=plain_ms, library_ms=library_ms,
+                  plain_and_library_compute="dq, dk and dv together")
+    timing["flash_bwd_dq"] = dict(ms=dq_ms, **shared,
+                                  **bound(6.0 * D * pairs,
+                                          5 * mat + 2 * row))
+    timing["flash_bwd_dkv"] = dict(ms=dkv_ms, **shared,
+                                   **bound(8.0 * D * pairs,
+                                           6 * mat + 2 * row))
+    fused = bound(10.0 * D * pairs, 7 * mat + 2 * row)
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        t = timing[name]
+        t["tflops_achieved"] = t["flops"] / t["ms"] / 1e9
+    emit("kernels", case="timing_llama2_7b_backward_shape", B=B, T=T, H=H,
+         D=D, dq=timing["flash_bwd_dq"], dkv=timing["flash_bwd_dkv"],
+         two_kernels_ms=dq_ms + dkv_ms,
+         fused_backward_bound_ms=fused["bound_ms"])
     return worst, timing
 
 
@@ -257,7 +372,6 @@ def phase_forward(cfg, params):
 
     from kubeflow_rm_tpu_torch.models.generate import decode_chunk, init_cache
     from kubeflow_rm_tpu_torch.models.llama import forward
-    from kubeflow_rm_tpu_torch.ops.flash_attention import flash_fwd
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (2, 2048), generator=gen,
@@ -281,19 +395,21 @@ def phase_forward(cfg, params):
 
     cfg32 = replace(cfg, dtype=torch.float32)   # float32 activations
     with torch.inference_mode():
-        flash_fwd.launches = 0
+        reset_launches()
         logits = forward(params, tokens, cfg)            # the main path
         torch.cuda.synchronize()
-        launches = flash_fwd.launches
-        check(launches == cfg.n_layers,
-              f"forward launched flash_fwd {launches} times, "
-              f"expected {cfg.n_layers}")
+        counts = read_launches()
+        launches = counts["flash_fwd"]
+        check(counts == {"flash_fwd": cfg.n_layers, "flash_bwd_dq": 0,
+                         "flash_bwd_dkv": 0},
+              f"forward launched {counts}, expected flash_fwd "
+              f"{cfg.n_layers} times and no backward kernel")
         check(tuple(logits.shape) == (2, 2048, cfg.vocab_size)
               and bool(torch.isfinite(logits).all()), "bad forward logits")
         dense = forward(params, tokens, cfg, impl="dense")
         truth = forward(params, tokens, cfg32)
         torch.cuda.synchronize()
-        check(flash_fwd.launches == launches,
+        check(read_launches() == counts,
               "dense/float32 forwards launched flash")
         kd = versus(logits, dense)
         k32, d32 = equally_close(logits, dense, truth,
@@ -334,7 +450,7 @@ def phase_forward(cfg, params):
          dense_forward_ms=dense_ms,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
          profile=prof)
-    return launches
+    return counts
 
 
 def phase_serve(cfg, params):
@@ -400,6 +516,200 @@ def phase_serve(cfg, params):
          decode_tokens_per_s=4 * new / wall, profile_generate_fused=prof)
 
 
+def reset_launches():
+    from kubeflow_rm_tpu_torch.ops import flash_attention as fa
+
+    for fn in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    from kubeflow_rm_tpu_torch.ops import flash_attention as fa
+
+    return {fn.__name__: fn.launches
+            for fn in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)}
+
+
+def packed_rows(rows: int, T: int, vocab: int, seed: int) -> dict:
+    """``rows`` full rows of packed documents (lengths 64..1536, token
+    ids from a seeded numpy generator), as int32 numpy arrays."""
+    import numpy as np
+
+    from kubeflow_rm_tpu_torch.training.data import pack_documents
+
+    rng = np.random.default_rng(seed)
+    docs, total = [], 0
+    while total < rows * T:
+        n = int(rng.integers(64, 1537))
+        docs.append(rng.integers(1, vocab, n).tolist())
+        total += n
+    return {k: v[:rows] for k, v in pack_documents(docs, T).items()}
+
+
+def phase_train_grad():
+    """Full-parameter gradients at 7B width and 4 layers, three ways."""
+    import torch
+
+    from kubeflow_rm_tpu_torch.models.llama import (
+        LlamaConfig, forward_with_aux, init_params,
+    )
+    from kubeflow_rm_tpu_torch.ops.losses import softmax_cross_entropy
+    from kubeflow_rm_tpu_torch.training.data import to_device
+    from kubeflow_rm_tpu_torch.training.optim import leaf_paths
+    from kubeflow_rm_tpu_torch.training.train import TrainConfig, loss_fn
+
+    cfg = LlamaConfig.llama2_7b(n_layers=4, param_dtype=torch.bfloat16)
+    tcfg = TrainConfig(model=cfg)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(5),
+                         "cuda")
+    batch = to_device(packed_rows(1, 2048, cfg.vocab_size, seed=4), "cuda")
+
+    def grads(p, c, impl=None):
+        flat = leaf_paths(p)
+        for t in flat.values():
+            t.requires_grad_(True)
+        if impl is None:          # the trainer's loss, as the step runs it
+            loss, _ = loss_fn(p, batch, replace(tcfg, model=c))
+        else:
+            logits, _ = forward_with_aux(
+                p, batch["tokens"], c, positions=batch["positions"],
+                segments=batch["segments"], packed=True, impl=impl)
+            loss, _ = softmax_cross_entropy(logits, batch["labels"],
+                                            z_loss=tcfg.z_loss)
+        g = torch.autograd.grad(loss, list(flat.values()))
+        return loss.item(), dict(zip(flat, g))
+
+    reset_launches()
+    loss_k, gk = grads(params, cfg)                       # the kernels
+    torch.cuda.synchronize()
+    launches = read_launches()
+    loss_d, gd = grads(params, cfg, impl="dense")
+    params32 = {k: (v.float() if not isinstance(v, dict)
+                    else {n: t.float() for n, t in v.items()})
+                for k, v in params.items()}
+    cfg32 = replace(cfg, dtype=torch.float32, param_dtype=torch.float32)
+    loss_32, g32 = grads(params32, cfg32)                 # dense, float32
+    torch.cuda.synchronize()
+    leaves = {}
+    for k in g32:
+        ek, ed = rel_err(gk[k], g32[k]), rel_err(gd[k], g32[k])
+        leaves[k] = dict(kernel_vs_fp32=ek, dense_vs_fp32=ed, ratio=ek / ed,
+                         finite=bool(torch.isfinite(gk[k]).all()))
+    emit("train_grad", preset="llama2_7b", n_layers=cfg.n_layers,
+         tokens=[1, 2048], remat=cfg.remat_policy, launches=launches,
+         loss=dict(kernel=loss_k, dense=loss_d, fp32=loss_32),
+         leaves=leaves)
+    L = cfg.n_layers
+    check(launches == {"flash_fwd": 2 * L, "flash_bwd_dq": L,
+                       "flash_bwd_dkv": L},
+          f"train_grad launches {launches}, expected flash_fwd {2 * L} "
+          f"(forward + remat rerun) and {L} of each backward kernel")
+    check(read_launches() == launches,
+          "the dense and float32 gradients launched a flash kernel")
+    for k, r in leaves.items():
+        check(r["finite"], f"train_grad: non-finite gradient of {k}")
+        check(1 / RATIO_MAX <= r["ratio"] <= RATIO_MAX,
+              f"train_grad {k}: kernel {r['kernel_vs_fp32']} vs dense "
+              f"{r['dense_vs_fp32']} relative error against float32")
+    return launches
+
+
+def checksums(params: dict) -> dict:
+    """Per-leaf, per-layer checksum of the bit patterns (sum and
+    position-weighted sum), without a copy of the weights."""
+    import torch
+
+    from kubeflow_rm_tpu_torch.training.optim import leaf_paths
+
+    out = {}
+    for k, t in leaf_paths(params).items():
+        sums = []
+        for part in (t if t.dim() == 3 else t[None]):
+            bits = part.reshape(-1).view(torch.int16).long()
+            w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+            sums.append((int(bits.sum()), int((bits * w).sum())))
+        out[k] = sums
+    return out
+
+
+def phase_train(cfg, params):
+    """The trainer's main path: Llama-2-7B, LoRA r=16 on wq/wv, 6 steps
+    of ``fit``."""
+    import numpy as np
+    import torch
+
+    from kubeflow_rm_tpu_torch.models.lora import add_lora, is_lora_name
+    from kubeflow_rm_tpu_torch.training.data import to_device
+    from kubeflow_rm_tpu_torch.training.loop import LoopConfig, fit
+    from kubeflow_rm_tpu_torch.training.optim import OptimConfig, leaf_paths
+    from kubeflow_rm_tpu_torch.training.train import (
+        TrainConfig, init_train_state, make_train_step,
+    )
+    from kubeflow_rm_tpu_torch.utils.flops import train_flops_per_token
+
+    steps, B, T = 6, 2, 2048
+    lp = add_lora(params, 16, generator=torch.Generator(device="cuda")
+                  .manual_seed(2), targets=("wq", "wv"))
+    tcfg = TrainConfig(model=cfg, optim=OptimConfig(
+        train_only="lora", learning_rate=TRAIN_LR, warmup_steps=1,
+        total_steps=steps))
+    batch = packed_rows(B, T, cfg.vocab_size, seed=3)
+    base = {k: v for k, v in leaf_paths(lp).items()
+            if not is_lora_name(k.rsplit("/", 1)[-1])}
+    before = checksums(base)
+    state = init_train_state(tcfg, params=lp)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    state, history = fit(tcfg, itertools.repeat(batch),
+                         LoopConfig(total_steps=steps, log_every=1),
+                         state=state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    L = cfg.n_layers
+    losses = [h.loss for h in history]
+    norms = [h.grad_norm for h in history]
+    timed = history[1:]        # the first record holds the start-up sync
+    step_ms = statistics.median(h.step_time_ms for h in timed)
+    tps = statistics.median(h.tokens_per_sec for h in timed)
+    mfu = statistics.median(h.mfu_pct for h in timed)
+    after = checksums(base)
+    adapters_b = {k: int(torch.count_nonzero(v))
+                  for k, v in leaf_paths(state.params).items()
+                  if k.endswith("_lora_b")}
+
+    step_fn = make_train_step(tcfg, state)
+    dev_batch = to_device(batch, "cuda")
+    prof = device_profile(lambda: step_fn(state, dev_batch))
+    flops_step = train_flops_per_token(cfg, T, frozen_base=True) * B * T
+    emit("train", preset="llama2_7b", lora_rank=16, targets=["wq", "wv"],
+         tokens=[B, T], steps=steps, learning_rate=TRAIN_LR,
+         remat=cfg.remat_policy, losses=losses, grad_norms=norms,
+         launches=launches, step_time_ms=step_ms, tokens_per_s=tps,
+         mfu_pct=mfu, model_tflop_per_step=flops_step / 1e12,
+         fit_wall_s=wall, peak_mem_gb=peak_gb,
+         adapter_b_nonzero=adapters_b,
+         base_bit_identical=before == after, profile_one_step=prof)
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"non-finite loss or grad norm: {losses} {norms}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(before == after, "a frozen base weight changed")
+    check(all(n > 0 for n in adapters_b.values()),
+          f"an adapter's b stayed zero: {adapters_b}")
+    check(launches == {"flash_fwd": 2 * L * steps,
+                       "flash_bwd_dq": L * steps,
+                       "flash_bwd_dkv": L * steps},
+          f"train launches {launches}, expected per step flash_fwd "
+          f"{2 * L} and {L} of each backward kernel")
+    check(history[-1].mfu_pct > 0, "LoopMetrics MFU is 0")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -409,25 +719,52 @@ def main() -> int:
         return 2
     from kubeflow_rm_tpu_torch.models.llama import LlamaConfig, init_params
 
+    failures = []
+
+    def run(phase, fn, *args):
+        """Run one phase; a failure is recorded and the next phase runs."""
+        try:
+            return fn(*args)
+        except Exception as e:  # noqa: BLE001 - reported, then exit 1
+            traceback.print_exc()
+            failures.append(f"{phase}: {type(e).__name__}: {e}")
+            emit(phase, failed=str(e)[:2000])
+            return None
+
     name, smi = phase_device()
-    phase_build()
-    worst, timing = phase_kernels(name)
+    run("build", phase_build)
+    worst, timing = run("kernels", phase_kernels, name) or ({}, {})
 
     cfg = LlamaConfig.llama2_7b(param_dtype=torch.bfloat16)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
-    launches = phase_forward(cfg, params)
-    phase_serve(cfg, params)
+    paths = {"forward": run("forward", phase_forward, cfg, params)}
+    run("serve", phase_serve, cfg, params)
+    paths["train_grad"] = run("train_grad", phase_train_grad)
+    paths["train"] = run("train", phase_train, cfg, params)
+    if failures:
+        print("chip_smoke: FAILED\n  " + "\n  ".join(failures),
+              file=sys.stderr)
+        return 1
 
-    kernels = [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "kubeflow_rm_tpu_torch/kernels/csrc/flash_fwd.cu",
-        "replaces": "kubeflow_rm_tpu/ops/flash_attention.py:83",
-        "launches": launches, "max_abs_err": worst,
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"],
-    }]
+    sources = {"flash_fwd": ("flash_fwd.cu", 83),
+               "flash_bwd_dq": ("flash_bwd.cu", 279),
+               "flash_bwd_dkv": ("flash_bwd.cu", 321)}
+    kernels = []
+    for kname, (src, line) in sources.items():
+        t = timing[kname]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": f"kubeflow_rm_tpu_torch/kernels/csrc/{src}",
+            "replaces": f"kubeflow_rm_tpu/ops/flash_attention.py:{line}",
+            # this slice's main path is the trainer; every path's count
+            "launches": paths["train"][kname],
+            "launches_by_path": {p: c[kname] for p, c in paths.items()},
+            "max_abs_err": worst[kname],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,9 +11,10 @@ package it keeps as its own copy.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"`` (``device.default_device``); nothing moves to the CPU
-silently. The flash-attention forward is a hand-written Hopper kernel
-(``kernels/csrc/flash_fwd.cu``); on a CPU tensor its wrapper runs the
-plain PyTorch version instead.
+silently. Flash attention's forward and backward are hand-written
+Hopper kernels (``kernels/csrc/flash_fwd.cu``, ``flash_bwd.cu``); on a
+CPU tensor the op runs their plain PyTorch versions instead. Entry
+points: ``serve`` (the WSGI server) and ``finetune`` (the trainer).
 """
 
 from kubeflow_rm_tpu_torch.device import default_device

@@ -1,0 +1,110 @@
+"""Fine-tune a Llama with the port (counterpart of
+``examples/finetune_llama.py``).
+
+    python -m kubeflow_rm_tpu_torch.finetune --preset tiny --device cpu --steps 4
+    python -m kubeflow_rm_tpu_torch.finetune --preset llama2_7b --lora-rank 16 \\
+        --batch 2 --seq-len 2048 --data 'shards/*.jsonl' --checkpoint-dir ckpt
+
+Weights are random from a fixed seed (the port has no checkpoint
+converter yet). Without ``--data`` the batches are synthetic. With
+``--lora-rank`` only rank-r adapters on wq/wv train; the base is frozen
+and, since it never takes an update, stored in the compute dtype.
+``fit`` resumes from ``--checkpoint-dir`` when it holds a checkpoint.
+Not ported yet (ROADMAP.md): ``--hf-model``, ``--int8-base``/
+``--int4-base``, ``--tb-logdir``, ``--export-hf`` and the mesh flags.
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import sys
+from dataclasses import replace
+
+
+def main(argv=None) -> int:
+    import torch
+
+    from kubeflow_rm_tpu_torch.device import default_device
+    from kubeflow_rm_tpu_torch.models.generate import generate_fused
+    from kubeflow_rm_tpu_torch.models.llama import (
+        PRESETS, LlamaConfig, init_params,
+    )
+    from kubeflow_rm_tpu_torch.models.lora import add_lora
+    from kubeflow_rm_tpu_torch.training.checkpoint import Checkpointer
+    from kubeflow_rm_tpu_torch.training.data import (
+        jsonl_documents, packed_batches, synthetic_batches,
+    )
+    from kubeflow_rm_tpu_torch.training.loop import LoopConfig, fit
+    from kubeflow_rm_tpu_torch.training.optim import OptimConfig
+    from kubeflow_rm_tpu_torch.training.train import (
+        TrainConfig, init_train_state,
+    )
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--preset", default="tiny", choices=PRESETS)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=512)
+    ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--lora-rank", type=int, default=0,
+                    help="train rank-r adapters on wq/wv instead of full "
+                         "fine-tuning (frozen base: no grads, no moments)")
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--data", default=None,
+                    help="glob of pre-tokenized jsonl shards (default: "
+                         "synthetic)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' to run on "
+                         "the host)")
+    ap.add_argument("--sample", default=True,
+                    action=argparse.BooleanOptionalAction,
+                    help="greedy-decode a continuation at the end")
+    args = ap.parse_args(argv)
+
+    device = default_device(args.device)
+    model_cfg = getattr(LlamaConfig, args.preset)()
+    if args.lora_rank:
+        model_cfg = replace(model_cfg, param_dtype=model_cfg.dtype)
+    cfg = TrainConfig(model=model_cfg, optim=OptimConfig(
+        train_only="lora" if args.lora_rank else None,
+        total_steps=args.steps))
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = init_params(model_cfg, gen, device)
+    if args.lora_rank:
+        params = add_lora(params, args.lora_rank,
+                          generator=torch.Generator(device=device)
+                          .manual_seed(1))
+    # fit restores the latest checkpoint when there is one; otherwise it
+    # starts from these weights
+    state = None
+    if (args.checkpoint_dir is None
+            or Checkpointer(args.checkpoint_dir).latest_step() is None):
+        state = init_train_state(cfg, params=params)
+
+    if args.data:
+        docs = jsonl_documents(sorted(glob.glob(args.data)), seed=0)
+        batches = packed_batches(docs, args.batch, args.seq_len)
+    else:
+        batches = synthetic_batches(args.batch, args.seq_len,
+                                    model_cfg.vocab_size)
+    loop = LoopConfig(total_steps=args.steps,
+                      log_every=max(1, args.steps // 10),
+                      checkpoint_dir=args.checkpoint_dir,
+                      grad_accum=args.grad_accum)
+    state, history = fit(cfg, batches, loop, state=state, device=device)
+    for rec in history:
+        print(f"step {rec.step} loss {rec.loss:.4f} grad_norm "
+              f"{rec.grad_norm:.4f} {rec.tokens_per_sec:.0f} tok/s "
+              f"mfu {rec.mfu_pct:.1f}%")
+
+    if args.sample:
+        prompt = torch.ones((1, 4), dtype=torch.int32, device=device)
+        out = generate_fused(state.params, model_cfg, prompt,
+                             max_new_tokens=8)
+        print("sample token ids:", out[0].tolist())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

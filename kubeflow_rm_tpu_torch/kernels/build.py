@@ -29,13 +29,25 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-#: C signature of each kernel's entry point: (symbol, argtypes)
+#: C signatures of each library's entry points: {symbol: argtypes}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    "flash_fwd": ("kfrm_flash_fwd",
-                  [_P, _P, _P, _P, _P, _P, _P,       # q k v segq segkv o lse
-                   _I, _I, _I, _I, _I, _I,           # BH Hq T D group causal
-                   _F, _P]),                         # scale stream
+    "flash_fwd": {
+        "kfrm_flash_fwd": [_P, _P, _P, _P, _P, _P, _P,  # q k v segq segkv o lse
+                           _I, _I, _I, _I, _I, _I,      # BH Hq T D group causal
+                           _F, _P],                     # scale stream
+    },
+    "flash_bwd": {
+        "kfrm_flash_bwd_dq": [_P, _P, _P, _P,           # q k v do
+                              _P, _P, _P, _P, _P,       # lse delta segq segkv dq
+                              _I, _I, _I, _I, _I, _I,   # BH Hq T D group causal
+                              _F, _P],                  # scale stream
+        "kfrm_flash_bwd_dkv": [_P, _P, _P, _P,          # q k v do
+                               _P, _P, _P, _P,          # lse delta segq segkv
+                               _P, _P,                  # dk dv
+                               _I, _I, _I, _I, _I, _I,  # BKV Hq T D group causal
+                               _F, _P],                 # scale stream
+    },
 }
 
 _lock = threading.Lock()
@@ -107,10 +119,10 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             path = build([name])[name]
             lib = ctypes.CDLL(str(path))
-            symbol, argtypes = SIGNATURES[name]
-            fn = getattr(lib, symbol)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for symbol, argtypes in SIGNATURES[name].items():
+                fn = getattr(lib, symbol)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             lib.kfrm_error_string.argtypes = [ctypes.c_int]
             lib.kfrm_error_string.restype = ctypes.c_char_p
             _loaded[name] = lib

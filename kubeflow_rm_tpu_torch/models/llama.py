@@ -13,19 +13,27 @@ equal, as for bf16 serving), projections run in ``dtype``, RMSNorm and
 RoPE work in float32 internally, and the logits are ``x @ lm_head`` in
 ``dtype`` cast to float32.
 
-Training concerns (remat, meshes, ring/ulysses attention) belong to
-later slices of the port.
+Rematerialization (``LlamaConfig.remat``/``remat_policy``) wraps each
+block in ``torch.utils.checkpoint`` with the selective-checkpoint
+policies of ``models.remat``, which save what JAX's ``_remat_policy``
+saves (``llama.py:162-180``). Meshes and ring/ulysses attention belong to later
+slices of the port.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from functools import partial
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from kubeflow_rm_tpu_torch.models.lora import lora_proj
 from kubeflow_rm_tpu_torch.models.quantize import maybe_dequant
+from kubeflow_rm_tpu_torch.models.remat import (
+    checkpoint_name, remat_context_fn,
+)
 from kubeflow_rm_tpu_torch.ops.attention import dot_product_attention
 from kubeflow_rm_tpu_torch.ops.norms import rms_norm
 from kubeflow_rm_tpu_torch.ops.rope import apply_rope, rope_angles
@@ -44,6 +52,12 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
+    remat: bool = True
+    # "dots": save every projection output (fastest backward, the most
+    # activation memory); "full": save only the block inputs and
+    # recompute the block; "attn"/"mlp"/"attn+mlp": save the named
+    # activations only (_NAME_POLICIES)
+    remat_policy: str = "dots"
     # LoRA scaling (alpha/rank) for adapter-carrying params
     lora_alpha: float = 16.0
 
@@ -191,12 +205,15 @@ def _attention_half(cfg: LlamaConfig, x, layer, cos, sin, positions,
         return lora_proj(layer, name, t, alpha=cfg.lora_alpha,
                          dtype=cfg.dtype)
 
-    q = apply_rope(proj("wq", h).reshape(B, T, H, hd), cos, sin)
-    k = apply_rope(proj("wk", h).reshape(B, T, KVH, hd), cos, sin)
-    v = proj("wv", h).reshape(B, T, KVH, hd)
+    q = checkpoint_name(
+        apply_rope(proj("wq", h).reshape(B, T, H, hd), cos, sin), "q_rope")
+    k = checkpoint_name(
+        apply_rope(proj("wk", h).reshape(B, T, KVH, hd), cos, sin), "k_rope")
+    v = checkpoint_name(proj("wv", h).reshape(B, T, KVH, hd), "v_proj")
     attn = dot_product_attention(
         q, k, v, causal=True, positions_q=positions, positions_kv=positions,
         segment_ids_q=segments, segment_ids_kv=segments, impl=impl)
+    attn = checkpoint_name(attn, "attn_out")
     return x + proj("wo", attn.reshape(B, T, H * hd))
 
 
@@ -206,7 +223,9 @@ def _mlp(cfg: LlamaConfig, layer, h):
         return lora_proj(layer, name, t, alpha=cfg.lora_alpha,
                          dtype=cfg.dtype)
 
-    return proj("w_down", F.silu(proj("w_gate", h)) * proj("w_up", h))
+    gate = checkpoint_name(proj("w_gate", h), "mlp_gate")
+    up = checkpoint_name(proj("w_up", h), "mlp_up")
+    return proj("w_down", F.silu(gate) * up)
 
 
 def _block(cfg: LlamaConfig, x, layer, cos, sin, positions, segments, impl):
@@ -247,6 +266,9 @@ def forward(
     call on the flash kernel; without it explicit positions take the
     position-aware dense path. ``impl`` is passed to
     ``dot_product_attention`` ("auto", "flash" or "dense").
+
+    Where autograd records and ``cfg.remat`` is set, each block runs
+    under ``torch.utils.checkpoint`` with ``cfg.remat_policy``.
     """
     B, T = tokens.shape
     attn_positions = None if (positions is None or packed) else positions
@@ -256,7 +278,21 @@ def forward(
     x = embed(params, tokens, cfg)
     cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     blocks = params["blocks"]
+    block = partial(_block, cfg)
+    if cfg.remat and torch.is_grad_enabled():
+        # the block draws no random numbers: no RNG state to replay
+        block = partial(checkpoint, block, use_reentrant=False,
+                        preserve_rng_state=False,
+                        context_fn=remat_context_fn(cfg.remat_policy))
     for i in range(cfg.n_layers):
-        x = _block(cfg, x, layer_params(blocks, i), cos, sin,
-                   attn_positions, segments, impl)
+        x = block(x, layer_params(blocks, i), cos, sin, attn_positions,
+                  segments, impl)
     return logits_head(params, x, cfg)
+
+
+def forward_with_aux(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
+                     **kwargs):
+    """Uniform forward: ``(logits, aux)``, where aux is the MoE router
+    loss for MoE families and None for dense ones (only dense Llama is
+    ported)."""
+    return forward(params, tokens, cfg, **kwargs), None

@@ -1,16 +1,23 @@
-"""LoRA projections (counterpart of ``kubeflow_rm_tpu/models/lora.py``).
+"""LoRA adapters (counterpart of ``kubeflow_rm_tpu/models/lora.py``).
 
 Adapters are extra leaves beside the base weight — ``{name}_lora_a``
-(in, r) and ``{name}_lora_b`` (r, out) per layer — applied in factored
+(L, in, r) and ``{name}_lora_b`` (L, r, out) — applied in factored
 form, ``h @ w + (h @ a) @ b * alpha / r``, never materializing the
-(in, out) delta.
+(in, out) delta. ``b`` starts at zero, so the adapted model equals the
+base until the first update. Freezing lives in the train step
+(``training.train``, ``OptimConfig(train_only="lora")``): frozen leaves
+get no gradient and no optimizer moments.
 """
 
 from __future__ import annotations
 
 import torch
 
-from kubeflow_rm_tpu_torch.models.quantize import maybe_dequant
+from kubeflow_rm_tpu_torch.models.quantize import is_quantized, maybe_dequant
+from kubeflow_rm_tpu_torch.models.remat import project
+
+#: classic LoRA targets: the attention projections
+DEFAULT_TARGETS = ("wq", "wv")
 
 LORA_A = "_lora_a"
 LORA_B = "_lora_b"
@@ -20,13 +27,69 @@ def is_lora_name(name: str) -> bool:
     return name.endswith(LORA_A) or name.endswith(LORA_B)
 
 
+def add_lora(params: dict, rank: int, *, generator: torch.Generator,
+             targets: tuple[str, ...] = DEFAULT_TARGETS,
+             param_dtype: torch.dtype | None = None) -> dict:
+    """Return ``params`` extended with rank-``rank`` adapters on
+    ``targets``: ``a`` ~ N(0, 1)·0.02 drawn in float32 from
+    ``generator`` (which must live on the weights' device), ``b`` zeros,
+    both in ``param_dtype`` (default: the base weight's dtype). The base
+    tensors are shared, not copied. Quantized bases are not ported yet
+    and raise."""
+    blocks = dict(params["blocks"])
+    for t in targets:
+        if t not in blocks:
+            raise KeyError(f"lora target {t!r} not in blocks "
+                           f"({sorted(blocks)})")
+        w = blocks[t]
+        if is_quantized(w):
+            maybe_dequant(w, torch.float32)   # raises: quantization slice
+        L, d_in, d_out = w.shape
+        dt = param_dtype or w.dtype
+        a = torch.randn((L, d_in, rank), generator=generator,
+                        dtype=torch.float32, device=w.device)
+        blocks[t + LORA_A] = (a * 0.02).to(dt)
+        blocks[t + LORA_B] = torch.zeros((L, rank, d_out), dtype=dt,
+                                         device=w.device)
+    return dict(params, blocks=blocks)
+
+
 def lora_proj(layer: dict, name: str, h: torch.Tensor, *, alpha: float,
               dtype: torch.dtype) -> torch.Tensor:
     """``h @ w`` plus the factored adapter delta when ``layer`` has one."""
-    out = h @ maybe_dequant(layer[name], dtype)
+    out = project(h, maybe_dequant(layer[name], dtype), name)
     a = layer.get(name + LORA_A)
     if a is None:
         return out
     b = layer[name + LORA_B]
     rank = a.shape[-1]
     return out + (h @ a.to(dtype)) @ b.to(dtype) * (alpha / rank)
+
+
+def merge_lora(params: dict, *, alpha: float) -> dict:
+    """Fold the adapters into their base weights (serving form): in
+    float32, cast back to the base dtype; adapter leaves are dropped."""
+    src = params["blocks"]
+    blocks = {}
+    for k, v in src.items():
+        if is_lora_name(k):
+            continue
+        a = src.get(k + LORA_A)
+        if a is None:
+            blocks[k] = v
+            continue
+        if is_quantized(v):
+            raise ValueError(
+                f"cannot merge adapters into quantized base weight {k!r}")
+        b = src[k + LORA_B]
+        delta = torch.einsum("lir,lro->lio", a.float(), b.float())
+        blocks[k] = (v.float() + delta * (alpha / a.shape[-1])).to(v.dtype)
+    return dict(params, blocks=blocks)
+
+
+def lora_mask(params: dict) -> dict:
+    """True for adapter leaves — the trainable set — with the nesting of
+    ``params``."""
+    return {name: (lora_mask(leaf) if isinstance(leaf, dict)
+                   else is_lora_name(name))
+            for name, leaf in params.items()}

@@ -1,6 +1,7 @@
-"""Package rules of the PyTorch port: it imports no JAX and nothing of the
-JAX package, it never runs on the CPU unless asked, and on the CPU the
-flash wrapper never tries to build or launch its CUDA kernel."""
+"""Package rules of the PyTorch port: it imports no JAX, nothing of the
+JAX package and neither optax nor orbax (both import JAX), it never
+runs on the CPU unless asked, and on the CPU the flash op never tries
+to build or launch its CUDA kernels, forward or backward."""
 
 import ast
 import os
@@ -35,13 +36,20 @@ def _imported_modules(path: Path):
 def test_no_jax_or_jax_package_imports(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "kubeflow_rm_tpu"), \
-            f"{path.name} imports {mod}"
+        assert top not in ("jax", "jaxlib", "kubeflow_rm_tpu", "optax",
+                           "orbax"), f"{path.name} imports {mod}"
 
 
 def test_port_files_exist():
     assert (ROOT / "chip_smoke.py").exists()
-    assert (build.CSRC / "flash_fwd.cu").exists()
+    for name in build.SIGNATURES:
+        assert (build.CSRC / f"{name}.cu").exists()
+    assert set(build.SIGNATURES) == {"flash_fwd", "flash_bwd"}
+    # the import rule above reaches every subpackage of the port
+    packages = {p.parent.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert {"kubeflow_rm_tpu_torch/training", "kubeflow_rm_tpu_torch/utils",
+            "kubeflow_rm_tpu_torch/models",
+            "kubeflow_rm_tpu_torch/ops"} <= packages
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
@@ -62,11 +70,15 @@ def test_cpu_flash_never_builds_the_kernel(monkeypatch):
     monkeypatch.setattr(build, "build", refuse)
     monkeypatch.setattr(build, "load", refuse)
     monkeypatch.setattr(build, "_start", refuse)
-    before = fa.flash_fwd.launches
+    wrappers = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    before = [w.launches for w in wrappers]
     q = torch.randn(1, 128, 2, 64, generator=torch.Generator().manual_seed(0))
-    out = fa.flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16())
+    q = q.bfloat16().requires_grad_(True)
+    out = fa.flash_attention(q, q, q)
     assert out.shape == q.shape and out.dtype == torch.bfloat16
-    assert fa.flash_fwd.launches == before
+    out.float().sum().backward()
+    assert q.grad is not None and q.grad.shape == q.shape
+    assert [w.launches for w in wrappers] == before
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
