@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` into its own shared library for ``sm_90a``, then loaded with
 ``ctypes`` — no PyTorch headers, so a build takes seconds, not minutes.
 Libraries land in ``kernels/_build/`` (git-ignored), named by a hash of
-the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused.
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source or header is rebuilt and an unchanged one is reused.
 
 Nothing here runs at import time: the first ``load(name)`` builds,
 and only the kernel wrappers call it, only for CUDA tensors.
@@ -71,7 +71,9 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    tag = hashlib.sha256(src + headers
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{tag[:16]}.so"
 
 
