@@ -9,8 +9,8 @@ prints one JSON line per phase:
 1. device  — the card, as torch and ``nvidia-smi`` name it.
 2. build   — compiles every kernel under ``kubeflow_rm_tpu_torch/
    kernels/csrc`` with nvcc for sm_90a (one nvcc per source, in
-   parallel) and prints the ptxas report; no kernel may spill, nor have
-   its ``setmaxnreg`` ignored (C7508).
+   parallel) and prints the ptxas report; no kernel may spill, have its
+   ``setmaxnreg`` ignored (C7508) or its ``wgmma``s serialised (C7520).
 3. kernels — each kernel's wrapper against its plain PyTorch version on
    the card, at the main path's shapes and at edge cases (GQA,
    non-causal, segment ids with rows that match no key, a ragged T,
@@ -110,9 +110,10 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3,
 def device_profile(fn, top: int = 6) -> dict:
     """Run ``fn`` once under ``torch.profiler`` (CPU + CUDA) and return
     the host wall time, the device's busy time (union of kernel
-    intervals), its idle share of the wall, and the top kernels by
-    total device time. The profiler's own host cost inflates the wall,
-    so the idle share is an upper bound."""
+    intervals), its idle share of the wall, the top kernels by total
+    device time, and the port's flash kernels' totals wherever they
+    rank. The profiler's own host cost inflates the wall, so the idle
+    share is an upper bound."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -138,13 +139,16 @@ def device_profile(fn, top: int = 6) -> dict:
             busy += end - max(start, last)
             last = end
     kernels = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    flash = sorted((n, tc) for n, tc in by_name.items() if "flash_" in n)
     return {"wall_ms": wall_us / 1e3,
             "device_busy_ms": busy / 1e3 if spans else "not measured",
             "device_idle_share": (1 - busy / wall_us) if spans
             else "not measured",
             "kernel_launches": len(spans),
             "top_kernels": [{"name": n, "ms": t / 1e3, "count": c}
-                            for n, (t, c) in kernels]}
+                            for n, (t, c) in kernels],
+            "flash_kernels": [{"name": n, "ms": t / 1e3, "count": c}
+                              for n, (t, c) in flash]}
 
 
 def peaks_for(name: str):
@@ -191,11 +195,15 @@ def phase_build():
              for n, log in build.build_logs.items()}
     emit("build", seconds=round(secs, 3),
          libraries={n: p.name for n, p in libs.items()}, ptxas=ptxas)
-    # the kernels' register budgets hold: nothing spills, and setmaxnreg
-    # is taken (ptxas warns C7508 where it ignores it)
+    # the kernels' register budgets hold: nothing spills, setmaxnreg is
+    # taken (ptxas warns C7508 where it ignores it), and no wgmma is
+    # serialised (C7520, e.g. one issued under a branch, or any other
+    # "wgmma.mma_async instructions are serialized" report)
     for n, lines in ptxas.items():
         for ln in lines:
             check("C7508" not in ln, f"{n}: setmaxnreg ignored: {ln}")
+            check("C7520" not in ln and "serialized" not in ln,
+                  f"{n}: wgmma serialised: {ln}")
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                               r"loads", ln)
             check(spill is None or spill.groups() == ("0", "0"),

@@ -22,14 +22,44 @@
 // (B·Hq, T) fp32; segq/segkv optional (B, T) int32. GQA without copies:
 // q row bh reads kv row bh / group.
 //
-// Design of dq (a redesign waits for its own change): one CTA of four
-// warps per (q row bh, 64-row q tile); each warp owns 16 rows of the
-// tile, so the per-row work (masking, exp, δ) never leaves the warp and
-// the only CTA-wide barriers are around the shared tile loads. Products
-// are bf16 WMMA (mma.sync) tiles with fp32 accumulation; the dQ
-// accumulator (16 x D per warp) lives in registers. It loops over kv
-// tiles, the TPU grid's sequential axis; causal: kv tiles wholly in the
-// future of the q tile are skipped.
+// Design of dq (warp-specialised, 384 threads; one CTA per (q row bh,
+// pair of 128-row q tiles nq − 1 − x and x, the heavy one first), so that
+// under the causal mask every CTA has the same work; blocks start in x
+// order, so the q tiles of one head and the q heads of one GQA group run
+// side by side and share K and V through L2):
+// - Warpgroup 0 is the producer: it gives its registers away
+//   (setmaxnreg) and one warp loads the two Q and dO tiles once by TMA,
+//   then streams K and V tile after tile (DQ_BK rows), for one q tile and
+//   then the other, through a K ring and a V ring of DQ_STAGES stages
+//   (`full`/`empty` mbarriers). The kv segment ids (4·T-byte rows, not
+//   TMA-alignable) travel with the K stage by ordinary loads of that warp.
+// - Warpgroups 1 and 2 are the consumers, 64 q rows each. Each thread
+//   holds its two rows' lse·log2(e), δ and segment id in registers
+//   (ordinary loads). Per kv tile, three wgmmas with fp32 accumulators in
+//   registers: S = Q·Kᵀ and dP = dO·Vᵀ with both operands in shared
+//   memory (K-major, m64n64k16), then dQ += dS·K with dS rounded to bf16
+//   in registers as the A operand and K read MN-major (the transpose
+//   bit). Section j issues S_j and dP_j together with dQ += dS_{j−1}·
+//   K_{j−1} and computes dS_j while that product runs; the first and the
+//   last section are peeled so that no wgmma is issued under a branch
+//   (ptxas serialises it there, C7520). V_j is released after dP_j, K_j
+//   only after its dQ product one section later, so the K ring is three
+//   deep to keep a load in flight. Nothing of S, dP or dS goes through
+//   shared memory; dQ (64 x D fp32 a warpgroup) stays in registers and
+//   is written as bf16, rows < T, at the end.
+// - DQ_BK = 64: S + dP + dQ + bf16 dS take 32 + 32 + 64 + 16 = 144
+//   registers a consumer thread at D = 128, under its 240 (DQ_BK = 128
+//   would take 224). Shared memory at D = 128: both q tiles' Q and dO
+//   (128 KB, resident) + three K and V stages (96 KB) + segment ids and
+//   barriers = 230,256 bytes, + 1024 alignment slack under the 232,448 a
+//   block may use.
+// - Causal: kv tiles wholly in the future of the q tile are never
+//   loaded; warpgroup 0 (the tile's first 64 rows) skips the last one,
+//   wholly in its rows' future, releasing it once it has arrived. Masking
+//   (causal, segments, ragged last kv tile) is `mask_tile`, the forward's
+//   −inf pass, on the tiles that need it, before the one code path for P
+//   and dS: P = exp2(S·scale·log2e − lse·log2e) is then 0 exactly where
+//   masked, even for a row that matched no key, and so is dS.
 //
 // Design of dkv (warp-specialised, 384 threads; one CTA per (kv row,
 // pair of 128-row kv tiles x and nkv − 1 − x, the heavy one first), so
@@ -67,249 +97,335 @@
 // causal) dq does three products and dkv four over ~134 M causal (q, k)
 // pairs: ~103 and ~137 GFLOP against ~0.17/0.20 GB of inputs and outputs,
 // far above the H100's ~295 bf16 FLOP/byte ridge, so the tensor cores
-// bound both. Measured times are in PERF.md.
+// bound both (at 989 TFLOP/s: dq 0.104 ms, dkv 0.139 ms). Measured times
+// are in PERF.md.
 
 #include "hopper.cuh"
-
-#include <mma.h>
-
-using namespace nvcuda;
 
 namespace {
 
 using namespace hopper;
 
-constexpr int BQ = 64;                   // q rows per tile
-constexpr int BK = 64;                   // kv rows per tile
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int WROWS = 16;                // rows of the CTA's tile per warp
+// both kernels: a producer warpgroup and two consumer warpgroups
+// (hopper.cuh holds the TMA / wgmma / mbarrier pieces)
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
 
-// dkv (hopper.cuh holds the TMA / wgmma / mbarrier pieces)
+// dq
+constexpr int DQ_BQ = 128;               // q rows per tile: two consumer warpgroups
+constexpr int DQ_BK = 64;                // kv rows per ring stage
+constexpr int DQ_STAGES = 3;             // depth of the K and V rings
+constexpr int DQ_WG_ROWS = 64;           // q rows per consumer warpgroup
+constexpr int DQ_THREADS = 384;          // producer warpgroup + 2 consumers
+
+// dkv
 constexpr int DKV_BKV = 128;             // kv rows per CTA: two consumer warpgroups
 constexpr int DKV_BQ = 64;               // q rows per ring stage
 constexpr int DKV_STAGES = 2;            // depth of the Q/dO ring
 constexpr int DKV_WG_ROWS = 64;          // kv rows per consumer warpgroup
 constexpr int DKV_THREADS = 384;         // producer warpgroup + 2 consumers
-constexpr int DKV_PRODUCER_REGS = 24;
-constexpr int DKV_CONSUMER_REGS = 240;
-
-using bf16 = __nv_bfloat16;
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragBrow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBcol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// Padded row strides (+8 bf16 / +4 fp32) spread WMMA loads over the
-// banks; every region and every 16 x 16 sub-tile stays 32-byte aligned.
-template <int D>
-struct Strides {
-  static constexpr int LDT = D + 8;      // bf16 (64, D) tiles
-  static constexpr int LDS = 64 + 4;     // fp32 (64, 64) score tiles
-  static constexpr int LDP = 64 + 8;     // bf16 (64, 64) P / dS tiles
-  static constexpr int LDA = D + 4;      // fp32 (64, D) accumulators
-  static constexpr int TILE = 64 * LDT * 2;
-  static constexpr int SCORE = 64 * LDS * 4;
-  static constexpr int PROB = 64 * LDP * 2;
-  static constexpr int ACC = 64 * LDA * 4;
-};
-
-template <int D>
-struct DqLayout : Strides<D> {
-  using S_ = Strides<D>;
-  static constexpr int Q = 0;
-  static constexpr int DO = Q + S_::TILE;
-  static constexpr int K = DO + S_::TILE;
-  static constexpr int V = K + S_::TILE;
-  static constexpr int S = V + S_::TILE;
-  static constexpr int DP = S + S_::SCORE;
-  static constexpr int DS = DP + S_::SCORE;
-  static constexpr int SEG = DS + S_::PROB;        // segkv of the kv tile
-  static constexpr int LSE = SEG + BK * 4;         // per q row of the tile
-  static constexpr int DELTA = LSE + BQ * 4;
-  static constexpr int SEGQ = DELTA + BQ * 4;
-  static constexpr int BYTES = SEGQ + BQ * 4;
-  // the epilogue stages dQ (fp32) over the Q and dO tiles
-  static_assert(S_::ACC <= 2 * S_::TILE, "dQ staging must fit over Q, dO");
-  static_assert(DO % 128 == 0 && K % 128 == 0 && V % 128 == 0 &&
-                    S % 128 == 0 && DP % 128 == 0 && DS % 128 == 0 &&
-                    SEG % 128 == 0,
-                "shared-memory regions must stay aligned");
-};
-
-// rows [r0, r0 + 64) of a (T, D) bf16 matrix into a padded smem tile,
-// 16 bytes per thread per step; rows past T are zero.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0,
-                                          int T, int tid) {
-  constexpr int VEC = 8;
-  constexpr int PER_ROW = D / VEC;
-  for (int e = tid; e < 64 * PER_ROW; e += THREADS) {
-    const int r = e / PER_ROW;
-    const int c = (e % PER_ROW) * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < T) {
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * Strides<D>::LDT + c) = val;
-  }
-}
-
-// out (16 x 64, fp32, stride LDS) = A_w (16 x D, rows of a tile) ·
-// Bᵀ (B a (64, D) tile read as a col-major operand)
-template <int D>
-__device__ __forceinline__ void rows_times_tile_t(float* out, const bf16* a,
-                                                  const bf16* b) {
-  constexpr int LDT = Strides<D>::LDT;
-  FragC c[BK / 16];
-#pragma unroll
-  for (int n = 0; n < BK / 16; ++n) wmma::fill_fragment(c[n], 0.0f);
-#pragma unroll
-  for (int kk = 0; kk < D; kk += 16) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, a + kk, LDT);
-#pragma unroll
-    for (int n = 0; n < BK / 16; ++n) {
-      FragBcol fb;  // element (d, col) = b[col][d]
-      wmma::load_matrix_sync(fb, b + n * 16 * LDT + kk, LDT);
-      wmma::mma_sync(c[n], fa, fb, c[n]);
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < BK / 16; ++n) {
-    wmma::store_matrix_sync(out + n * 16, c[n], Strides<D>::LDS,
-                            wmma::mem_row_major);
-  }
-}
 
 // ---------------------------------------------------------------------
-// dQ: one CTA per (bh, 64-row q tile), loop over kv tiles
+// dQ: one CTA per (q row, pair of 128-row q tiles), loop over kv tiles
 // ---------------------------------------------------------------------
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+struct DqSmem {
+  bf16 q[2][DQ_BQ * D];              // the CTA's two q tiles, each D/64
+  bf16 dout[2][DQ_BQ * D];           // swizzled chunks of (rows x 64)
+  bf16 k[DQ_STAGES][DQ_BK * D];
+  bf16 v[DQ_STAGES][DQ_BK * D];
+  int segkv[DQ_STAGES][DQ_BK];       // travels with K
+  uint64_t q_full[2];
+  uint64_t k_full[DQ_STAGES], k_empty[DQ_STAGES];
+  uint64_t v_full[DQ_STAGES], v_empty[DQ_STAGES];
+};
+static_assert(sizeof(DqSmem<128>) + 1024 <= 232448,
+              "dq's shared memory must fit one block");
+
+// the kv tiles that q rows [r0, r0 + rows) read: causal stops at the
+// diagonal of the last row
+__device__ __forceinline__ int dq_kv_tiles(int r0, int rows, int nk,
+                                           int causal) {
+  return causal ? min(nk, (r0 + rows - 1) / DQ_BK + 1) : nk;
+}
+
+template <int D>
+__device__ __forceinline__ void dq_producer(
+    DqSmem<D>& sm, const CUtensorMap* map_q, const CUtensorMap* map_k,
+    const CUtensorMap* map_v, const CUtensorMap* map_do,
+    const int* __restrict__ segkv, int bh, int b, int kvh, const TilePair& q0,
+    int nk, int causal, int T) {
+  const int lane = threadIdx.x % 32;
+  if (lane == 0) {
+    for (int p = 0; p < q0.count; ++p) {
+      mbar_arrive_expect_tx(&sm.q_full[p], 2 * DQ_BQ * D * 2);
+      tma_load_tile<D, DQ_BQ>(sm.q[p], map_q, &sm.q_full[p], q0[p], bh);
+      tma_load_tile<D, DQ_BQ>(sm.dout[p], map_do, &sm.q_full[p], q0[p], bh);
+    }
+  }
+  int it = 0;   // position in the rings, continued from one q tile to the next
+  for (int p = 0; p < q0.count; ++p) {
+    const int n_tiles = dq_kv_tiles(q0[p], DQ_BQ, nk, causal);
+    for (int j = 0; j < n_tiles; ++j, ++it) {
+      const int s = it % DQ_STAGES;
+      const uint32_t parity = ((it / DQ_STAGES) & 1) ^ 1;
+      mbar_wait(&sm.k_empty[s], parity);
+      if (segkv != nullptr) {
+        for (int c = lane; c < DQ_BK; c += 32) {
+          const int col = j * DQ_BK + c;
+          sm.segkv[s][c] = col < T ? segkv[(size_t)b * T + col] : 0;
+        }
+      }
+      if (lane == 0) {   // the 32nd arrival, with the tile's TMA bytes
+        mbar_arrive_expect_tx(&sm.k_full[s], DQ_BK * D * 2);
+        tma_load_tile<D, DQ_BK>(sm.k[s], map_k, &sm.k_full[s], j * DQ_BK,
+                                kvh);
+      } else {
+        mbar_arrive(&sm.k_full[s]);
+      }
+      mbar_wait(&sm.v_empty[s], parity);
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&sm.v_full[s], DQ_BK * D * 2);
+        tma_load_tile<D, DQ_BK>(sm.v[s], map_v, &sm.v_full[s], j * DQ_BK,
+                                kvh);
+      }
+    }
+  }
+}
+
+// In place on the S and dP accumulators of one kv tile: P =
+// exp2(S·scale·log2e − lse·log2e) and dS = P∘(dP − δ)·scale, left in dp.
+// A masked score is −inf here, so its p is exp2(−inf) = 0 exactly (lse
+// is finite: NEG_INF for a row that matched no key) and so is its ds.
+__device__ __forceinline__ void dq_grads(const float (&s)[DQ_BK / 2],
+                                         float (&dp)[DQ_BK / 2],
+                                         float lse2_0, float lse2_1,
+                                         float delta0, float delta1,
+                                         float scale, float scale_log2) {
+#pragma unroll
+  for (int n = 0; n < DQ_BK / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float p0 = ex2(fmaf(s[4 * n + e], scale_log2, -lse2_0));
+      const float p1 = ex2(fmaf(s[4 * n + 2 + e], scale_log2, -lse2_1));
+      dp[4 * n + e] = p0 * (dp[4 * n + e] - delta0) * scale;
+      dp[4 * n + 2 + e] = p1 * (dp[4 * n + 2 + e] - delta1) * scale;
+    }
+  }
+}
+
+// One q tile (shared-memory slot p, first row q0) against the n_load kv
+// tiles the producer streams for it, which hold ring positions it0,
+// it0 + 1, ...
+template <int D>
+__device__ __forceinline__ void dq_consume_tile(
+    DqSmem<D>& sm, int p, const float* __restrict__ lse,
+    const float* __restrict__ delta, const int* __restrict__ segq,
+    bf16* __restrict__ dq, int bh, int b, int q0, int n_load, int it0, int T,
+    int causal, float scale) {
+  const int cw = threadIdx.x / 128 - 1;        // consumer warpgroup 0 / 1
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  const int wg_first = q0 + cw * DQ_WG_ROWS;   // its first q row
+  const int row0 = wg_first + warp * 16 + lane / 4;
+  const int row1 = row0 + 8;
+  const int quad = 2 * (lane % 4);             // column offset in an n8 block
+  const bool seg = segq != nullptr;
+  // causal: the q tile's last kv tile lies wholly in the future of
+  // warpgroup 0's rows
+  const int n_tiles = dq_kv_tiles(wg_first, DQ_WG_ROWS, n_load, causal);
+  float lse2_0 = 0.0f, lse2_1 = 0.0f, delta0 = 0.0f, delta1 = 0.0f;
+  int sq0 = 0, sq1 = 0;
+  if (row0 < T) {
+    lse2_0 = lse[(size_t)bh * T + row0] * LOG2E;
+    delta0 = delta[(size_t)bh * T + row0];
+    if (seg) sq0 = segq[(size_t)b * T + row0];
+  }
+  if (row1 < T) {
+    lse2_1 = lse[(size_t)bh * T + row1] * LOG2E;
+    delta1 = delta[(size_t)bh * T + row1];
+    if (seg) sq1 = segq[(size_t)b * T + row1];
+  }
+  const float scale_log2 = scale * LOG2E;
+
+  float acc[D / 2];                            // dQ
+  float s[DQ_BK / 2], dp[DQ_BK / 2];           // S, dP (then dS)
+  uint32_t dsa[DQ_BK / 16][4];                 // dS of the previous tile
+#pragma unroll
+  for (int x = 0; x < D / 2; ++x) acc[x] = 0.0f;
+#pragma unroll
+  for (int x = 0; x < DQ_BK / 2; ++x) s[x] = dp[x] = 0.0f;
+
+  mbar_wait(&sm.q_full[p], 0);
+  const bf16* qw = sm.q[p] + cw * DQ_WG_ROWS * 64;   // this warpgroup's rows
+  const bf16* dow = sm.dout[p] + cw * DQ_WG_ROWS * 64;
+  auto stage = [&](int j) { return (it0 + j) % DQ_STAGES; };
+  auto phase = [&](int j) { return uint32_t((it0 + j) / DQ_STAGES) & 1u; };
+
+  // S_j = Q·K_jᵀ, dP_j = dO·V_jᵀ: one commit group
+  auto issue_s_dp = [&](int st) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int chunk = kk / 4, off = (kk % 4) * 16;
+      wgmma_ss<DQ_BK>(
+          s, desc_b128(qw + chunk * DQ_BQ * 64 + off, 16, 1024),
+          desc_b128(sm.k[st] + chunk * DQ_BK * 64 + off, 16, 1024), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int chunk = kk / 4, off = (kk % 4) * 16;
+      wgmma_ss<DQ_BK>(
+          dp, desc_b128(dow + chunk * DQ_BQ * 64 + off, 16, 1024),
+          desc_b128(sm.v[st] + chunk * DQ_BK * 64 + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+  };
+  // dQ += dS·K (K MN-major as the B operand): the next commit group
+  auto issue_dq = [&](int st) {
+#pragma unroll
+    for (int kk = 0; kk < DQ_BK / 16; ++kk) {
+      wgmma_rs_t<D>(acc, dsa[kk],
+                    desc_b128(sm.k[st] + kk * 16 * 64, DQ_BK * 64 * 2, 1024));
+    }
+    wgmma_commit();
+  };
+  auto grads = [&](int j) {
+    const int st = stage(j), k0 = j * DQ_BK;
+    // every entry survives unless the tile straddles the diagonal, holds
+    // keys past T, or segments are given
+    const bool masked = seg || k0 + DQ_BK > T ||
+                        (causal && k0 + DQ_BK - 1 > wg_first);
+    if (masked) {
+      mask_tile<DQ_BK>(s, seg ? sm.segkv[st] : nullptr, k0, row0, row1, sq0,
+                       sq1, T, causal, quad);
+    }
+    dq_grads(s, dp, lse2_0, lse2_1, delta0, delta1, scale, scale_log2);
+  };
+
+  // section 0: S_0 and dP_0 only (dQ is still 0)
+  mbar_wait(&sm.k_full[stage(0)], phase(0));
+  mbar_wait(&sm.v_full[stage(0)], phase(0));
+  fence_regs(s);
+  fence_regs(dp);
+  wgmma_fence();
+  issue_s_dp(stage(0));
+  wgmma_wait<0>();
+  fence_regs(s);
+  fence_regs(dp);
+  mbar_arrive(&sm.v_empty[stage(0)]);
+  grads(0);
+  acc_to_a<DQ_BK>(dp, dsa);
+
+  for (int j = 1; j < n_tiles; ++j) {
+    const int st = stage(j), sp = stage(j - 1);
+    mbar_wait(&sm.k_full[st], phase(j));
+    mbar_wait(&sm.v_full[st], phase(j));
+    fence_regs(s);
+    fence_regs(dp);
+    fence_regs(acc);
+    wgmma_fence();
+    issue_s_dp(st);
+    issue_dq(sp);
+    wgmma_wait<1>();                           // S_j, dP_j are in registers
+    fence_regs(s);
+    fence_regs(dp);
+    mbar_arrive(&sm.v_empty[st]);
+    grads(j);
+    wgmma_wait<0>();                           // dQ += dS_{j−1}·K_{j−1} done
+    fence_regs(acc);
+    mbar_arrive(&sm.k_empty[sp]);
+    acc_to_a<DQ_BK>(dp, dsa);                  // dS_j, bf16, for section j + 1
+  }
+
+  // last section: dQ += dS_{n−1}·K_{n−1}
+  {
+    const int sp = stage(n_tiles - 1);
+    fence_regs(acc);
+    wgmma_fence();
+    issue_dq(sp);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(&sm.k_empty[sp]);
+  }
+
+  // A tile this warpgroup skips is released only once it has arrived:
+  // an arrival before the load could complete the phase of the stage's
+  // previous use while the other warpgroup still reads it.
+  for (int j = n_tiles; j < n_load; ++j) {
+    mbar_wait(&sm.k_full[stage(j)], phase(j));
+    mbar_wait(&sm.v_full[stage(j)], phase(j));
+    mbar_arrive(&sm.k_empty[stage(j)]);
+    mbar_arrive(&sm.v_empty[stage(j)]);
+  }
+
+  // epilogue: rows < T, bf16
+  __nv_bfloat162* out0 =
+      reinterpret_cast<__nv_bfloat162*>(dq + ((size_t)bh * T + row0) * D);
+  __nv_bfloat162* out1 =
+      reinterpret_cast<__nv_bfloat162*>(dq + ((size_t)bh * T + row1) * D);
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int c2 = (n * 8 + quad) / 2;
+    if (row0 < T) out0[c2] = __floats2bfloat162_rn(acc[4 * n], acc[4 * n + 1]);
+    if (row1 < T) {
+      out1[c2] = __floats2bfloat162_rn(acc[4 * n + 2], acc[4 * n + 3]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(DQ_THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    const __grid_constant__ CUtensorMap map_do,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
                     const int* __restrict__ segq,
                     const int* __restrict__ segkv, bf16* __restrict__ dq,
                     int T, int Hq, int group, int causal, float scale) {
-  using L = DqLayout<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::Q);
-  bf16* sDO = reinterpret_cast<bf16*>(smem + L::DO);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::K);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::V);
-  float* sS = reinterpret_cast<float*>(smem + L::S);
-  float* sDP = reinterpret_cast<float*>(smem + L::DP);
-  bf16* sDS = reinterpret_cast<bf16*>(smem + L::DS);
-  int* sSeg = reinterpret_cast<int*>(smem + L::SEG);
-  float* sLse = reinterpret_cast<float*>(smem + L::LSE);
-  float* sDelta = reinterpret_cast<float*>(smem + L::DELTA);
-  int* sSegQ = reinterpret_cast<int*>(smem + L::SEGQ);
+  extern __shared__ unsigned char smem_raw[];
+  DqSmem<D>& sm = *reinterpret_cast<DqSmem<D>*>(align1024(smem_raw));
 
-  const int bh = blockIdx.x;
-  const int i = gridDim.y - 1 - blockIdx.y;  // late (heavy) q tiles first
+  // A CTA takes q tiles nq − 1 − x and x, one after the other: under the
+  // causal mask every CTA then has the same work, and blocks start in x
+  // order, so the q tiles of one head (and the heads of one GQA group)
+  // run side by side and share its K and V through L2.
+  const int bh = blockIdx.y;
   const int b = bh / Hq;
-  const int kvh = bh / group;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int q0 = i * BQ;
-  const int wr0 = warp * WROWS;
+  const int nq = (T + DQ_BQ - 1) / DQ_BQ;
+  const int nk = (T + DQ_BK - 1) / DQ_BK;
+  const TilePair q0 = tile_pair(blockIdx.x, nq, DQ_BQ, true);
 
-  load_tile<D>(sQ, q + (size_t)bh * T * D, q0, T, tid);
-  load_tile<D>(sDO, dout + (size_t)bh * T * D, q0, T, tid);
-  const bf16* kb = k + (size_t)kvh * T * D;
-  const bf16* vb = v + (size_t)kvh * T * D;
-
-  // per-row statistics in shared memory, not registers: the dQ
-  // accumulator already holds D/2 registers per thread
-  if (tid < BQ) {
-    const int row = q0 + tid;
-    const bool in = row < T;
-    sLse[tid] = in ? lse[(size_t)bh * T + row] : 0.0f;
-    sDelta[tid] = in ? delta[(size_t)bh * T + row] : 0.0f;
-    sSegQ[tid] = (segq != nullptr && in) ? segq[(size_t)b * T + row] : 0;
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full[0], 1);
+    mbar_init(&sm.q_full[1], 1);
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      mbar_init(&sm.k_full[s], 32);           // the producer warp's lanes
+      mbar_init(&sm.v_full[s], 1);
+      mbar_init(&sm.k_empty[s], 2 * 128);     // every consumer thread
+      mbar_init(&sm.v_empty[s], 2 * 128);
+    }
+    mbar_fence_init();
   }
-
-  FragC acc[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(acc[n], 0.0f);
-
-  int n_tiles = (T + BK - 1) / BK;
-  if (causal) n_tiles = min(n_tiles, (q0 + BQ - 1) / BK + 1);
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * BK;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D>(sK, kb, k0, T, tid);
-    load_tile<D>(sV, vb, k0, T, tid);
-    if (segkv != nullptr && tid < BK) {
-      sSeg[tid] = (k0 + tid < T) ? segkv[(size_t)b * T + k0 + tid] : 0;
-    }
-    __syncthreads();
-
-    rows_times_tile_t<D>(sS + wr0 * L::LDS, sQ + wr0 * L::LDT, sK);
-    rows_times_tile_t<D>(sDP + wr0 * L::LDS, sDO + wr0 * L::LDT, sV);
-    __syncwarp();
-
-    // dS for the warp's 16 rows; lane owns columns lane, lane + 32
-#pragma unroll 4
-    for (int r = 0; r < WROWS; ++r) {
-      const int row = q0 + wr0 + r;
-      const float row_lse = sLse[wr0 + r];
-      const float row_delta = sDelta[wr0 + r];
-      const int row_seg = sSegQ[wr0 + r];
-      const float* srow = sS + (wr0 + r) * L::LDS;
-      const float* dprow = sDP + (wr0 + r) * L::LDS;
-      bf16* dsrow = sDS + (wr0 + r) * L::LDP;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int col = lane + 32 * h;
-        const int colg = k0 + col;
-        bool keep = row < T && colg < T;
-        if (causal) keep = keep && (row >= colg);
-        if (segq != nullptr) keep = keep && (row_seg == sSeg[col]);
-        const float p = keep ? expf(srow[col] * scale - row_lse) : 0.0f;
-        dsrow[col] = __float2bfloat16(p * (dprow[col] - row_delta) * scale);
-      }
-    }
-    __syncwarp();
-
-    // dQ_w (16 x D) += dS_w (16 x 64) · K (64 x D)
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      FragA fa;
-      wmma::load_matrix_sync(fa, sDS + wr0 * L::LDP + kk, L::LDP);
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        FragBrow fb;
-        wmma::load_matrix_sync(fb, sK + kk * L::LDT + n * 16, L::LDT);
-        wmma::mma_sync(acc[n], fa, fb, acc[n]);
-      }
-    }
-  }
-
-  // epilogue: stage dQ (fp32) over the Q/dO tiles, write bf16 rows < T
   __syncthreads();
-  float* stage = reinterpret_cast<float*>(smem + L::Q);
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::store_matrix_sync(stage + wr0 * L::LDA + n * 16, acc[n], L::LDA,
-                            wmma::mem_row_major);
-  }
-  __syncwarp();
-#pragma unroll
-  for (int r = 0; r < WROWS; ++r) {
-    const int row = q0 + wr0 + r;
-    if (row >= T) break;  // rows only grow with r
-    const float* arow = stage + (wr0 + r) * L::LDA;
-    __nv_bfloat162* orow =
-        reinterpret_cast<__nv_bfloat162*>(dq + ((size_t)bh * T + row) * D);
-    for (int d = 2 * lane; d < D; d += 64) {
-      orow[d / 2] = __floats2bfloat162_rn(arow[d], arow[d + 1]);
+
+  // one top-level split, never rejoined, so setmaxnreg takes effect
+  if (threadIdx.x < 128) {
+    regs_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x < 32) {
+      dq_producer<D>(sm, &map_q, &map_k, &map_v, &map_do, segkv, bh, b,
+                     bh / group, q0, nk, causal, T);
+    }
+  } else {
+    regs_alloc<CONSUMER_REGS>();
+    int it = 0;
+    for (int p = 0; p < q0.count; ++p) {
+      const int n_load = dq_kv_tiles(q0[p], DQ_BQ, nk, causal);
+      dq_consume_tile<D>(sm, p, lse, delta, segq, dq, bh, b, q0[p], n_load,
+                         it, T, causal, scale);
+      it += n_load;
     }
   }
 }
@@ -616,13 +732,13 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
 
   // one top-level split, never rejoined, so setmaxnreg takes effect
   if (threadIdx.x < 128) {
-    regs_dealloc<DKV_PRODUCER_REGS>();
+    regs_dealloc<PRODUCER_REGS>();
     if (threadIdx.x < 32) {
       dkv_producer<D>(sm, &map_q, &map_k, &map_v, &map_do, lse, delta, segq,
                       kvr, b, k0, group, nq, causal, T);
     }
   } else {
-    regs_alloc<DKV_CONSUMER_REGS>();
+    regs_alloc<CONSUMER_REGS>();
     int it = 0;
     for (int p = 0; p < k0.count; ++p) {
       dkv_consume_tile<D>(sm, p, segq, segkv, dk, dv, kvr, b, k0[p], group,
@@ -638,16 +754,21 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const int* segq, const int* segkv, void* dq, int BH,
                       int Hq, int T, int group, int causal, float scale,
                       cudaStream_t stream) {
-  constexpr int bytes = DqLayout<D>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t err = make_tile_map(&mq, q, BH, T, D, DQ_BQ);
+  if (err == cudaSuccess) err = make_tile_map(&mdo, dout, BH, T, D, DQ_BQ);
+  if (err == cudaSuccess) err = make_tile_map(&mk, k, BH / group, T, D, DQ_BK);
+  if (err == cudaSuccess) err = make_tile_map(&mv, v, BH / group, T, D, DQ_BK);
   if (err != cudaSuccess) return err;
-  const dim3 grid(BH, (T + BQ - 1) / BQ);
-  flash_bwd_dq_kernel<D><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
-      segq, segkv, static_cast<bf16*>(dq), T, Hq, group, causal, scale);
+  constexpr int bytes = sizeof(DqSmem<D>) + 1024;   // + alignment slack
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(((T + DQ_BQ - 1) / DQ_BQ + 1) / 2, BH);
+  flash_bwd_dq_kernel<D><<<grid, DQ_THREADS, bytes, stream>>>(
+      mq, mk, mv, mdo, lse, delta, segq, segkv, static_cast<bf16*>(dq), T, Hq,
+      group, causal, scale);
   return cudaGetLastError();
 }
 
@@ -676,9 +797,10 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// rows (q or kv rows of B·H) is the grid's y dimension
 bool bad_shape(int rows, int Hq, int T, int group) {
-  return rows <= 0 || T <= 0 || Hq <= 0 || group <= 0 || Hq % group != 0 ||
-         (T + 63) / 64 > 65535;
+  return rows <= 0 || rows > 65535 || T <= 0 || Hq <= 0 || group <= 0 ||
+         Hq % group != 0;
 }
 
 }  // namespace
@@ -720,7 +842,7 @@ extern "C" int kfrm_flash_bwd_dkv(const void* q, const void* k,
                                   void* dk, void* dv, int BKV, int Hq, int T,
                                   int D, int group, int causal, float scale,
                                   void* stream) {
-  if (bad_shape(BKV, Hq, T, group) || BKV > 65535) {
+  if (bad_shape(BKV, Hq, T, group)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float* l = static_cast<const float*>(lse);

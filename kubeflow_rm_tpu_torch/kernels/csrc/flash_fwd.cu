@@ -133,36 +133,6 @@ __device__ __forceinline__ void producer(Smem<D>& sm, const CUtensorMap* map_q,
   }
 }
 
-// Sets the masked scores of one kv tile to −inf. Entry (n, e) of row r
-// holds column k0 + 8 n + quad + e; it is kept iff 8 n + e <= lim_r (the
-// column is below T and, causal, not after r) and, with segments, its
-// key is in the row's segment.
-__device__ __forceinline__ void mask_tile(float (&sacc)[BK / 2],
-                                          const int* seg_tile, int k0,
-                                          int row0, int row1, int sq0,
-                                          int sq1, int T, int causal,
-                                          int quad) {
-  int lim0 = T - 1 - k0 - quad, lim1 = lim0;
-  if (causal) {
-    lim0 = min(lim0, row0 - k0 - quad);
-    lim1 = min(lim1, row1 - k0 - quad);
-  }
-#pragma unroll
-  for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      bool ok0 = 8 * n + e <= lim0, ok1 = 8 * n + e <= lim1;
-      if (seg_tile != nullptr) {
-        const int sk = seg_tile[8 * n + quad + e];
-        ok0 = ok0 && sk == sq0;
-        ok1 = ok1 && sk == sq1;
-      }
-      if (!ok0) sacc[4 * n + e] = -INFINITY;
-      if (!ok1) sacc[4 * n + 2 + e] = -INFINITY;
-    }
-  }
-}
-
 // The online softmax of one kv tile on the S accumulator registers, in
 // the log2 domain: S becomes P = exp2(S·scale·log2e − m_new); m and this
 // thread's share of the row sums l move on, and corr returns the factors
@@ -289,8 +259,8 @@ __device__ __forceinline__ void consume_tile(Smem<D>& sm, int p,
     const bool masked = seg || k0 + BK > T ||
                         (causal && k0 + BK - 1 > wg_first);
     if (masked) {
-      mask_tile(sacc, seg ? sm.segkv[st] : nullptr, k0, row0, row1, sq0, sq1,
-                T, causal, quad);
+      mask_tile<BK>(sacc, seg ? sm.segkv[st] : nullptr, k0, row0, row1, sq0,
+                    sq1, T, causal, quad);
     }
     softmax_tile(sacc, scale_log2, m0, m1, l0, l1, corr0, corr1);
     mbar_arrive(&sm.k_empty[st]);

@@ -268,6 +268,42 @@ __device__ __forceinline__ void acc_to_a(const float (&d)[N / 2],
 }
 
 // ---------------------------------------------------------------------
+// masking of a score tile whose rows are q rows and columns kv rows
+// ---------------------------------------------------------------------
+
+// Sets the masked scores of one N-column kv tile of an m64nN S
+// accumulator to −inf. Entry (n, e) of row r holds column k0 + 8 n +
+// quad + e; it is kept iff 8 n + e <= lim_r (the column is below T and,
+// causal, not after r) and, with segments, its key is in the row's
+// segment. seg_tile holds the tile's N kv segment ids, or is null.
+template <int N>
+__device__ __forceinline__ void mask_tile(float (&sacc)[N / 2],
+                                          const int* seg_tile, int k0,
+                                          int row0, int row1, int sq0,
+                                          int sq1, int T, int causal,
+                                          int quad) {
+  int lim0 = T - 1 - k0 - quad, lim1 = lim0;
+  if (causal) {
+    lim0 = min(lim0, row0 - k0 - quad);
+    lim1 = min(lim1, row1 - k0 - quad);
+  }
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      bool ok0 = 8 * n + e <= lim0, ok1 = 8 * n + e <= lim1;
+      if (seg_tile != nullptr) {
+        const int sk = seg_tile[8 * n + quad + e];
+        ok0 = ok0 && sk == sq0;
+        ok1 = ok1 && sk == sq1;
+      }
+      if (!ok0) sacc[4 * n + e] = -INFINITY;
+      if (!ok1) sacc[4 * n + 2 + e] = -INFINITY;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
 // the two tiles a CTA takes
 // ---------------------------------------------------------------------
 

@@ -1,8 +1,8 @@
 """Tile-schedule parity of the Hopper flash kernels, on the CPU.
 
-The CUDA kernels ``flash_fwd_kernel`` (``kernels/csrc/flash_fwd.cu``) and
-``flash_bwd_dkv_kernel`` (``kernels/csrc/flash_bwd.cu``) run only on the
-card. Their arithmetic is held here by a float32 blockwise emulation in
+The CUDA kernels ``flash_fwd_kernel`` (``kernels/csrc/flash_fwd.cu``),
+``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel``
+(``kernels/csrc/flash_bwd.cu``) run only on the card. Their arithmetic is held here by a float32 blockwise emulation in
 plain PyTorch that walks the kernels' loops as they run them:
 
 - tile sizes read from the sources' ``constexpr``s, so the emulation and
@@ -12,6 +12,10 @@ plain PyTorch that walks the kernels' loops as they run them:
   BK-row kv tiles up to the causal limit; the online softmax in the exp2
   domain (natural-log lse); masking only on the tiles the kernel masks
   (diagonal, ragged, segments), by selecting the score to -inf;
+- dQ: one CTA per (q row, pair of DQ_BQ-row q tiles nq - 1 - x and x),
+  each split into DQ_WG_ROWS-row warpgroups, looping over DQ_BK-row kv
+  tiles up to the causal limit of the warpgroup's rows; P in the exp2
+  domain from lse, masked as in the forward;
 - dK/dV: one CTA per (kv row, pair of DKV_BKV-row kv tiles x and
   nkv - 1 - x), each split into DKV_WG_ROWS-row warpgroups, looping over
   the GQA group's q heads and their DKV_BQ-row q tiles from the causal
@@ -54,6 +58,7 @@ def constexprs(name: str) -> dict:
 FWD = constexprs("flash_fwd.cu")
 DKV = constexprs("flash_bwd.cu")
 BQ, BK, WG_ROWS = FWD["BQ"], FWD["BK"], FWD["WG_ROWS"]
+DQ_BQ, DQ_BK, DQ_WG_ROWS = DKV["DQ_BQ"], DKV["DQ_BK"], DKV["DQ_WG_ROWS"]
 DKV_BKV, DKV_BQ, DKV_WG_ROWS = (DKV["DKV_BKV"], DKV["DKV_BQ"],
                                 DKV["DKV_WG_ROWS"])
 
@@ -139,6 +144,52 @@ def emulate_fwd(q, k, v, segq, segkv, *, heads, group, causal):
                 lse[bh, first:first + n] = torch.where(
                     l == 0, NEG_INF, m * LN2 + torch.log(l))[:n]
     return out, lse
+
+
+def emulate_dq(q, k, v, do, lse, delta, segq, segkv, *, heads, group,
+               causal):
+    """``flash_bwd_dq_kernel``'s loops in float32: returns dQ."""
+    BH, T, D = q.shape
+    scale = D ** -0.5
+    scale_log2 = scale * LOG2E
+    dq = torch.zeros(BH, T, D)
+    nq, nk = math.ceil(T / DQ_BQ), math.ceil(T / DQ_BK)
+    seg = segq is not None
+    for bh in range(BH):
+        b, kvh = bh // heads, bh // group
+        for i in paired_tiles(nq, late_heavy=True):
+            q0 = i * DQ_BQ
+            for first in range(q0, q0 + DQ_BQ, DQ_WG_ROWS):
+                rows = torch.arange(first, first + DQ_WG_ROWS)
+                # causal: kv tiles up to the diagonal of the warpgroup's
+                # last row (the q tile's last one can lie wholly past it)
+                n_tiles = (min(nk, (first + DQ_WG_ROWS - 1) // DQ_BK + 1)
+                           if causal else nk)
+                qw = rows_of(q[bh], first, DQ_WG_ROWS)
+                dow = rows_of(do[bh], first, DQ_WG_ROWS)
+                l2 = rows_of(lse[bh], first, DQ_WG_ROWS) * LOG2E
+                dl = rows_of(delta[bh], first, DQ_WG_ROWS)
+                sq = rows_of(segq[b], first, DQ_WG_ROWS) if seg else None
+                acc = torch.zeros(DQ_WG_ROWS, D)
+                for j in range(n_tiles):
+                    k0 = j * DQ_BK
+                    cols = torch.arange(k0, k0 + DQ_BK)
+                    kt = rows_of(k[kvh], k0, DQ_BK)
+                    s = qw @ kt.T
+                    dp = dow @ rows_of(v[kvh], k0, DQ_BK).T
+                    if (seg or k0 + DQ_BK > T
+                            or (causal and k0 + DQ_BK - 1 > first)):
+                        sk = rows_of(segkv[b], k0, DQ_BK) if seg else None
+                        keep = keep_mask(rows, cols, T, causal, sq, sk, False)
+                        # selected to -inf: p = exp2(-inf) is 0 exactly,
+                        # even where lse is NEG_INF (a row with no key)
+                        s = torch.where(keep, s, -math.inf)
+                    p = torch.exp2(s * scale_log2 - l2[:, None])
+                    ds = p * (dp - dl[:, None]) * scale
+                    acc += ds @ kt
+                n = max(0, min(DQ_WG_ROWS, T - first))
+                dq[bh, first:first + n] = acc[:n]
+    return dq
 
 
 def emulate_dkv(q, k, v, do, lse, delta, segq, segkv, *, heads, group,
@@ -280,6 +331,26 @@ def test_fwd_schedule_matches_pallas(name):
 
 
 @pytest.mark.parametrize("name", list(JAX_CASES))
+def test_dq_schedule_matches_pallas(name):
+    c, group, (q, k, v, do, segq, segkv), jx, out, lse = jax_case(name)
+    jq, jk, jv, jdo, jseg = jx
+    B, H, T, D = q.shape
+    res = (jq, jk, jv, *jseg, jnp.array(out), jnp.array(lse))
+    pq = _flash_bwd_pallas(c["causal"], 128, 128, group, True, res, jdo)[0]
+    delta = (bh(do) * bh(out)).sum(-1)
+    got = emulate_dq(
+        bh(q), bh(k), bh(v), bh(do), torch.from_numpy(lse.copy()).reshape(
+            B * H, T), delta, tseg(segq), tseg(segkv), heads=H,
+        group=group, causal=c["causal"])
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(pq).reshape(
+        got.shape), **TOL)
+    if "orphans" in c:
+        lo, hi = c["orphans"]
+        assert np.all(got.view(B, H, T, D)[0, :, lo:hi].numpy() == 0.0)
+
+
+@pytest.mark.parametrize("name", list(JAX_CASES))
 def test_dkv_schedule_matches_pallas(name):
     c, group, (q, k, v, do, segq, segkv), jx, out, lse = jax_case(name)
     jq, jk, jv, jdo, jseg = jx
@@ -332,6 +403,21 @@ def test_fwd_schedule_matches_plain_ragged(T, group, causal):
 
 
 @pytest.mark.parametrize("T,group,causal", RAGGED)
+def test_dq_schedule_matches_plain_ragged(T, group, causal):
+    H, q, k, v, do, segq, segkv = ragged_case(T, group, causal)
+    kw = dict(heads=H, group=group, causal=causal)
+    out, lse = fa.flash_attention_reference_bh(q, k, v, segq, segkv, **kw)
+    delta = (do * out).sum(-1)
+    got = emulate_dq(q, k, v, do, lse, delta, segq, segkv, **kw)
+    ref, _, _ = fa.flash_attention_bwd_reference(
+        q, k, v, out, lse, do, segq, segkv, **kw)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), **TOL)
+    if segq is not None:            # rows that match no key: dQ = 0
+        assert np.all(got[:H, 5:9].numpy() == 0.0)
+
+
+@pytest.mark.parametrize("T,group,causal", RAGGED)
 def test_dkv_schedule_matches_plain_ragged(T, group, causal):
     H, q, k, v, do, segq, segkv = ragged_case(T, group, causal)
     kw = dict(heads=H, group=group, causal=causal)
@@ -346,9 +432,26 @@ def test_dkv_schedule_matches_plain_ragged(T, group, causal):
 
 
 def test_tile_sizes_are_the_kernels():
-    """The constants the emulation walks with are the sources' own, and
-    fit the kernels' warpgroup split."""
+    """The constants the emulation walks with are the sources' own, fit
+    the kernels' warpgroup split, and keep dq within its budgets."""
     assert (BQ, BK, WG_ROWS) == (128, 128, 64)
+    assert (DQ_BQ, DQ_BK, DQ_WG_ROWS) == (128, 64, 64)
     assert (DKV_BKV, DKV_BQ, DKV_WG_ROWS) == (128, 64, 64)
     assert BQ % WG_ROWS == 0 and DKV_BKV % DKV_WG_ROWS == 0
+    assert DQ_BQ == 2 * DQ_WG_ROWS and DQ_WG_ROWS % DQ_BK == 0
     assert FWD["STAGES"] >= 2 and DKV["DKV_STAGES"] >= 2
+    # dq holds K over two sections (S_j, then dQ += dS_j·K_j), so its
+    # ring is one deeper than the forward's
+    assert DKV["DQ_STAGES"] >= 3
+    assert DKV["DQ_THREADS"] == 3 * 128
+    # dq at D = 128: registers a consumer thread (S, dP, dQ fp32 and the
+    # bf16 dS operand) under setmaxnreg's 240; shared memory (both q
+    # tiles' Q and dO, the K/V stages, segment ids, 14 barriers, 1024
+    # bytes of alignment slack) under the 232,448 bytes a block may use
+    D = 128
+    regs = DQ_BK // 2 + DQ_BK // 2 + D // 2 + DQ_BK // 16 * 4
+    assert regs == 144 and regs <= DKV["CONSUMER_REGS"] == 240
+    smem = (2 * 2 * DQ_BQ * D * 2
+            + DKV["DQ_STAGES"] * (2 * DQ_BK * D * 2 + DQ_BK * 4)
+            + 8 * (2 + 4 * DKV["DQ_STAGES"]) + 1024)
+    assert smem <= 232448
