@@ -28,12 +28,20 @@ prints one JSON line per phase:
 5. serve   — ``serve.make_app`` on the same weights; 4 concurrent greedy
    requests (prompt lengths 5, 17, 64, 200; 32 new tokens) through the
    WSGI callable, each row equal to ``generate_fused`` on the batch.
-6. train_grad — Llama-2-7B width at 4 layers, one packed row of 2048:
+6. engine  — ``ContinuousBatchingEngine`` on the same weights, 8 slots of
+   512 tokens: 16 greedy requests (a shared 160-token system prompt, a
+   prompt repeated to force a copy-on-write fork, all three SLO classes,
+   one speculative request, one KV chain prefilled on a second engine
+   and installed), run through the paged arm twice (the same tokens both
+   times) and the contiguous arm once; every request finishes, the
+   block pool is released, no flash kernel launches, and every token
+   passes a teacher-forced check against ``forward`` (see ``DELTA``).
+7. train_grad — Llama-2-7B width at 4 layers, one packed row of 2048:
    the gradients of every parameter through the kernels and through
    dense attention must be equally close to a float32 forward's; with
    remat on, ``flash_fwd`` launches twice per layer and each backward
    kernel once.
-7. train   — the trainer's main path: full Llama-2-7B, bf16 frozen base,
+8. train   — the trainer's main path: full Llama-2-7B, bf16 frozen base,
    rank-16 LoRA on wq/wv, 6 steps of B=2×2048 packed documents through
    ``training.loop.fit``: finite losses that fall, the base bit-identical,
    the adapters trained, the kernels launched as counted above.
@@ -72,6 +80,22 @@ ARGMAX_GAP = 0.02                    # argmax-vs-float32 agreement gap
 BWD_REL_MAX = 1e-2
 # LoRA training: the learning rate of the 6-step run (warmup 1 step)
 TRAIN_LR = 1e-3
+# Engine, teacher-forced check: each generated token must be forward's
+# argmax or have a logit within DELTA of forward's maximum at that
+# position. Exactness cannot be asked in bf16 (the engine decodes 8 rows
+# where forward runs 1, and a prefix hit splits the prefill), so DELTA
+# is derived from the measured bf16-vs-float32 logit error m (the larger
+# of the forward phase's max |Δlogit| and the same measure on the engine's
+# own sequences): each of two bf16 computations lies within m of float32
+# at every logit, so they differ by at most 2m there, and a token the
+# engine preferred can trail forward's maximum by at most 2 · 2m.
+DELTA_PER_ERROR = 4.0
+ENGINE_SLOTS, ENGINE_SLOT_LEN, ENGINE_BLOCK = 8, 512, 16
+# the speculative request: SPEC_CANDIDATES one-token prompts of SPEC_LEN
+# tokens, SPEC_NEW new tokens
+SPEC_CANDIDATES, SPEC_LEN, SPEC_NEW = 8, 128, 64
+# new tokens of the request installed as a chain
+CHAIN_NEW = 48
 
 
 def emit(phase: str, **kw) -> None:
@@ -486,7 +510,9 @@ def phase_forward(cfg, params):
          dense_forward_ms=dense_ms,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
          profile=prof)
-    return counts
+    # the largest bf16-vs-float32 logit error seen here bounds the
+    # engine phase's teacher-forced check
+    return counts, max(k32["max_abs"], d32["max_abs"], p32["max_abs"])
 
 
 def phase_serve(cfg, params):
@@ -550,6 +576,306 @@ def phase_serve(cfg, params):
     emit("serve", prompt_lens=list(lens), max_new_tokens=new,
          latency_ms=[r[2] for r in results], batch_wall_ms=wall * 1e3,
          decode_tokens_per_s=4 * new / wall, profile_generate_fused=prof)
+
+
+def engine_traffic(vocab: int):
+    """The engine phase's 14 plain requests, the speculative request's
+    candidate tokens and the installed chain's prompt, from
+    ``numpy.random.default_rng(0)``: prompt lengths 5..256
+    (a 256-token prompt's prefill bucket plus 64 new tokens still fits a
+    512-token slot; a longer one would need the 512 bucket and leave no
+    room), 8..64 new tokens each, all three SLO classes."""
+    import numpy as np
+
+    from kubeflow_rm_tpu_torch.models.generate import SLO_CLASSES
+
+    rng = np.random.default_rng(0)
+
+    def toks(n):
+        return rng.integers(1, vocab, n).tolist()
+
+    def new():
+        return int(rng.integers(8, 65))
+
+    system = toks(160)                 # ten whole blocks, shared by 8
+    reqs = [dict(prompt=system + toks(int(rng.integers(1, 97))), new=new(),
+                 slo_class=SLO_CLASSES[j % 3]) for j in range(8)]
+    base = toks(37)                    # ends inside its third block
+    reqs += [dict(prompt=base, new=new(), slo_class="interactive"),
+             # its exact repeat forks the partial block (copy-on-write)
+             dict(prompt=list(base), new=new(), slo_class="interactive"),
+             # an extension adopts its two whole blocks
+             dict(prompt=base + toks(20), new=new(), slo_class="batch")]
+    reqs += [dict(prompt=toks(n), new=new(), slo_class=c)
+             for n, c in ((5, "best_effort"), (140, "interactive"),
+                          (256, "batch"))]
+    # the speculative request's candidate prompts: one token repeated
+    # (see speculative_prompt)
+    return reqs, toks(SPEC_CANDIDATES), toks(120)
+
+
+def drafter_rounds(prompt, out, lookup_n=3, draft_k=8) -> int:
+    """Model calls the prompt-lookup decoder (``_speculative_loop``) makes
+    for ``out`` if its verified greedy tokens are ``out``: the prefill
+    plus one a round, each round committing one token and the drafts
+    that agree."""
+    buf, i, rounds = list(prompt), 0, 1
+    while i < len(out):
+        buf.append(out[i])
+        i += 1
+        tail = buf[-lookup_n:]
+        start = 0
+        for p in range(len(buf) - lookup_n - 1, -1, -1):
+            if buf[p:p + lookup_n] == tail:
+                start = p + lookup_n
+                break
+        draft = (buf + [0] * (draft_k + 1))[start:start + draft_k]
+        ok = 0
+        while (ok < draft_k and i + ok < len(out)
+               and draft[ok] == out[i + ok]):
+            ok += 1
+        buf.extend(out[i:i + ok])
+        i += ok
+        rounds += 1
+    return rounds
+
+
+def speculative_prompt(params, cfg, candidates, new: int):
+    """The speculative request's prompt: of the one-token prompts
+    ``[t] * SPEC_LEN``, the one whose greedy continuation (one batched
+    ``generate_fused`` call) the drafter would cover in the fewest model
+    calls. Prompt lookup saves calls only where the text repeats, and
+    the random 7B's text repeats only for some prompts: a repeated
+    token, whose values (no rotary embedding) are the same at every
+    position and layer, often continues with runs of one token, but not
+    always (on the H100 a random 12-token pattern ×4 accepted no draft,
+    and some repeated tokens none). The check that follows —
+    fewer model calls than tokens from the engine's own speculative
+    decoder, and every token within DELTA — holds the decoder, not this
+    choice. Returns (prompt, each candidate's predicted calls)."""
+    import torch
+
+    from kubeflow_rm_tpu_torch.models.generate import generate_fused
+
+    rows = torch.tensor([[t] * SPEC_LEN for t in candidates],
+                        dtype=torch.int32,
+                        device=params["embed"]["tokens"].device)
+    outs = generate_fused(params, cfg, rows, max_new_tokens=new).tolist()
+    calls = [drafter_rounds(o[:SPEC_LEN], o[SPEC_LEN:]) for o in outs]
+    best = min(range(len(candidates)), key=calls.__getitem__)
+    return [candidates[best]] * SPEC_LEN, calls
+
+
+def run_engine(eng, reqs, chain=None, profile_at=None):
+    """Submit ``reqs`` (and install ``chain``) at once, then step until
+    every request is done. Returns the handles, each request's latency
+    (ms from submission to the step that retired it), the wall time,
+    each step's time and, with ``profile_at``, that step's profile."""
+    import torch
+
+    handles = [eng.submit(r["prompt"], max_new_tokens=r["new"],
+                          slo_class=r["slo_class"],
+                          speculative=r.get("speculative", False))
+               for r in reqs]
+    if chain is not None:
+        handles.append(eng.install_chain(chain, max_new_tokens=CHAIN_NEW,
+                                         slo_class="interactive"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    latency, step_ms, prof, n = {}, [], None, 0
+    while eng.queue_depth or eng.active_slots:
+        check(n < 10_000, "the engine did not drain")
+        ts = time.perf_counter()
+        if n == profile_at:
+            box = {}
+            prof = device_profile(lambda: box.update(done=eng.step()))
+            done = box["done"]
+        else:
+            done = eng.step()
+        now = time.perf_counter()
+        step_ms.append((now - ts) * 1e3)
+        for r in done:
+            latency[r.rid] = (now - t0) * 1e3
+        n += 1
+    torch.cuda.synchronize()
+    return handles, latency, time.perf_counter() - t0, step_ms, prof
+
+
+def teacher_forced(params, cfg, handles, cache, want_fp32=False):
+    """Each request's prompt + tokens through ``forward`` once (bf16, the
+    kernel path). Per request: does every token equal forward's argmax,
+    the first divergence, and the largest gap between forward's maximum
+    and the chosen token's logit. With ``want_fp32``, also the largest
+    |bf16 - float32| logit at the generated positions."""
+    import torch
+
+    from kubeflow_rm_tpu_torch.models.llama import forward
+
+    cfg32 = replace(cfg, dtype=torch.float32)
+    dev = params["embed"]["tokens"].device
+    out, err32 = [], 0.0
+    for h in handles:
+        key = (tuple(h.prompt), tuple(h.tokens))
+        if key not in cache:
+            seq = torch.tensor([h.prompt + h.tokens[:-1]], device=dev,
+                               dtype=torch.int32)
+            Tp, n = len(h.prompt), len(h.tokens)
+            with torch.inference_mode():
+                logits = forward(params, seq, cfg)[0, Tp - 1:Tp - 1 + n]
+                if want_fp32:
+                    l32 = forward(params, seq, cfg32)[0, Tp - 1:Tp - 1 + n]
+                    err32 = max(err32, float((logits - l32).abs().max()))
+            tok = torch.tensor(h.tokens, device=dev)
+            chosen = logits.gather(1, tok[:, None].long())[:, 0]
+            gap = logits.max(-1).values - chosen
+            argmax = logits.argmax(-1)
+            miss = (argmax != tok).nonzero()
+            first = None
+            if len(miss):
+                j = int(miss[0])
+                first = dict(at=j, token=h.tokens[j], argmax=int(argmax[j]),
+                             gap=float(gap[j]))
+            cache[key] = dict(exact=not len(miss), first=first,
+                              max_gap=float(gap.max()), tokens=n,
+                              argmax_tokens=n - len(miss))
+        out.append(cache[key])
+    return out, err32
+
+
+def phase_engine(cfg, params, forward_err, card):
+    """The continuous-batching engine at full Llama-2-7B width and depth.
+    ``forward_err`` is the forward phase's bf16-vs-float32 max |Δlogit|
+    (None if that phase failed); ``card`` the ``nvidia-smi`` line."""
+    import gc
+
+    import torch
+
+    from kubeflow_rm_tpu_torch.models.generate import ContinuousBatchingEngine
+    from kubeflow_rm_tpu_torch.models.paging import RESERVED_BLOCKS
+
+    reqs, candidates, chain_prompt = engine_traffic(cfg.vocab_size)
+    spec_prompt, predicted_calls = speculative_prompt(params, cfg,
+                                                      candidates, SPEC_NEW)
+    reqs.append(dict(prompt=spec_prompt, new=SPEC_NEW, slo_class="batch",
+                     speculative=True))
+    kw = dict(slots=ENGINE_SLOTS, slot_len=ENGINE_SLOT_LEN,
+              block_size=ENGINE_BLOCK)
+    # a prefill replica (one slot) exports the chain a decode engine
+    # installs: the install path never runs a prefill of its own
+    reset_launches()
+    pf = ContinuousBatchingEngine(params, cfg, **dict(kw, slots=1))
+    chain = pf.prefill_chain(chain_prompt)
+    torch.cuda.synchronize()
+    counts = {"prefill_chain": read_launches()}
+    check(chain is not None, "prefill_chain ran out of blocks")
+    del pf
+
+    runs = {}
+    for arm in ("paged", "paged_again", "contiguous"):
+        paged = arm != "contiguous"
+        eng = ContinuousBatchingEngine(params, cfg, paged=paged, **kw)
+        reset_launches()
+        handles, latency, wall, step_ms, prof = run_engine(
+            eng, reqs, chain if paged else None,
+            profile_at=8 if arm == "paged_again" else None)
+        torch.cuda.synchronize()
+        counts[arm] = read_launches()
+        st = eng.stats()
+        pool = eng.pool
+        released = None
+        if paged:
+            released = dict(
+                all_ref0=all(pool.ref_of(b) == 0 for b in
+                             range(RESERVED_BLOCKS, pool.num_blocks)),
+                free=pool.free_count(), retained=pool.evictable_count(),
+                usable=pool.usable_blocks)
+        spec = next(h for h in handles if h.speculative)
+        runs[arm] = dict(handles=handles, latency=latency, wall=wall,
+                         step_ms=step_ms, prof=prof, stats=st,
+                         released=released, spec=spec,
+                         spec_calls=eng.speculative_model_calls)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    seen = {}
+    paged_check, seq_err = teacher_forced(
+        params, cfg, runs["paged"]["handles"], seen, want_fp32=True)
+    checks = {arm: teacher_forced(params, cfg, r["handles"], seen)[0]
+              for arm, r in runs.items() if arm != "paged"}
+    checks["paged"] = paged_check
+    delta = DELTA_PER_ERROR * max(seq_err, forward_err or 0.0)
+
+    report = {}
+    for arm, r in runs.items():
+        hs, st = r["handles"], r["stats"]
+        out_tokens = sum(len(h.tokens) for h in hs)
+        tf = checks[arm]
+        decode_ms = sorted(r["step_ms"])[len(r["step_ms"]) // 2]
+        report[arm] = dict(
+            requests=len(hs), done=sum(h.done for h in hs),
+            tokens_out=out_tokens, wall_s=r["wall"],
+            tokens_per_s=out_tokens / r["wall"],
+            decode_steps=st["decode_steps"], median_step_ms=decode_ms,
+            batch_occupancy=st["batch_occupancy"],
+            prefix_hit_ratio=st.get("prefix_hit_ratio"),
+            prefix_hit_tokens=st.get("prefix_hit_tokens"),
+            cow_forks=st.get("cow_forks"),
+            chain_installs=st.get("chain_installs"),
+            prefills=st["prefills"], active_slots=st["active_slots"],
+            pool=r["released"],
+            speculative=dict(model_calls=r["spec_calls"],
+                             tokens_out=len(r["spec"].tokens)),
+            latency_ms=[r["latency"].get(h.rid) for h in hs],
+            latency_steps=[None if h.finished_step is None else
+                           h.finished_step - h.submitted_step for h in hs],
+            exact_fraction=sum(c["exact"] for c in tf) / len(tf),
+            token_argmax_fraction=(sum(c["argmax_tokens"] for c in tf)
+                                   / sum(c["tokens"] for c in tf)),
+            first_divergence={i: c["first"] for i, c in enumerate(tf)
+                              if not c["exact"]},
+            max_gap=max(c["max_gap"] for c in tf),
+            launches=counts[arm])
+        if r["prof"] is not None:
+            report[arm]["profile_one_step"] = r["prof"]
+    emit("engine", card=card, slots=ENGINE_SLOTS, slot_len=ENGINE_SLOT_LEN,
+         block_size=ENGINE_BLOCK, num_blocks=runs["paged"]["stats"][
+             "blocks_total"] + RESERVED_BLOCKS,
+         prompt_lens=[len(q["prompt"]) for q in reqs] + [len(chain_prompt)],
+         max_new_tokens=[q["new"] for q in reqs] + [CHAIN_NEW],
+         speculative_predicted_calls=predicted_calls,
+         chain_nbytes=chain["nbytes"], bf16_vs_fp32_max_abs=dict(
+             forward_phase=forward_err, engine_sequences=seq_err),
+         delta=delta, prefill_chain_launches=counts["prefill_chain"],
+         **report)
+
+    zero = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    check(counts["prefill_chain"] == zero,
+          f"prefill_chain launched {counts['prefill_chain']}")
+    for arm, r in runs.items():
+        rep = report[arm]
+        check(rep["done"] == rep["requests"], f"{arm}: a request never ended")
+        check(rep["active_slots"] == 0, f"{arm}: slots still held")
+        check(counts[arm] == zero,
+              f"{arm}: the engine path launched {counts[arm]}")
+        check(rep["max_gap"] <= delta,
+              f"{arm}: a token trails forward's maximum by "
+              f"{rep['max_gap']} > delta {delta} "
+              f"({rep['first_divergence']})")
+        check(r["spec_calls"] < len(r["spec"].tokens),
+              f"{arm}: speculative request took {r['spec_calls']} model "
+              f"calls for {len(r['spec'].tokens)} tokens")
+        if arm != "contiguous":
+            p = rep["pool"]
+            check(p["all_ref0"] and p["free"] + p["retained"] == p["usable"],
+                  f"{arm}: pool not released: {p}")
+            check(rep["prefix_hit_tokens"] > 0, f"{arm}: no prefix hit")
+            check(rep["cow_forks"] >= 1, f"{arm}: no copy-on-write fork")
+            check(rep["chain_installs"] == 1, f"{arm}: chain not installed")
+    again = [h.tokens for h in runs["paged_again"]["handles"]]
+    check(again == [h.tokens for h in runs["paged"]["handles"]],
+          "a second paged run gave other tokens")
+    return counts["paged"]
 
 
 def reset_launches():
@@ -774,8 +1100,13 @@ def main() -> int:
     cfg = LlamaConfig.llama2_7b(param_dtype=torch.bfloat16)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
-    paths = {"forward": run("forward", phase_forward, cfg, params)}
+    paths = {}
+    paths["forward"], forward_err = (run("forward", phase_forward, cfg,
+                                         params) or (None, None))
     run("serve", phase_serve, cfg, params)
+    paths["engine"] = run("engine", phase_engine, cfg, params, forward_err,
+                          smi)
+    torch.cuda.empty_cache()
     paths["train_grad"] = run("train_grad", phase_train_grad)
     paths["train"] = run("train", phase_train, cfg, params)
     if failures:
@@ -793,7 +1124,8 @@ def main() -> int:
             "name": kname, "route": "cuda",
             "source": f"kubeflow_rm_tpu_torch/kernels/csrc/{src}",
             "replaces": f"kubeflow_rm_tpu/ops/flash_attention.py:{line}",
-            # this slice's main path is the trainer; every path's count
+            # the kernels' main path is the trainer (the engine runs
+            # none of them); every path's count
             "launches": paths["train"][kname],
             "launches_by_path": {p: c[kname] for p, c in paths.items()},
             "max_abs_err": worst[kname],

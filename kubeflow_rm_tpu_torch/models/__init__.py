@@ -3,26 +3,59 @@
 submodule."""
 
 from kubeflow_rm_tpu_torch.models.generate import (
-    KVCache, decode_chunk, generate_fused, init_cache,
+    DEFAULT_CLASS_WEIGHTS,
+    SLO_CLASSES,
+    ContinuousBatchingEngine,
+    EngineRequest,
+    KVCache,
+    SlotCache,
+    decode_chunk,
+    generate_fused,
+    generate_speculative_fused,
+    init_cache,
+    init_slot_cache,
+    slot_decode_step,
 )
 from kubeflow_rm_tpu_torch.models.llama import (
     LlamaConfig, forward, forward_with_aux, init_params, param_spec_shapes,
 )
 from kubeflow_rm_tpu_torch.models.lora import add_lora, lora_mask, merge_lora
+from kubeflow_rm_tpu_torch.models.paging import (
+    BlockPool,
+    PagedKVCache,
+    init_paged_cache,
+    paged_decode_step,
+    paged_prefill,
+    prefix_keys,
+)
 from kubeflow_rm_tpu_torch.models.params import from_numpy_params
 
 __all__ = [
+    "BlockPool",
+    "ContinuousBatchingEngine",
+    "DEFAULT_CLASS_WEIGHTS",
+    "EngineRequest",
     "KVCache",
     "LlamaConfig",
+    "PagedKVCache",
+    "SLO_CLASSES",
+    "SlotCache",
     "add_lora",
     "decode_chunk",
     "forward",
     "forward_with_aux",
     "from_numpy_params",
     "generate_fused",
+    "generate_speculative_fused",
     "init_cache",
+    "init_paged_cache",
     "init_params",
+    "init_slot_cache",
     "lora_mask",
     "merge_lora",
+    "paged_decode_step",
+    "paged_prefill",
     "param_spec_shapes",
+    "prefix_keys",
+    "slot_decode_step",
 ]

@@ -15,11 +15,19 @@ same 400 rules as the JAX example, without werkzeug.
   ``GET /healthz``. Temperature snaps to a 0.05 grid and top_k to a
   small allowed set, as in the JAX server.
 
-This is the single-device server: no mesh, no speculative decoding, no
-quantized weights (later slices of the port, ROADMAP.md).
+- **Speculative decoding** (``--speculative``). A solo greedy request
+  runs unpadded, at its exact length, and a prompt longer than
+  ``LOOKUP_N`` goes through ``generate_speculative_fused`` (repetitive
+  text decodes in fewer model calls); ``app.stats`` counts them. Every
+  other request keeps the batched path.
+
+This is the single-device server: no mesh, no quantized weights (later
+slices of the port, ROADMAP.md).
 
     python -m kubeflow_rm_tpu_torch.serve --preset llama2_7b --port 8000
     python -m kubeflow_rm_tpu_torch.serve --preset tiny --device cpu --selftest
+    python -m kubeflow_rm_tpu_torch.serve --preset tiny --device cpu \
+        --speculative --selftest
 """
 
 from __future__ import annotations
@@ -40,6 +48,11 @@ import torch
 
 # top_k values the API serves; requests snap to the nearest member
 TOP_K_CHOICES = (1, 5, 10, 20, 50, 100)
+# n-gram length of the speculative decoder's prompt lookup
+LOOKUP_N = 3
+# distinct exact lengths a solo request may run at before it is bucketed
+# like the rest (the JAX server's bound on compiled programs)
+EXACT_LENS_MAX = 16
 
 _REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found",
             405: "Method Not Allowed", 500: "Internal Server Error"}
@@ -61,16 +74,23 @@ class Batcher:
     into the smallest power-of-two length bucket, and runs ONE
     generation for the batch. Each waiter gets its row back, trimmed of
     padding.
+
+    ``exact_solo``: a lone greedy request runs at its exact length (no
+    padding), for the speculative decoder, whose lookup reads the
+    prompt as given — for at most ``EXACT_LENS_MAX`` distinct lengths,
+    the JAX server's bound; past it, solo requests are bucketed too.
     """
 
     def __init__(self, step_fn, *, pad_id: int = 0, window_ms: float = 5.0,
-                 max_batch: int = 8):
+                 max_batch: int = 8, exact_solo: bool = False):
         # step_fn: (ids (B,T) int32, pad_counts (B,) int32, temperature,
         #           top_k) -> (B, T+new)
         self.step_fn = step_fn
         self.pad_id = pad_id
         self.window_ms = window_ms
         self.max_batch = max_batch
+        self.exact_solo = exact_solo
+        self._exact_lens: set[int] = set()
         self.q: queue.Queue = queue.Queue()
         self.batches_run = 0
         self._stop = threading.Event()
@@ -137,7 +157,14 @@ class Batcher:
             # fail its waiters, never kill this thread
             try:
                 lens = [len(b["prompt"]) for b in batch]
-                T = _bucket(max(lens))
+                if (self.exact_solo and len(batch) == 1
+                        and first["temperature"] <= 0
+                        and (lens[0] in self._exact_lens
+                             or len(self._exact_lens) < EXACT_LENS_MAX)):
+                    self._exact_lens.add(lens[0])
+                    T = lens[0]
+                else:
+                    T = _bucket(max(lens))
                 B = _bucket(len(batch), lo=1)
                 ids = np.full((B, T), self.pad_id, np.int32)
                 for i, b in enumerate(batch):
@@ -200,20 +227,34 @@ def _parse_request(body: bytes, cfg, max_new_tokens: int):
 
 def make_app(cfg, params, *, max_new_tokens: int = 64,
              window_ms: float = 5.0, max_batch: int = 8,
+             speculative: bool = False,
              device: str | torch.device | None = None):
-    """WSGI app + its Batcher (``app.batcher``), serving ``params`` on
-    ``device`` (the card unless told otherwise). Sampled requests draw
-    from one ``torch.Generator`` with a non-deterministic seed; only the
-    batcher thread uses it."""
+    """WSGI app + its Batcher (``app.batcher``) and counters
+    (``app.stats``), serving ``params`` on ``device`` (the card unless
+    told otherwise). ``speculative`` routes solo, greedy, unpadded
+    requests with a prompt longer than ``LOOKUP_N`` through
+    ``generate_speculative_fused``. Sampled requests draw from one
+    ``torch.Generator`` with a non-deterministic seed; only the batcher
+    thread uses it."""
     from kubeflow_rm_tpu_torch.device import default_device
-    from kubeflow_rm_tpu_torch.models.generate import generate_fused
+    from kubeflow_rm_tpu_torch.models.generate import (
+        generate_fused, generate_speculative_fused,
+    )
 
     device = default_device(device)
     sampler = torch.Generator(device=device)
     sampler.seed()
+    app_stats = {"speculative_requests": 0}
 
     def step_fn(ids, pad_counts, temperature, top_k):
-        T = ids.shape[1]
+        B, T = ids.shape
+        if (speculative and B == 1 and temperature <= 0
+                and int(pad_counts[0]) == 0 and T > LOOKUP_N):
+            app_stats["speculative_requests"] += 1
+            out = generate_speculative_fused(
+                params, cfg, torch.from_numpy(ids).to(device),
+                max_new_tokens=max_new_tokens, lookup_n=LOOKUP_N)
+            return out.cpu().numpy()
         out = generate_fused(
             params, cfg, torch.from_numpy(ids).to(device),
             max_new_tokens=max_new_tokens,
@@ -222,7 +263,8 @@ def make_app(cfg, params, *, max_new_tokens: int = 64,
             pad_counts=torch.from_numpy(pad_counts).to(device))
         return out.cpu().numpy()
 
-    batcher = Batcher(step_fn, window_ms=window_ms, max_batch=max_batch)
+    batcher = Batcher(step_fn, window_ms=window_ms, max_batch=max_batch,
+                      exact_solo=speculative)
 
     def respond(start_response, status: int, payload: dict):
         data = json.dumps(payload).encode()
@@ -256,6 +298,7 @@ def make_app(cfg, params, *, max_new_tokens: int = 64,
             return respond(start_response, e.status, {"error": str(e)})
 
     app.batcher = batcher
+    app.stats = app_stats
     return app
 
 
@@ -296,6 +339,9 @@ def main(argv=None) -> int:
     ap.add_argument("--preset", default="tiny", choices=PRESETS)
     ap.add_argument("--max-new-tokens", type=int, default=64)
     ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument("--speculative", action="store_true",
+                    help="route solo greedy requests through the "
+                         "prompt-lookup speculative decoder")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' to run on "
@@ -314,7 +360,8 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=device).manual_seed(0)
     params = init_params(cfg, gen, device)
     app = make_app(cfg, params, max_new_tokens=args.max_new_tokens,
-                   max_batch=args.max_batch, device=device)
+                   max_batch=args.max_batch,
+                   speculative=args.speculative, device=device)
 
     if args.selftest:
         status, out = request(app, "POST", "/generate",

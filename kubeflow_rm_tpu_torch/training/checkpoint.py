@@ -75,9 +75,14 @@ class Checkpointer:
         return True
 
     def restore(self, step: int | None = None,
-                device: str | torch.device = "cpu") -> TrainState | None:
-        """The latest (or given) step's state on ``device``, or None when
-        the directory holds no checkpoint."""
+                device: str | torch.device | None = None
+                ) -> TrainState | None:
+        """The latest (or given) step's state on ``device`` (the card
+        unless the caller asks for the CPU), or None when the directory
+        holds no checkpoint."""
+        from kubeflow_rm_tpu_torch.device import default_device
+
+        device = default_device(device)
         if step is None:
             step = self.latest_step()
         if step is None:

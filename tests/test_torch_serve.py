@@ -1,7 +1,9 @@
 """The port's stdlib WSGI server on the CPU with the tiny preset:
 health, generation through the batcher equal to ``generate_fused`` on
 the same padded batch, concurrent requests coalescing into one batch,
-and the JAX server's 400 rules."""
+the JAX server's 400 rules, and the ``speculative`` route (taken only
+for solo, greedy, unpadded prompts longer than ``LOOKUP_N``; its tokens
+equal the plain path's)."""
 
 import threading
 
@@ -11,6 +13,7 @@ import torch
 
 from kubeflow_rm_tpu_torch.models.generate import generate_fused
 from kubeflow_rm_tpu_torch.models.llama import LlamaConfig, init_params
+from kubeflow_rm_tpu_torch import serve
 from kubeflow_rm_tpu_torch.serve import main, make_app, request
 
 NEW = 5
@@ -126,4 +129,50 @@ def test_make_app_defaults_to_the_card(monkeypatch):
 def test_main_selftest_on_cpu(capsys):
     assert main(["--preset", "tiny", "--device", "cpu", "--selftest",
                  "--max-new-tokens", "3"]) == 0
+    assert "selftest ok: 6 tokens" in capsys.readouterr().out
+
+
+def test_speculative_route_is_taken_and_equals_the_plain_path(served):
+    cfg, params, app = served
+    spec = make_app(cfg, params, max_new_tokens=NEW, window_ms=1.0,
+                    max_batch=4, speculative=True, device="cpu")
+    try:
+        prompt = [7, 11, 13, 17] * 3
+        status, out = request(spec, "POST", "/generate", {"prompt": prompt})
+        assert status == 200 and spec.stats["speculative_requests"] == 1
+        assert out == request(app, "POST", "/generate", {"prompt": prompt})[1]
+        ref = generate_fused(params, cfg, torch.tensor([prompt],
+                                                       dtype=torch.int32),
+                             max_new_tokens=NEW)
+        assert out["tokens"] == ref[0].tolist()
+        # too short for the lookup, or sampled: the plain path
+        for body in ({"prompt": [1, 2, 3]},
+                     {"prompt": prompt, "temperature": 0.5}):
+            status, out = request(spec, "POST", "/generate", body)
+            assert status == 200
+        assert spec.stats["speculative_requests"] == 1
+    finally:
+        spec.batcher.close()
+
+
+def test_exact_solo_lengths_are_capped(served, monkeypatch):
+    cfg, params, _ = served
+    monkeypatch.setattr(serve, "EXACT_LENS_MAX", 1)
+    spec = make_app(cfg, params, max_new_tokens=NEW, window_ms=1.0,
+                    speculative=True, device="cpu")
+    try:
+        counts = []
+        for n in (5, 6, 5):    # the second length is past the cap: padded
+            assert request(spec, "POST", "/generate",
+                           {"prompt": [9] * n})[0] == 200
+            counts.append(spec.stats["speculative_requests"])
+        assert counts == [1, 1, 2]
+        assert spec.batcher._exact_lens == {5}
+    finally:
+        spec.batcher.close()
+
+
+def test_main_selftest_speculative_on_cpu(capsys):
+    assert main(["--preset", "tiny", "--device", "cpu", "--selftest",
+                 "--speculative", "--max-new-tokens", "3"]) == 0
     assert "selftest ok: 6 tokens" in capsys.readouterr().out

@@ -560,18 +560,28 @@ def test_checkpointer_retention_and_roundtrip(tmp_path):
     state = ttrain.init_train_state(tcfg, torch.Generator().manual_seed(0),
                                     device="cpu")
     ck = Checkpointer(tmp_path, max_to_keep=2)
-    assert ck.latest_step() is None and ck.restore() is None
+    assert ck.latest_step() is None and ck.restore(device="cpu") is None
     for s in (1, 2, 3):
         state.step = s
         assert ck.save(state)
     assert not ck.save(state)
     assert ck.all_steps() == [2, 3] and ck.latest_step() == 3
     assert sorted(p.name for p in tmp_path.iterdir()) == ["2", "3"]
-    back = ck.restore()
+    back = ck.restore(device="cpu")
     assert back.step == 3 and back.opt_state.count == 0
     for k, v in toptim.leaf_paths(state.params).items():
         assert torch.equal(toptim.leaf_paths(back.params)[k], v)
     ck.close()
+
+
+def test_checkpointer_restore_defaults_to_the_card(tmp_path, monkeypatch):
+    """Like every entry point of the port, ``restore`` with no device
+    lands on the card, and raises where there is none."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ck = Checkpointer(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ck.restore()
+    assert ck.restore(device="cpu") is None
 
 
 def test_fit_resume_is_bit_exact(tmp_path):
