@@ -15,7 +15,9 @@ prints one JSON line per phase:
    the card, at the main path's shapes and at edge cases (GQA,
    non-causal, segment ids with rows that match no key, a ragged T,
    head dim 64, a sequence shorter than one 128-row tile, T = 1100
-   ragged against the 128-row tiles with GQA group 4 and segment ids):
+   ragged against the 128-row tiles with GQA group 4 and segment ids,
+   B·H = 67,200 rows, above the kernels' grid bound, which the wrappers
+   launch in two chunks of whole batch rows):
    the forward (``flash_fwd``) and the backward
    (``flash_bwd_dq``, ``flash_bwd_dkv``) on the same inputs; then
    kernel, plain-version and library times (CUDA events around 10
@@ -36,15 +38,28 @@ prints one JSON line per phase:
    times) and the contiguous arm once; every request finishes, the
    block pool is released, no flash kernel launches, and every token
    passes a teacher-forced check against ``forward`` (see ``DELTA``).
-7. train_grad — Llama-2-7B width at 4 layers, one packed row of 2048:
+7. quant   — weight-only int8 and int4 (group 128) of the same weights:
+   the packed bytes and scales equal the CPU's, each quantized forward
+   launches the flash kernel once per layer and equals the forward of
+   its dequantized tree bit for bit, ``generate_fused`` on the serve
+   phase's prompts (int4 fused equal to the per-token loop), the engine
+   on the int4 tree (8 of the engine phase's requests, teacher-forced
+   check, pool released), and the HF conversion round trip at 7B width
+   (``to_hf_llama`` → ``from_hf_llama``, and ``load_hf_dir`` on a
+   two-layer directory).
+8. train_grad — Llama-2-7B width at 4 layers, one packed row of 2048:
    the gradients of every parameter through the kernels and through
    dense attention must be equally close to a float32 forward's; with
    remat on, ``flash_fwd`` launches twice per layer and each backward
    kernel once.
-8. train   — the trainer's main path: full Llama-2-7B, bf16 frozen base,
+9. train   — the trainer's main path: full Llama-2-7B, bf16 frozen base,
    rank-16 LoRA on wq/wv, 6 steps of B=2×2048 packed documents through
    ``training.loop.fit``: finite losses that fall, the base bit-identical,
    the adapters trained, the kernels launched as counted above.
+10. qlora  — the same run over an int4 base built directly in packed form
+   (``init_params_quantized``): losses fall, the packed base is
+   byte-identical after, the adapters trained, the kernels launched as in
+   the train phase.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
 line, and last ``{"ok": true, "device": {...}}``. A failed check ends
@@ -254,7 +269,23 @@ KERNEL_CASES = [
     ("short_T40", dict(B=2, T=40, H=8, KVH=8, D=128), True, None),
     ("ragged_T1100_gqa4_segments", dict(B=2, T=1100, H=16, KVH=4, D=128),
      True, "seg"),
+    # B·H = 67,200 q rows: above the kernels' grid-y bound of 65,535, so
+    # each wrapper launches once per whole-batch chunk of rows
+    ("rows_above_grid_bound", dict(B=2100, T=64, H=32, KVH=8, D=128),
+     True, "seg"),
 ]
+
+
+def orphan_rows(T: int) -> slice:
+    """Rows of batch 0 given a segment id that matches no key: 300..339,
+    or 4 rows from the middle of a shorter sequence."""
+    return slice(300, 340) if T >= 1000 else slice(T // 2, T // 2 + 4)
+
+
+def doc_len(T: int) -> int:
+    """Document length of the segment-id cases: 200 tokens, or a third
+    of a shorter sequence."""
+    return min(200, T // 3)
 
 
 def to_bh(t):
@@ -289,7 +320,8 @@ def check_backward(name, s, causal, qh, kh, vh, out, lse, segq, segkv, gen):
                          finite=bool(torch.isfinite(g).all()))
     orphan_zero = None
     if segq is not None:
-        orphan_zero = bool((got[0].view(B, H, T, D)[0, :, 300:340] == 0).all())
+        orphan_zero = bool((got[0].view(B, H, T, D)[0, :, orphan_rows(T)]
+                            == 0).all())
     # no atomics: a second run gives the same bits
     deterministic = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
     emit("kernels", case=name + "_backward", causal=causal, **s, **res,
@@ -313,6 +345,7 @@ def phase_kernels(device_name: str):
     from kubeflow_rm_tpu_torch.ops.flash_attention import (
         flash_attention_bwd_reference, flash_attention_reference,
         flash_attention_with_lse, flash_bwd_dkv, flash_bwd_dq, flash_fwd,
+        row_chunks,
     )
 
     worst = dict(flash_fwd=0.0, flash_bwd_dq=0.0, flash_bwd_dkv=0.0)
@@ -323,11 +356,14 @@ def phase_kernels(device_name: str):
         segq = segkv = None
         if seg:
             B, T = s["B"], s["T"]
-            ids = torch.arange(T, device="cuda") // 200 + 1   # 200-token docs
+            ids = torch.arange(T, device="cuda") // doc_len(T) + 1
             segkv = ids.expand(B, T).to(torch.int32).contiguous()
             segq = segkv.clone()
-            segq[0, 300:340] = 99          # rows that match no key
+            segq[0, orphan_rows(T)] = 99          # rows that match no key
             kw = dict(segment_ids_q=segq, segment_ids_kv=segkv)
+        # launches a wrapper call makes: one per chunk of whole batch rows
+        chunks = len(row_chunks(s["B"] * s["H"], s["H"]))
+        reset_launches()
         with torch.no_grad():
             out, lse = flash_attention_with_lse(q, k, v, causal=causal, **kw)
             ref, ref_lse = flash_attention_reference(q, k, v, causal=causal,
@@ -338,21 +374,31 @@ def phase_kernels(device_name: str):
         lse_err = float((lse - ref_lse).abs().max())
         ok = bool(((o - r).abs() <= O_TOL["atol"] + O_TOL["rtol"] * r.abs()).all())
         worst["flash_fwd"] = max(worst["flash_fwd"], err)
+        fwd_launches = read_launches()["flash_fwd"]
         emit("kernels", case=name, causal=causal, **s, max_abs_err=err,
-             lse_max_abs_err=lse_err, within_tol=ok)
+             lse_max_abs_err=lse_err, within_tol=ok,
+             flash_fwd_launches=fwd_launches)
+        check(fwd_launches == chunks, f"flash_fwd {name}: {fwd_launches} "
+                                      f"launches, expected {chunks}")
         check(ok, f"flash_fwd {name}: output outside atol=rtol=2e-2 "
                   f"(max abs err {err})")
         check(lse_err <= LSE_ATOL, f"flash_fwd {name}: lse err {lse_err}")
         check(bool(torch.isfinite(o).all()), f"flash_fwd {name}: non-finite")
         if seg:
-            check(bool((out[0, 300:340] == 0).all()),
+            rows = orphan_rows(s["T"])
+            check(bool((out[0, rows] == 0).all()),
                   "orphan rows must give O = 0")
-            check(bool((lse[0, :, 300:340] == NEG_INF).all()),
+            check(bool((lse[0, :, rows] == NEG_INF).all()),
                   "orphan rows must give lse = NEG_INF")
         B, T, H = s["B"], s["T"], s["H"]
         dq_err, dkv_err = check_backward(
             name, s, causal, to_bh(q), to_bh(k), to_bh(v), to_bh(out),
             lse.reshape(B * H, T).contiguous(), segq, segkv, gen)
+        # check_backward runs flash_bwd twice (the determinism check)
+        bwd = read_launches()
+        check(bwd["flash_bwd_dq"] == bwd["flash_bwd_dkv"] == 2 * chunks,
+              f"flash_bwd {name}: launches {bwd}, expected {chunks} of "
+              "each kernel per call")
         worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], dq_err)
         worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], dkv_err)
         del q, k, v, out, lse, ref, ref_lse, o, r
@@ -878,6 +924,258 @@ def phase_engine(cfg, params, forward_err, card):
     return counts["paged"]
 
 
+def dequantized(params: dict, dtype) -> dict:
+    """``params`` with every quantized leaf replaced by its dequantized
+    tensor (``maybe_dequant``, leaf by leaf, the whole stack at once)."""
+    from kubeflow_rm_tpu_torch.models.quantize import (
+        is_quantized, maybe_dequant,
+    )
+
+    def deq(t):
+        return maybe_dequant(t, dtype) if is_quantized(t) else t
+
+    return dict(params, blocks={k: deq(v) for k, v in
+                                params["blocks"].items()},
+                lm_head=deq(params["lm_head"]))
+
+
+def phase_quant(cfg, params, forward_err, card):
+    """Weight-only int8 and int4 (group 128) at full Llama-2-7B width and
+    depth: the card's packed bytes against the CPU's, the quantized
+    forward against the forward of the dequantized tree, fused decode
+    (int4 fused against the per-token loop), the engine on int4 with the
+    teacher-forced check, and the HF conversion round trip. Returns the
+    flash launches of the two quantized forwards."""
+    import gc
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from kubeflow_rm_tpu_torch.models.convert import (
+        from_hf_llama, load_hf_dir, to_hf_llama,
+    )
+    from kubeflow_rm_tpu_torch.models.generate import (
+        ContinuousBatchingEngine, generate, generate_fused,
+    )
+    from kubeflow_rm_tpu_torch.models.llama import forward
+    from kubeflow_rm_tpu_torch.models.paging import RESERVED_BLOCKS
+    from kubeflow_rm_tpu_torch.models.quantize import (
+        quantize_params, quantized_bytes,
+    )
+    from kubeflow_rm_tpu_torch.training.optim import leaf_paths
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 2048), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    rng = np.random.default_rng(0)
+    lens, new, T = (5, 17, 64, 200), 32, 256
+    ids = np.zeros((4, T), np.int32)
+    for i, n in enumerate(lens):
+        ids[i, T - n:] = rng.integers(1, cfg.vocab_size, n)
+    ids = torch.from_numpy(ids).cuda()
+    pads = torch.tensor([T - n for n in lens], dtype=torch.int32,
+                        device="cuda")
+    # the same bf16 bytes, quantized on the CPU
+    cpu_tree = {"blocks": {k: params["blocks"][k][:1].cpu()
+                           for k in ("wq", "w_down")},
+                "lm_head": params["lm_head"].cpu()}
+
+    def timed(fn, reps=3):
+        """``fn``'s output and the wall times of ``reps`` calls after a
+        warm-up call, as ``{"median", "min", "max"}`` in ms."""
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return out, dict(median=statistics.median(times), min=min(times),
+                         max=max(times))
+
+    report, launches = {"bf16_bytes": quantized_bytes(params)}, {}
+    with torch.no_grad():
+        ref = forward(params, tokens, cfg)
+        for bits in (8, 4):
+            name = f"int{bits}"
+            qp = quantize_params(params, bits=bits, group_size=128)
+            on_cpu = quantize_params(cpu_tree, bits=bits, group_size=128)
+            same = {}
+            for k, want in leaf_paths(on_cpu).items():
+                got = leaf_paths(qp)[k]
+                got = got if k.startswith("lm_head") else got[:1]
+                same[k] = bool(torch.equal(got.cpu(), want))
+            reset_launches()
+            logits = forward(qp, tokens, cfg)
+            launches[name] = read_launches()
+            _, fwd_ms = timed(lambda: forward(qp, tokens, cfg))
+            prof = device_profile(lambda: forward(qp, tokens, cfg))
+            deq = dequantized(qp, cfg.dtype)
+            plain = forward(deq, tokens, cfg)
+            del deq
+            free()
+            r = dict(bytes=quantized_bytes(qp), cpu_bytes_equal=same,
+                     forward_launches=launches[name], forward_ms=fwd_ms,
+                     logits_equal_dequantized_tree=bool(
+                         torch.equal(logits, plain)),
+                     max_abs_vs_dequantized_tree=float(
+                         (logits - plain).abs().max()),
+                     mean_abs_vs_bf16=float((logits - ref).abs().mean()),
+                     argmax_vs_bf16=float((logits.argmax(-1)
+                                           == ref.argmax(-1)).float().mean()),
+                     finite=bool(torch.isfinite(logits).all()),
+                     profile_forward=prof)
+            del logits, plain
+            # fused decode: 4 left-padded prompts, 32 new tokens; the
+            # decode step is the difference of the median 32-token and
+            # the median 1-token run
+            kw = dict(max_len=T + new, pad_counts=pads)
+            out, fused_ms = timed(lambda: generate_fused(
+                qp, cfg, ids, max_new_tokens=new, **kw))
+            _, one_ms = timed(lambda: generate_fused(
+                qp, cfg, ids, max_new_tokens=1, **kw))
+            r.update(fused_batch_ms=fused_ms, fused_one_token_ms=one_ms,
+                     fused_decode_step_ms=(fused_ms["median"]
+                                           - one_ms["median"]) / (new - 1))
+            if bits == 4:
+                loop, loop_ms = timed(lambda: generate(
+                    qp, cfg, ids, max_new_tokens=new, **kw))
+                r.update(loop_batch_ms=loop_ms,
+                         fused_equals_loop=bool(torch.equal(out, loop)))
+                q4 = qp
+            report[name] = r
+            del qp, out
+            free()
+    del ref
+    free()
+
+    # the continuous-batching engine on the int4 tree (paged arm): the
+    # shared-prefix requests and a prompt with its exact repeat
+    reqs, _, _ = engine_traffic(cfg.vocab_size)
+    reqs = reqs[:6] + reqs[8:10]
+    eng = ContinuousBatchingEngine(q4, cfg, slots=ENGINE_SLOTS,
+                                   slot_len=ENGINE_SLOT_LEN,
+                                   block_size=ENGINE_BLOCK)
+    unpacked = quantized_bytes(eng.params)
+    reset_launches()
+    handles, _, wall, step_ms, _ = run_engine(eng, reqs)
+    engine_launches = read_launches()
+    st, pool = eng.stats(), eng.pool
+    released = dict(
+        all_ref0=all(pool.ref_of(b) == 0 for b in
+                     range(RESERVED_BLOCKS, pool.num_blocks)),
+        free=pool.free_count(), retained=pool.evictable_count(),
+        usable=pool.usable_blocks)
+    del eng
+    free()
+    tf, seq_err = teacher_forced(q4, cfg, handles, {}, want_fp32=True)
+    delta = DELTA_PER_ERROR * max(seq_err, forward_err or 0.0)
+    out_tokens = sum(len(h.tokens) for h in handles)
+    report["engine_int4"] = dict(
+        requests=len(handles), done=sum(h.done for h in handles),
+        tokens_out=out_tokens, wall_s=wall, tokens_per_s=out_tokens / wall,
+        decode_steps=st["decode_steps"],
+        median_step_ms=sorted(step_ms)[len(step_ms) // 2],
+        prefix_hit_tokens=st["prefix_hit_tokens"], cow_forks=st["cow_forks"],
+        pool=released, resident_param_bytes=unpacked,
+        max_gap=max(c["max_gap"] for c in tf), delta=delta,
+        int4_vs_fp32_max_abs=seq_err,
+        token_argmax_fraction=(sum(c["argmax_tokens"] for c in tf)
+                               / sum(c["tokens"] for c in tf)),
+        launches=engine_launches)
+    del q4, handles
+    free()
+
+    # HF conversion at 7B width: the whole tree out and back, then a
+    # two-layer directory (torch.save, bf16) through the directory reader
+    t0 = time.perf_counter()
+    state = to_hf_llama(cfg, params)
+    _, back = from_hf_llama(state, cfg, param_dtype=torch.bfloat16)
+    got, want = leaf_paths(back), leaf_paths(params)
+    roundtrip = list(got) == list(want) and all(
+        got[k].dtype == want[k].dtype and torch.equal(got[k], want[k])
+        for k in want)
+    del back, got
+    free()
+    layers = 2
+    two = {k: torch.from_numpy(v).to(torch.bfloat16).contiguous()
+           for k, v in state.items()
+           if not k.startswith("model.layers.")
+           or int(k.split(".")[2]) < layers}
+    del state
+    hf_config = dict(
+        architectures=["LlamaForCausalLM"], model_type="llama",
+        vocab_size=cfg.vocab_size, hidden_size=cfg.dim,
+        intermediate_size=cfg.hidden_dim, num_hidden_layers=layers,
+        num_attention_heads=cfg.n_heads, num_key_value_heads=cfg.n_kv_heads,
+        max_position_embeddings=cfg.max_seq_len, rms_norm_eps=cfg.norm_eps,
+        rope_theta=cfg.rope_theta, torch_dtype="bfloat16")
+    with tempfile.TemporaryDirectory() as d:
+        torch.save(two, f"{d}/pytorch_model.bin")
+        with open(f"{d}/config.json", "w") as f:
+            json.dump(hf_config, f)
+        del two
+        cfg2, loaded = load_hf_dir(d, param_dtype=torch.bfloat16)
+    want2 = dict(params, blocks={k: v[:layers] for k, v in
+                                 params["blocks"].items()})
+    got, want = leaf_paths(loaded), leaf_paths(want2)
+    dir_equal = list(got) == list(want) and all(
+        torch.equal(got[k], want[k]) for k in want)
+    dir_cfg = cfg2 == replace(cfg, n_layers=layers, dtype=cfg2.dtype,
+                              param_dtype=cfg2.param_dtype)
+    del loaded, got, want, want2
+    free()
+    report["hf"] = dict(roundtrip_bit_identical=roundtrip,
+                        dir_layers=layers, dir_bit_identical=dir_equal,
+                        dir_config_equal=dir_cfg,
+                        seconds=time.perf_counter() - t0)
+    emit("quant", card=card, preset="llama2_7b", group_size=128,
+         forward_tokens=[2, 2048], prompt_lens=list(lens),
+         max_new_tokens=new, engine_prompt_lens=[len(r["prompt"])
+                                                 for r in reqs],
+         **report)
+
+    for name in ("int8", "int4"):
+        r = report[name]
+        check(all(r["cpu_bytes_equal"].values()),
+              f"{name}: card and CPU quantize differently: "
+              f"{r['cpu_bytes_equal']}")
+        check(r["forward_launches"] == {"flash_fwd": cfg.n_layers,
+                                        "flash_bwd_dq": 0,
+                                        "flash_bwd_dkv": 0},
+              f"{name} forward launched {r['forward_launches']}")
+        check(r["finite"], f"{name}: non-finite logits")
+        check(r["logits_equal_dequantized_tree"],
+              f"{name}: logits differ from the dequantized tree's by "
+              f"{r['max_abs_vs_dequantized_tree']}")
+    check(report["int4"]["fused_equals_loop"],
+          "int4: generate_fused and the per-token loop differ")
+    e = report["engine_int4"]
+    p = e["pool"]
+    check(e["done"] == e["requests"], "int4 engine: a request never ended")
+    check(p["all_ref0"] and p["free"] + p["retained"] == p["usable"],
+          f"int4 engine: pool not released: {p}")
+    check(e["max_gap"] <= delta, f"int4 engine: a token trails forward's "
+                                 f"maximum by {e['max_gap']} > {delta}")
+    check(e["prefix_hit_tokens"] > 0, "int4 engine: no prefix hit")
+    check(e["launches"] == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                            "flash_bwd_dkv": 0},
+          f"int4 engine launched {e['launches']}")
+    h = report["hf"]
+    check(h["roundtrip_bit_identical"], "to_hf_llama -> from_hf_llama "
+                                        "changed the bf16 params")
+    check(h["dir_bit_identical"] and h["dir_config_equal"],
+          f"load_hf_dir on a {layers}-layer directory: {h}")
+    return {k: launches["int8"][k] + launches["int4"][k]
+            for k in launches["int8"]}
+
+
 def reset_launches():
     from kubeflow_rm_tpu_torch.ops import flash_attention as fa
 
@@ -978,7 +1276,8 @@ def phase_train_grad():
 
 def checksums(params: dict) -> dict:
     """Per-leaf, per-layer checksum of the bit patterns (sum and
-    position-weighted sum), without a copy of the weights."""
+    position-weighted sum of 16-bit words, or of bytes for int8), without
+    a copy of the weights."""
     import torch
 
     from kubeflow_rm_tpu_torch.training.optim import leaf_paths
@@ -986,8 +1285,10 @@ def checksums(params: dict) -> dict:
     out = {}
     for k, t in leaf_paths(params).items():
         sums = []
-        for part in (t if t.dim() == 3 else t[None]):
-            bits = part.reshape(-1).view(torch.int16).long()
+        for part in (t if t.dim() >= 3 else t[None]):
+            bits = part.reshape(-1).view(
+                torch.int16 if t.element_size() % 2 == 0 else torch.uint8
+            ).long()
             w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
             sums.append((int(bits.sum()), int((bits * w).sum())))
         out[k] = sums
@@ -1072,6 +1373,93 @@ def phase_train(cfg, params):
     return launches
 
 
+def phase_qlora(card):
+    """QLoRA at full Llama-2-7B: the train phase's configuration over an
+    int4 base (group 128) built directly in packed form
+    (``init_params_quantized``), 6 steps of ``fit``."""
+    import numpy as np
+    import torch
+
+    from kubeflow_rm_tpu_torch.models.llama import LlamaConfig
+    from kubeflow_rm_tpu_torch.models.lora import add_lora, is_lora_name
+    from kubeflow_rm_tpu_torch.models.quantize import (
+        init_params_quantized, quantized_bytes,
+    )
+    from kubeflow_rm_tpu_torch.training.data import to_device
+    from kubeflow_rm_tpu_torch.training.loop import LoopConfig, fit
+    from kubeflow_rm_tpu_torch.training.optim import OptimConfig, leaf_paths
+    from kubeflow_rm_tpu_torch.training.train import (
+        TrainConfig, init_train_state, make_train_step,
+    )
+    from kubeflow_rm_tpu_torch.utils.flops import train_flops_per_token
+
+    steps, B, T = 6, 2, 2048
+    cfg = LlamaConfig.llama2_7b(param_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    base = init_params_quantized(
+        cfg, torch.Generator(device="cuda").manual_seed(6), "cuda", bits=4,
+        group_size=128)
+    base_bytes = quantized_bytes(base)
+    lp = add_lora(base, 16, generator=torch.Generator(device="cuda")
+                  .manual_seed(2), targets=("wq", "wv"))
+    tcfg = TrainConfig(model=cfg, optim=OptimConfig(
+        train_only="lora", learning_rate=TRAIN_LR, warmup_steps=1,
+        total_steps=steps))
+    batch = packed_rows(B, T, cfg.vocab_size, seed=3)
+    frozen = {k: v for k, v in leaf_paths(lp).items()
+              if not is_lora_name(k.rsplit("/", 1)[-1])}
+    before = checksums(frozen)
+    state = init_train_state(tcfg, params=lp)
+
+    reset_launches()
+    t0 = time.perf_counter()
+    state, history = fit(tcfg, itertools.repeat(batch),
+                         LoopConfig(total_steps=steps, log_every=1),
+                         state=state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak_above = (torch.cuda.max_memory_allocated() - held) / 1e9
+
+    L = cfg.n_layers
+    losses = [h.loss for h in history]
+    timed = history[1:]        # the first record holds the start-up sync
+    after = checksums(frozen)
+    adapters_b = {k: int(torch.count_nonzero(v))
+                  for k, v in leaf_paths(state.params).items()
+                  if k.endswith("_lora_b")}
+    flops_step = train_flops_per_token(cfg, T, frozen_base=True) * B * T
+    step_fn = make_train_step(tcfg, state)
+    dev_batch = to_device(batch, "cuda")
+    prof = device_profile(lambda: step_fn(state, dev_batch))
+    emit("qlora", card=card, preset="llama2_7b", base="int4", group_size=128,
+         lora_rank=16, targets=["wq", "wv"], tokens=[B, T], steps=steps,
+         learning_rate=TRAIN_LR, remat=cfg.remat_policy, losses=losses,
+         grad_norms=[h.grad_norm for h in history], launches=launches,
+         step_time_ms=statistics.median(h.step_time_ms for h in timed),
+         tokens_per_s=statistics.median(h.tokens_per_sec for h in timed),
+         mfu_pct=statistics.median(h.mfu_pct for h in timed),
+         model_tflop_per_step=flops_step / 1e12, fit_wall_s=wall,
+         base_bytes=base_bytes, peak_mem_gb_above_held=peak_above,
+         held_gb=held / 1e9, adapter_b_nonzero=adapters_b,
+         base_byte_identical=before == after, profile_one_step=prof)
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(before == after, "a frozen int4 base array changed")
+    check(all(not t.requires_grad for t in frozen.values()),
+          "a frozen base array requires grad")
+    check(all(n > 0 for n in adapters_b.values()),
+          f"an adapter's b stayed zero: {adapters_b}")
+    check(launches == {"flash_fwd": 2 * L * steps,
+                       "flash_bwd_dq": L * steps,
+                       "flash_bwd_dkv": L * steps},
+          f"qlora launches {launches}, expected per step flash_fwd "
+          f"{2 * L} and {L} of each backward kernel")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1107,8 +1495,12 @@ def main() -> int:
     paths["engine"] = run("engine", phase_engine, cfg, params, forward_err,
                           smi)
     torch.cuda.empty_cache()
+    paths["quant"] = run("quant", phase_quant, cfg, params, forward_err, smi)
+    torch.cuda.empty_cache()
     paths["train_grad"] = run("train_grad", phase_train_grad)
     paths["train"] = run("train", phase_train, cfg, params)
+    torch.cuda.empty_cache()
+    paths["qlora"] = run("qlora", phase_qlora, smi)
     if failures:
         print("chip_smoke: FAILED\n  " + "\n  ".join(failures),
               file=sys.stderr)

@@ -4,14 +4,20 @@
     python -m kubeflow_rm_tpu_torch.finetune --preset tiny --device cpu --steps 4
     python -m kubeflow_rm_tpu_torch.finetune --preset llama2_7b --lora-rank 16 \\
         --batch 2 --seq-len 2048 --data 'shards/*.jsonl' --checkpoint-dir ckpt
+    python -m kubeflow_rm_tpu_torch.finetune --preset tiny --device cpu \\
+        --lora-rank 4 --int4-base --steps 2
 
-Weights are random from a fixed seed (the port has no checkpoint
-converter yet). Without ``--data`` the batches are synthetic. With
-``--lora-rank`` only rank-r adapters on wq/wv train; the base is frozen
-and, since it never takes an update, stored in the compute dtype.
+Weights come from ``--hf-model DIR`` (a local directory that
+``save_pretrained`` wrote, read by ``models.convert.load_hf_dir``) or are
+random from a fixed seed. Without ``--data`` the batches are synthetic.
+With ``--lora-rank`` only rank-r adapters on wq/wv train; the base is
+frozen and, since it never takes an update, stored in the compute dtype
+— or quantized with ``--int8-base``/``--int4-base`` (QLoRA: built
+directly in quantized form from the seed, or quantized after the load).
 ``fit`` resumes from ``--checkpoint-dir`` when it holds a checkpoint.
-Not ported yet (ROADMAP.md): ``--hf-model``, ``--int8-base``/
-``--int4-base``, ``--tb-logdir``, ``--export-hf`` and the mesh flags.
+``--export-hf PATH`` writes the final weights as an HF-keyed ``.npz``
+(adapters are left out: merge them first to keep them). Not ported yet
+(ROADMAP.md): ``--tb-logdir`` and the mesh flags.
 """
 
 from __future__ import annotations
@@ -25,12 +31,18 @@ from dataclasses import replace
 def main(argv=None) -> int:
     import torch
 
+    import numpy as np
+
     from kubeflow_rm_tpu_torch.device import default_device
+    from kubeflow_rm_tpu_torch.models.convert import load_hf_dir, to_hf_llama
     from kubeflow_rm_tpu_torch.models.generate import generate_fused
     from kubeflow_rm_tpu_torch.models.llama import (
         PRESETS, LlamaConfig, init_params,
     )
     from kubeflow_rm_tpu_torch.models.lora import add_lora
+    from kubeflow_rm_tpu_torch.models.quantize import (
+        init_params_quantized, quantize_params,
+    )
     from kubeflow_rm_tpu_torch.training.checkpoint import Checkpointer
     from kubeflow_rm_tpu_torch.training.data import (
         jsonl_documents, packed_batches, synthetic_batches,
@@ -43,6 +55,10 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--preset", default="tiny", choices=PRESETS)
+    ap.add_argument("--hf-model", default=None, metavar="DIR",
+                    help="local directory written by save_pretrained "
+                         "(config.json + safetensors or .bin weights); "
+                         "default: random weights of --preset")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=512)
@@ -50,6 +66,16 @@ def main(argv=None) -> int:
     ap.add_argument("--lora-rank", type=int, default=0,
                     help="train rank-r adapters on wq/wv instead of full "
                          "fine-tuning (frozen base: no grads, no moments)")
+    qbase = ap.add_mutually_exclusive_group()
+    qbase.add_argument("--int8-base", action="store_true",
+                       help="with --lora-rank: quantize the frozen base "
+                            "to int8")
+    qbase.add_argument("--int4-base", action="store_true",
+                       help="with --lora-rank: pack the frozen base to "
+                            "int4 (QLoRA)")
+    ap.add_argument("--export-hf", default=None, metavar="PATH",
+                    help="write the final weights as an HF state_dict "
+                         "(.npz) here")
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--data", default=None,
                     help="glob of pre-tokenized jsonl shards (default: "
@@ -62,15 +88,36 @@ def main(argv=None) -> int:
                     help="greedy-decode a continuation at the end")
     args = ap.parse_args(argv)
 
+    bits = 4 if args.int4_base else 8 if args.int8_base else None
+    if bits and not args.lora_rank:
+        ap.error("--int8-base/--int4-base need --lora-rank: a quantized "
+                 "base is frozen (QLoRA)")
+    if bits and args.export_hf:
+        ap.error("--export-hf cannot export a quantized base: adapters do "
+                 "not merge into int8/int4 weights (merge_lora refuses)")
     device = default_device(args.device)
-    model_cfg = getattr(LlamaConfig, args.preset)()
+    if args.hf_model:
+        model_cfg, params = load_hf_dir(
+            args.hf_model, device=device,
+            param_dtype=LlamaConfig.dtype if args.lora_rank else None)
+    else:
+        model_cfg = getattr(LlamaConfig, args.preset)()
+        params = None
     if args.lora_rank:
         model_cfg = replace(model_cfg, param_dtype=model_cfg.dtype)
     cfg = TrainConfig(model=model_cfg, optim=OptimConfig(
         train_only="lora" if args.lora_rank else None,
         total_steps=args.steps))
     gen = torch.Generator(device=device).manual_seed(0)
-    params = init_params(model_cfg, gen, device)
+    if params is None and bits:
+        # no checkpoint: the base is built directly in quantized form,
+        # leaf by leaf, so its full-precision copy never exists
+        params = init_params_quantized(model_cfg, gen, device, bits=bits)
+    else:
+        if params is None:
+            params = init_params(model_cfg, gen, device)
+        if bits:
+            params = quantize_params(params, bits=bits)
     if args.lora_rank:
         params = add_lora(params, args.lora_rank,
                           generator=torch.Generator(device=device)
@@ -103,6 +150,10 @@ def main(argv=None) -> int:
         out = generate_fused(state.params, model_cfg, prompt,
                              max_new_tokens=8)
         print("sample token ids:", out[0].tolist())
+
+    if args.export_hf:
+        np.savez(args.export_hf, **to_hf_llama(model_cfg, state.params))
+        print(f"exported HF state_dict -> {args.export_hf}")
     return 0
 
 

@@ -2,6 +2,9 @@
 ``models.generate.generate``: the package attribute ``generate`` is the
 submodule."""
 
+from kubeflow_rm_tpu_torch.models.convert import (
+    config_from_hf, from_hf_llama, load_hf_dir, to_hf_llama,
+)
 from kubeflow_rm_tpu_torch.models.generate import (
     DEFAULT_CLASS_WEIGHTS,
     SLO_CLASSES,
@@ -29,6 +32,9 @@ from kubeflow_rm_tpu_torch.models.paging import (
     prefix_keys,
 )
 from kubeflow_rm_tpu_torch.models.params import from_numpy_params
+from kubeflow_rm_tpu_torch.models.quantize import (
+    init_params_quantized, quantize_params,
+)
 
 __all__ = [
     "BlockPool",
@@ -41,21 +47,27 @@ __all__ = [
     "SLO_CLASSES",
     "SlotCache",
     "add_lora",
+    "config_from_hf",
     "decode_chunk",
     "forward",
     "forward_with_aux",
+    "from_hf_llama",
     "from_numpy_params",
     "generate_fused",
     "generate_speculative_fused",
     "init_cache",
     "init_paged_cache",
     "init_params",
+    "init_params_quantized",
     "init_slot_cache",
+    "load_hf_dir",
     "lora_mask",
     "merge_lora",
     "paged_decode_step",
     "paged_prefill",
     "param_spec_shapes",
     "prefix_keys",
+    "quantize_params",
     "slot_decode_step",
+    "to_hf_llama",
 ]

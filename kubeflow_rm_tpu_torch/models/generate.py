@@ -26,6 +26,12 @@ boundaries. Its two cache arms are the contiguous ``SlotCache`` here
 and the block-paged pool of ``models.paging``. Speculative decoding
 (``generate_speculative_fused``) is a host loop with one sync a round,
 where JAX runs one ``lax.while_loop`` program.
+
+Every entry point takes plain and quantized trees alike
+(``models.quantize``). ``generate_fused`` and the speculative decoder
+unpack packed int4 once per call, before the decode loop, and the
+engine once at construction; the per-token ``generate`` dequantizes
+from the packed form at every step.
 """
 
 from __future__ import annotations
@@ -38,6 +44,8 @@ from kubeflow_rm_tpu_torch.models.llama import (
     LlamaConfig, _mlp, embed, layer_params, logits_head,
 )
 from kubeflow_rm_tpu_torch.models.lora import lora_proj
+from kubeflow_rm_tpu_torch.models.params import check_params
+from kubeflow_rm_tpu_torch.models.quantize import unpack_int4_params
 from kubeflow_rm_tpu_torch.ops.attention import dot_product_attention
 from kubeflow_rm_tpu_torch.ops.norms import rms_norm
 from kubeflow_rm_tpu_torch.ops.rope import apply_rope, rope_angles
@@ -235,13 +243,16 @@ def generate_fused(params: dict, cfg: LlamaConfig, prompt: torch.Tensor, *,
     Eager PyTorch has no such program, so the body is the same loop as
     ``generate`` and greedy output is identical; capturing the decode
     step in a CUDA graph is the optimisation that would make it one
-    launch per step.
+    launch per step. Packed int4 is unpacked once, before the loop
+    (``unpack_int4_params``; a no-op on a tree that holds none), so the
+    steps read loop-invariant int8 groups.
     """
     S = _check(prompt, max_new_tokens=max_new_tokens, max_len=max_len,
                temperature=temperature, generator=generator)
     with torch.inference_mode():
         return _decode_loop(
-            params, cfg, prompt, generator, max_new_tokens=max_new_tokens,
+            unpack_int4_params(params), cfg, prompt, generator,
+            max_new_tokens=max_new_tokens,
             temperature=float(temperature), top_k=top_k, eos_id=eos_id,
             total_len=S, pad_counts=pad_counts)
 
@@ -341,7 +352,8 @@ def generate_speculative_fused(params: dict, cfg: LlamaConfig,
                          f"lookup_n ({lookup_n})")
     with torch.no_grad():
         out, rounds, count = _speculative_loop(
-            params, cfg, prompt, max_new_tokens=max_new_tokens,
+            unpack_int4_params(params), cfg, prompt,
+            max_new_tokens=max_new_tokens,
             lookup_n=lookup_n, draft_k=draft_k, eos_id=eos_id)
     if stats is not None:
         stats["model_calls"] = rounds
@@ -496,18 +508,6 @@ class EngineRequest:
         self.finished_step = None
 
 
-def _check_plain_weights(params: dict) -> None:
-    from kubeflow_rm_tpu_torch.models.quantize import is_quantized
-
-    leaves = dict(params["blocks"], lm_head=params["lm_head"])
-    quantized = sorted(n for n, leaf in leaves.items() if is_quantized(leaf))
-    if quantized:
-        raise NotImplementedError(
-            f"quantized weights ({', '.join(quantized)}) are not ported "
-            "yet: the engine's int4/int8 arm comes with the quantization "
-            "slice of the port (ROADMAP.md, queue A)")
-
-
 class ContinuousBatchingEngine:
     """Slot-based continuous-batching decode engine (counterpart of the
     JAX ``ContinuousBatchingEngine``, ``generate.py:774``).
@@ -535,8 +535,9 @@ class ContinuousBatchingEngine:
     ``generate_fused(prompt[None], max_new_tokens=..., max_len=slot_len)``
     gives, cached prefix or not (token for token in float32; in bf16 a
     different batch or a split prefill may round differently). A sampled
-    request draws from its own ``torch.Generator``. Quantized weights are
-    refused here, at construction.
+    request draws from its own ``torch.Generator``. Packed int4 weights
+    are unpacked once, at construction (``self.params``), so each step
+    pays only the int8 dequant; int8 and plain trees are kept as given.
     """
 
     def __init__(self, params, cfg, *, slots: int = 8,
@@ -546,9 +547,9 @@ class ContinuousBatchingEngine:
                  prefix_cache: bool = True):
         from kubeflow_rm_tpu_torch.models import paging
 
-        _check_plain_weights(params)
+        check_params(params, cfg)
         self.cfg = cfg
-        self.params = params
+        self.params = unpack_int4_params(params)
         self.device = params["embed"]["tokens"].device
         self.slots = slots
         self.slot_len = slot_len

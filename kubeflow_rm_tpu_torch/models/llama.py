@@ -190,8 +190,11 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
 
 
 def layer_params(blocks: dict, i: int) -> dict:
-    """Layer ``i``'s weights as views into the stacked tensors."""
-    return {name: w[i] for name, w in blocks.items()}
+    """Layer ``i``'s weights as views into the stacked tensors (a
+    quantized leaf is sliced array by array)."""
+    return {name: ({k: t[i] for k, t in w.items()} if isinstance(w, dict)
+                   else w[i])
+            for name, w in blocks.items()}
 
 
 def _attention_half(cfg: LlamaConfig, x, layer, cos, sin, positions,
@@ -236,12 +239,13 @@ def _block(cfg: LlamaConfig, x, layer, cos, sin, positions, segments, impl):
 
 def embed(params: dict, tokens: torch.Tensor, cfg: LlamaConfig):
     """Gather the (B, T, D) rows first, then cast — never a compute-dtype
-    copy of the whole (V, D) table."""
+    copy of the whole (V, D) table. The embedding is never quantized."""
     return params["embed"]["tokens"][tokens.long()].to(cfg.dtype)
 
 
 def logits_head(params: dict, x: torch.Tensor, cfg: LlamaConfig):
-    """Final norm, lm head in the compute dtype, float32 logits."""
+    """Final norm, lm head (dequantized if quantized) in the compute
+    dtype, float32 logits."""
     x = rms_norm(x, params["out_norm"], cfg.norm_eps)
     return (x @ maybe_dequant(params["lm_head"], cfg.dtype)).float()
 

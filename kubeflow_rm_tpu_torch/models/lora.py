@@ -6,7 +6,9 @@ form, ``h @ w + (h @ a) @ b * alpha / r``, never materializing the
 (in, out) delta. ``b`` starts at zero, so the adapted model equals the
 base until the first update. Freezing lives in the train step
 (``training.train``, ``OptimConfig(train_only="lora")``): frozen leaves
-get no gradient and no optimizer moments.
+get no gradient and no optimizer moments. The base may be quantized
+(``models.quantize``): QLoRA trains bf16 adapters over a frozen int8 or
+int4 base, which ``merge_lora`` refuses to fold into.
 """
 
 from __future__ import annotations
@@ -27,36 +29,50 @@ def is_lora_name(name: str) -> bool:
     return name.endswith(LORA_A) or name.endswith(LORA_B)
 
 
+def _base_shape(w) -> tuple[int, int, int]:
+    """(L, in, out) of a base weight: plain, int8 ``q``, or packed int4
+    ``q4`` (L, G, g/2, out), as JAX reads them."""
+    if not is_quantized(w):
+        return tuple(w.shape)
+    if "q4" in w:
+        q4 = w["q4"]
+        return q4.shape[0], q4.shape[-3] * q4.shape[-2] * 2, q4.shape[-1]
+    return tuple(w["q"].shape)
+
+
 def add_lora(params: dict, rank: int, *, generator: torch.Generator,
              targets: tuple[str, ...] = DEFAULT_TARGETS,
              param_dtype: torch.dtype | None = None) -> dict:
     """Return ``params`` extended with rank-``rank`` adapters on
     ``targets``: ``a`` ~ N(0, 1)·0.02 drawn in float32 from
     ``generator`` (which must live on the weights' device), ``b`` zeros,
-    both in ``param_dtype`` (default: the base weight's dtype). The base
-    tensors are shared, not copied. Quantized bases are not ported yet
-    and raise."""
+    both in ``param_dtype`` (default: the base weight's dtype, or bf16
+    over a quantized base — the QLoRA recipe). The base tensors are
+    shared, not copied."""
     blocks = dict(params["blocks"])
     for t in targets:
         if t not in blocks:
             raise KeyError(f"lora target {t!r} not in blocks "
                            f"({sorted(blocks)})")
         w = blocks[t]
+        L, d_in, d_out = _base_shape(w)
         if is_quantized(w):
-            maybe_dequant(w, torch.float32)   # raises: quantization slice
-        L, d_in, d_out = w.shape
-        dt = param_dtype or w.dtype
+            dt, device = param_dtype or torch.bfloat16, w["s"].device
+        else:
+            dt, device = param_dtype or w.dtype, w.device
         a = torch.randn((L, d_in, rank), generator=generator,
-                        dtype=torch.float32, device=w.device)
+                        dtype=torch.float32, device=device)
         blocks[t + LORA_A] = (a * 0.02).to(dt)
         blocks[t + LORA_B] = torch.zeros((L, rank, d_out), dtype=dt,
-                                         device=w.device)
+                                         device=device)
     return dict(params, blocks=blocks)
 
 
 def lora_proj(layer: dict, name: str, h: torch.Tensor, *, alpha: float,
               dtype: torch.dtype) -> torch.Tensor:
-    """``h @ w`` plus the factored adapter delta when ``layer`` has one."""
+    """``h @ w`` plus the factored adapter delta when ``layer`` has one.
+    A quantized base is dequantized to ``dtype`` first (QLoRA: a frozen
+    int8/int4 base under bf16 adapters)."""
     out = project(h, maybe_dequant(layer[name], dtype), name)
     a = layer.get(name + LORA_A)
     if a is None:
@@ -80,7 +96,9 @@ def merge_lora(params: dict, *, alpha: float) -> dict:
             continue
         if is_quantized(v):
             raise ValueError(
-                f"cannot merge adapters into quantized base weight {k!r}")
+                f"cannot merge adapters into quantized base weight {k!r}: "
+                "dequantize first (maybe_dequant) or serve the adapted "
+                "model unmerged")
         b = src[k + LORA_B]
         delta = torch.einsum("lir,lro->lio", a.float(), b.float())
         blocks[k] = (v.float() + delta * (alpha / a.shape[-1])).to(v.dtype)

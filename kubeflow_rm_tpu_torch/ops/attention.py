@@ -68,7 +68,8 @@ def flash_eligible(q, k, *, causal, positions_q, bias) -> bool:
     — plus what the kernel was built for: a head dim in
     ``KERNEL_HEAD_DIMS`` and bf16 inputs. Unlike the TPU kernel, the
     CUDA kernel masks a ragged last tile itself, so any ``T`` is
-    eligible (the JAX predicate needs a block that divides ``T``).
+    eligible (the JAX predicate needs a block that divides ``T``), and
+    any B·H: the wrappers launch once per ``GRID_ROWS_MAX`` rows.
     """
     from kubeflow_rm_tpu_torch.ops.flash_attention import (
         KERNEL_DTYPES, KERNEL_HEAD_DIMS,

@@ -43,6 +43,32 @@ from kubeflow_rm_tpu_torch.ops.attention import NEG_INF
 #: head dims the kernel is instantiated for (every Llama preset has 128)
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = (torch.bfloat16,)
+#: rows (of B·H, or of B·KVH for dK/dV) one launch may take: the kernels
+#: put them on grid y, and their C entry points refuse more
+GRID_ROWS_MAX = 65535
+
+
+def row_chunks(BH: int, heads: int,
+               limit: int = GRID_ROWS_MAX) -> list[tuple[int, int]]:
+    """The q-row ranges ``[start, stop)`` the wrappers launch one by one:
+    in order, covering each of the ``BH`` rows once, each cut at a
+    multiple of ``heads`` (whole batch rows, so the segment-id rows and
+    the GQA kv row ``bh // group`` stay whole) and at most ``limit``
+    rows. One range when ``BH <= limit``."""
+    per = limit // heads * heads
+    if per == 0:
+        raise ValueError(f"{heads} heads exceed the kernels' {limit} rows")
+    return [(r, min(r + per, BH)) for r in range(0, BH, per)]
+
+
+def _chunks(BH: int, heads: int, group: int, segq, segkv):
+    """Per launch: the q-row slice, the kv-row slice and the chunk's
+    segment-id rows (views, no copies)."""
+    for r0, r1 in row_chunks(BH, heads, GRID_ROWS_MAX):
+        b0, b1 = r0 // heads, r1 // heads
+        yield (slice(r0, r1), slice(r0 // group, r1 // group),
+               None if segq is None else segq[b0:b1],
+               None if segkv is None else segkv[b0:b1])
 
 
 def _seg_pair(segment_ids_q, segment_ids_kv):
@@ -229,7 +255,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the current CUDA device, D in ``KERNEL_HEAD_DIMS``. segq/segkv:
     optional (B, T) int32. Returns ``(O (B·heads, T, D) bf16,
     lse (B·heads, T) float32)``. Raises on anything the kernel does
-    not take, and when the launch is refused.
+    not take, and when a launch is refused. Above ``GRID_ROWS_MAX`` rows
+    it launches once per ``row_chunks`` range, on views.
     """
     from kubeflow_rm_tpu_torch.kernels import build
 
@@ -239,13 +266,15 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     lse = torch.empty((BH, T), dtype=torch.float32, device=q.device)
     lib = build.load("flash_fwd")
-    err = lib.kfrm_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(segq), _ptr(segkv),
-        out.data_ptr(), lse.data_ptr(),
-        BH, heads, T, D, group, int(bool(causal)), ctypes.c_float(D ** -0.5),
-        torch.cuda.current_stream().cuda_stream)
-    _raise_on(lib, err, "flash_fwd")
-    flash_fwd.launches += 1
+    for qs, ks, sq, skv in _chunks(BH, heads, group, segq, segkv):
+        err = lib.kfrm_flash_fwd(
+            q[qs].data_ptr(), k[ks].data_ptr(), v[ks].data_ptr(), _ptr(sq),
+            _ptr(skv), out[qs].data_ptr(), lse[qs].data_ptr(),
+            qs.stop - qs.start, heads, T, D, group, int(bool(causal)),
+            ctypes.c_float(D ** -0.5),
+            torch.cuda.current_stream().cuda_stream)
+        _raise_on(lib, err, "flash_fwd")
+        flash_fwd.launches += 1
     return out, lse
 
 
@@ -257,7 +286,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, segq=None, segkv=None, *,
     """Launch the Hopper dQ kernel (``_dq_kernel``'s counterpart).
 
     q, do (B·heads, T, D) and k/v (B·heads/group, T, D) bf16; lse and
-    δ = rowsum(dO∘O) (B·heads, T) float32. Returns dq like q."""
+    δ = rowsum(dO∘O) (B·heads, T) float32. Returns dq like q. One launch
+    per ``row_chunks`` range."""
     from kubeflow_rm_tpu_torch.kernels import build
 
     _check_kernel_inputs("flash_bwd_dq", q, k, v, segq, segkv, heads=heads,
@@ -266,13 +296,15 @@ def flash_bwd_dq(q, k, v, do, lse, delta, segq=None, segkv=None, *,
     BH, T, D = q.shape
     dq = torch.empty_like(q)
     lib = build.load("flash_bwd")
-    err = lib.kfrm_flash_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), _ptr(segq), _ptr(segkv),
-        dq.data_ptr(), BH, heads, T, D, group, int(bool(causal)),
-        ctypes.c_float(D ** -0.5), torch.cuda.current_stream().cuda_stream)
-    _raise_on(lib, err, "flash_bwd_dq")
-    flash_bwd_dq.launches += 1
+    for qs, ks, sq, skv in _chunks(BH, heads, group, segq, segkv):
+        err = lib.kfrm_flash_bwd_dq(
+            q[qs].data_ptr(), k[ks].data_ptr(), v[ks].data_ptr(),
+            do[qs].data_ptr(), lse[qs].data_ptr(), delta[qs].data_ptr(),
+            _ptr(sq), _ptr(skv), dq[qs].data_ptr(), qs.stop - qs.start,
+            heads, T, D, group, int(bool(causal)), ctypes.c_float(D ** -0.5),
+            torch.cuda.current_stream().cuda_stream)
+        _raise_on(lib, err, "flash_bwd_dq")
+        flash_bwd_dq.launches += 1
     return dq
 
 
@@ -284,7 +316,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, segq=None, segkv=None, *,
     """Launch the Hopper dK/dV kernel (``_dkv_kernel``'s counterpart,
     with the GQA fold done inside: one CTA owns a kv head's tile and
     loops over its group's q heads). Same inputs as ``flash_bwd_dq``;
-    returns ``(dk like k, dv like v)``."""
+    returns ``(dk like k, dv like v)``. One launch per ``row_chunks``
+    range (a chunk's kv rows are its q rows over ``group``)."""
     from kubeflow_rm_tpu_torch.kernels import build
 
     _check_kernel_inputs("flash_bwd_dkv", q, k, v, segq, segkv,
@@ -294,14 +327,16 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, segq=None, segkv=None, *,
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = build.load("flash_bwd")
-    err = lib.kfrm_flash_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), _ptr(segq), _ptr(segkv),
-        dk.data_ptr(), dv.data_ptr(), k.shape[0], heads, T, D, group,
-        int(bool(causal)), ctypes.c_float(D ** -0.5),
-        torch.cuda.current_stream().cuda_stream)
-    _raise_on(lib, err, "flash_bwd_dkv")
-    flash_bwd_dkv.launches += 1
+    for qs, ks, sq, skv in _chunks(BH, heads, group, segq, segkv):
+        err = lib.kfrm_flash_bwd_dkv(
+            q[qs].data_ptr(), k[ks].data_ptr(), v[ks].data_ptr(),
+            do[qs].data_ptr(), lse[qs].data_ptr(), delta[qs].data_ptr(),
+            _ptr(sq), _ptr(skv), dk[ks].data_ptr(), dv[ks].data_ptr(),
+            ks.stop - ks.start, heads, T, D, group, int(bool(causal)),
+            ctypes.c_float(D ** -0.5),
+            torch.cuda.current_stream().cuda_stream)
+        _raise_on(lib, err, "flash_bwd_dkv")
+        flash_bwd_dkv.launches += 1
     return dk, dv
 
 

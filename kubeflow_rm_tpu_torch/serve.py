@@ -13,7 +13,16 @@ same 400 rules as the JAX example, without werkzeug.
 - **Token ids in/out.** ``POST /generate {"prompt": [ids...],
   "temperature"?: t, "top_k"?: k}`` -> ``{"tokens": [ids...]}``;
   ``GET /healthz``. Temperature snaps to a 0.05 grid and top_k to a
-  small allowed set, as in the JAX server.
+  small allowed set, as in the JAX server. With a server-side tokenizer
+  (``--hf-tokenizer``, or ``make_app(tokenizer=...)``) a client may send
+  ``{"text": ...}`` and gets ``"text"`` back beside the tokens.
+- **Quantized weights** (``--int8``, ``--int4``): weight-only
+  ``quantize_params`` after load. ``make_app`` unpacks packed int4 to
+  int8 groups once, at construction (``unpack_int4_params``), so no
+  request pays for it; each decode step then dequantizes the int8.
+- **Checkpoints** (``--hf-model DIR``): a local directory that
+  ``save_pretrained`` wrote, read by ``models.convert.load_hf_dir``;
+  without it the weights are random from a fixed seed.
 
 - **Speculative decoding** (``--speculative``). A solo greedy request
   runs unpadded, at its exact length, and a prompt longer than
@@ -21,13 +30,17 @@ same 400 rules as the JAX example, without werkzeug.
   text decodes in fewer model calls); ``app.stats`` counts them. Every
   other request keeps the batched path.
 
-This is the single-device server: no mesh, no quantized weights (later
-slices of the port, ROADMAP.md).
+This is the single-device server: the mesh flags come with a later
+slice of the port (ROADMAP.md).
 
     python -m kubeflow_rm_tpu_torch.serve --preset llama2_7b --port 8000
     python -m kubeflow_rm_tpu_torch.serve --preset tiny --device cpu --selftest
     python -m kubeflow_rm_tpu_torch.serve --preset tiny --device cpu \
         --speculative --selftest
+    python -m kubeflow_rm_tpu_torch.serve --preset tiny --device cpu \
+        --int4 --selftest
+    python -m kubeflow_rm_tpu_torch.serve --hf-model ./llama-dir --int8 \
+        --hf-tokenizer ./llama-dir
 """
 
 from __future__ import annotations
@@ -192,21 +205,28 @@ class _HTTPError(Exception):
         self.status = status
 
 
-def _parse_request(body: bytes, cfg, max_new_tokens: int):
+def _parse_request(body: bytes, cfg, max_new_tokens: int, tokenizer=None):
     """Validate a /generate body -> (prompt, temperature, top_k), or
-    raise ``_HTTPError(400)`` — the JAX server's rules."""
+    raise ``_HTTPError(400)`` — the JAX server's rules. With a
+    ``tokenizer``, ``{"text": ...}`` is encoded into the prompt."""
     try:
         req = json.loads(body)
     except (ValueError, UnicodeDecodeError):
         raise _HTTPError(400, "body must be JSON") from None
     if not isinstance(req, dict):
         raise _HTTPError(400, "body must be a JSON object")
-    prompt = req.get("prompt")
+    if tokenizer is not None and "text" in req:
+        if not isinstance(req["text"], str):
+            raise _HTTPError(400, "text must be a string")
+        prompt = list(tokenizer.encode(req["text"]))
+    else:
+        prompt = req.get("prompt")
     if (not isinstance(prompt, list) or not prompt
             or not all(isinstance(t, int) and 0 <= t < cfg.vocab_size
                        for t in prompt)):
         raise _HTTPError(400, "prompt must be a non-empty list of token "
-                              f"ids in [0, {cfg.vocab_size})")
+                              f"ids in [0, {cfg.vocab_size}) (or pass "
+                              "text with a server-side tokenizer)")
     if len(prompt) > cfg.max_seq_len - max_new_tokens:
         raise _HTTPError(400, f"prompt too long ({len(prompt)}); limit "
                               f"{cfg.max_seq_len - max_new_tokens}")
@@ -227,21 +247,25 @@ def _parse_request(body: bytes, cfg, max_new_tokens: int):
 
 def make_app(cfg, params, *, max_new_tokens: int = 64,
              window_ms: float = 5.0, max_batch: int = 8,
-             speculative: bool = False,
+             speculative: bool = False, tokenizer=None,
              device: str | torch.device | None = None):
     """WSGI app + its Batcher (``app.batcher``) and counters
     (``app.stats``), serving ``params`` on ``device`` (the card unless
     told otherwise). ``speculative`` routes solo, greedy, unpadded
     requests with a prompt longer than ``LOOKUP_N`` through
-    ``generate_speculative_fused``. Sampled requests draw from one
+    ``generate_speculative_fused``. ``tokenizer`` (``encode``/``decode``)
+    lets clients send text. Packed-int4 weights are unpacked once, here
+    (the app serves the unpacked tree). Sampled requests draw from one
     ``torch.Generator`` with a non-deterministic seed; only the batcher
     thread uses it."""
     from kubeflow_rm_tpu_torch.device import default_device
     from kubeflow_rm_tpu_torch.models.generate import (
         generate_fused, generate_speculative_fused,
     )
+    from kubeflow_rm_tpu_torch.models.quantize import unpack_int4_params
 
     device = default_device(device)
+    params = unpack_int4_params(params)
     sampler = torch.Generator(device=device)
     sampler.seed()
     app_stats = {"speculative_requests": 0}
@@ -288,12 +312,20 @@ def make_app(cfg, params, *, max_new_tokens: int = 64,
             except ValueError:
                 raise _HTTPError(400, "bad Content-Length") from None
             body = environ["wsgi.input"].read(n) if n > 0 else b""
-            prompt, temp, top_k = _parse_request(body, cfg, max_new_tokens)
+            prompt, temp, top_k = _parse_request(body, cfg, max_new_tokens,
+                                                 tokenizer)
             try:
                 tokens = batcher.submit(prompt, temp, top_k)
             except RuntimeError as e:
                 raise _HTTPError(500, str(e)) from None
-            return respond(start_response, 200, {"tokens": tokens})
+            out = {"tokens": tokens}
+            if tokenizer is not None:
+                try:  # HF tokenizers: strip <s>/</s> markers
+                    out["text"] = tokenizer.decode(
+                        tokens, skip_special_tokens=True)
+                except TypeError:  # minimal tokenizers
+                    out["text"] = tokenizer.decode(tokens)
+            return respond(start_response, 200, out)
         except _HTTPError as e:
             return respond(start_response, e.status, {"error": str(e)})
 
@@ -331,12 +363,28 @@ class _ThreadingWSGIServer(socketserver.ThreadingMixIn, WSGIServer):
 
 def main(argv=None) -> int:
     from kubeflow_rm_tpu_torch.device import default_device
+    from kubeflow_rm_tpu_torch.models.convert import load_hf_dir
     from kubeflow_rm_tpu_torch.models.llama import (
         PRESETS, LlamaConfig, init_params,
     )
+    from kubeflow_rm_tpu_torch.models.quantize import quantize_params
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--preset", default="tiny", choices=PRESETS)
+    ap.add_argument("--hf-model", default=None, metavar="DIR",
+                    help="local directory written by save_pretrained "
+                         "(config.json + safetensors or .bin weights); "
+                         "default: random weights of --preset")
+    quant = ap.add_mutually_exclusive_group()
+    quant.add_argument("--int8", action="store_true",
+                       help="weight-only int8 quantize before serving")
+    quant.add_argument("--int4", action="store_true",
+                       help="weight-only int4 quantize with per-group "
+                            "scales (served unpacked to int8 groups)")
+    ap.add_argument("--hf-tokenizer", default=None,
+                    help="HF tokenizer id or path (needs transformers): "
+                         'lets clients pass {"text": ...} and get text '
+                         "back")
     ap.add_argument("--max-new-tokens", type=int, default=64)
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--speculative", action="store_true",
@@ -353,15 +401,33 @@ def main(argv=None) -> int:
     device = default_device(args.device)
     # weights are stored in the compute dtype: serving never trains, and
     # an fp32 copy would re-cast every weight on every decode step
-    cfg = getattr(LlamaConfig, args.preset)()
+    if args.hf_model:
+        cfg, params = load_hf_dir(args.hf_model, device=device,
+                                  param_dtype=LlamaConfig.dtype)
+    else:
+        cfg, params = getattr(LlamaConfig, args.preset)(), None
     cfg = replace(cfg, param_dtype=cfg.dtype)
-    # random weights from a fixed seed: the port has no checkpoint
-    # loader yet (models/convert is a later slice)
-    gen = torch.Generator(device=device).manual_seed(0)
-    params = init_params(cfg, gen, device)
+    if params is None:
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = init_params(cfg, gen, device)
+    if args.int8 or args.int4:
+        params = quantize_params(params, bits=4 if args.int4 else 8)
+
+    tokenizer = None
+    if args.hf_tokenizer:
+        from transformers import AutoTokenizer
+        tokenizer = AutoTokenizer.from_pretrained(args.hf_tokenizer)
+        if len(tokenizer) > cfg.vocab_size:
+            print(f"warning: tokenizer vocab ({len(tokenizer)}) exceeds "
+                  f"model vocab_size ({cfg.vocab_size}) — text requests "
+                  "producing out-of-range ids will be rejected",
+                  flush=True)
+
     app = make_app(cfg, params, max_new_tokens=args.max_new_tokens,
                    max_batch=args.max_batch,
-                   speculative=args.speculative, device=device)
+                   speculative=args.speculative, tokenizer=tokenizer,
+                   device=device)
+    del params      # the app holds its own tree (int4 unpacked)
 
     if args.selftest:
         status, out = request(app, "POST", "/generate",

@@ -2,14 +2,20 @@
 ``kubeflow_rm_tpu/training/checkpoint.py``).
 
 Each checkpoint is a step directory ``{directory}/{step}/`` holding one
-``torch.save`` file of the ``TrainState`` as plain dicts of CPU tensors
-and ints. A save is written into a temporary directory beside it and
-renamed into place with ``os.replace``, so a crash mid-save never
-leaves a partial step that ``latest_step`` would pick. Saves are
-synchronous; ``wait`` and ``close`` exist for the JAX package's API.
+``torch.save`` file: the saved tree as plain dicts of CPU tensors and
+Python values, and whether it was a ``TrainState`` or a bare tree. A
+save is written into a temporary directory beside it and renamed into
+place with ``os.replace``, so a crash mid-save never leaves a partial
+step that ``latest_step`` would pick. Saves are synchronous; ``wait``
+and ``close`` exist for the JAX package's API.
 
-The format is the port's own: it is NOT orbax-compatible, and a JAX
-checkpoint cannot be restored here (nor the other way round).
+The call shapes are JAX's: ``save(state, *, force=False)`` takes a
+``TrainState`` or any dict with a ``"step"`` entry, and
+``restore(cfg=None, mesh=None, step=None)`` gives back the tree as it
+was saved, or with a ``cfg`` a ``TrainState`` checked against it. Trees
+with quantized leaves (dicts of int8 and float32 tensors) round trip
+unchanged. The format is the port's own: it is NOT orbax-compatible, and
+a JAX checkpoint cannot be restored here (nor the other way round).
 """
 
 from __future__ import annotations
@@ -24,12 +30,24 @@ from kubeflow_rm_tpu_torch.training.optim import AdamState
 from kubeflow_rm_tpu_torch.training.train import TrainState
 
 _FILE = "state.pt"
+_TRAIN_STATE, _TREE = "train_state", "tree"
 
 
 def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
     return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def _cpu(tree):
+    return _map(tree, lambda t: t.detach().cpu())
+
+
+def _as_train_state(tree: dict) -> TrainState:
+    opt = tree["opt_state"]
+    return TrainState(step=int(tree["step"]), params=tree["params"],
+                      opt_state=AdamState(count=opt["count"], mu=opt["mu"],
+                                          nu=opt["nu"]))
 
 
 class Checkpointer:
@@ -50,49 +68,78 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def save(self, state: TrainState) -> bool:
-        """Write ``state`` at its step; False if that step exists."""
-        step = int(state.step)
+    def save(self, state, *, force: bool = False) -> bool:
+        """Write ``state`` — a ``TrainState``, or any dict with a
+        ``"step"`` entry — at its step. Returns False, writing nothing,
+        if that step exists, unless ``force``, which replaces it."""
+        if isinstance(state, TrainState):
+            kind = _TRAIN_STATE
+            tree = {"step": int(state.step), "params": _cpu(state.params),
+                    "opt_state": {"count": state.opt_state.count,
+                                  "mu": _cpu(state.opt_state.mu),
+                                  "nu": _cpu(state.opt_state.nu)}}
+        elif isinstance(state, dict) and "step" in state:
+            kind, tree = _TREE, _cpu(state)
+        else:
+            raise TypeError("save takes a TrainState or a dict with a "
+                            f"'step' entry, got {type(state).__name__}")
+        step = int(tree["step"])
         final = self.directory / str(step)
-        if final.exists():
+        if final.exists() and not force:
             return False
-        tree = {"step": step,
-                "params": _map(state.params, lambda t: t.detach().cpu()),
-                "opt_state": {
-                    "count": state.opt_state.count,
-                    "mu": _map(state.opt_state.mu, lambda t: t.cpu()),
-                    "nu": _map(state.opt_state.nu, lambda t: t.cpu())}}
         tmp = self.directory / f".{step}.tmp-{os.getpid()}"
-        shutil.rmtree(tmp, ignore_errors=True)
+        old = self.directory / f".{step}.old-{os.getpid()}"
+        for d in (tmp, old):
+            shutil.rmtree(d, ignore_errors=True)
         tmp.mkdir()
         try:
-            torch.save(tree, tmp / _FILE)
+            torch.save({"kind": kind, "tree": tree}, tmp / _FILE)
+            if final.exists():
+                os.replace(final, old)
             os.replace(tmp, final)
         finally:
-            shutil.rmtree(tmp, ignore_errors=True)
-        for old in self.all_steps()[:-self.max_to_keep]:
-            shutil.rmtree(self.directory / str(old), ignore_errors=True)
+            for d in (tmp, old):
+                shutil.rmtree(d, ignore_errors=True)
+        for stale in self.all_steps()[:-self.max_to_keep]:
+            shutil.rmtree(self.directory / str(stale), ignore_errors=True)
         return True
 
-    def restore(self, step: int | None = None,
-                device: str | torch.device | None = None
-                ) -> TrainState | None:
-        """The latest (or given) step's state on ``device`` (the card
-        unless the caller asks for the CPU), or None when the directory
-        holds no checkpoint."""
-        from kubeflow_rm_tpu_torch.device import default_device
+    def restore(self, cfg=None, mesh=None, step: int | None = None, *,
+                device: str | torch.device | None = None):
+        """The latest (or given) step on ``device`` (the card unless the
+        caller asks for the CPU), or None when the directory holds no
+        checkpoint.
 
+        Without ``cfg`` the tree comes back as it was saved: a
+        ``TrainState`` if one was saved, else the dict. With a
+        ``TrainConfig`` it is a ``TrainState`` whose parameters are
+        checked against ``cfg.model``. ``mesh`` must be None: the port
+        runs on one card.
+        """
+        from kubeflow_rm_tpu_torch.device import default_device
+        from kubeflow_rm_tpu_torch.models.params import check_params
+
+        if mesh is not None:
+            raise ValueError("the port restores onto one device: mesh must "
+                             "be None (sharded restore is not ported)")
         device = default_device(device)
         if step is None:
             step = self.latest_step()
         if step is None:
             return None
-        tree = torch.load(self.directory / str(step) / _FILE,
-                          map_location=device, weights_only=True)
-        opt = tree["opt_state"]
-        return TrainState(step=tree["step"], params=tree["params"],
-                          opt_state=AdamState(count=opt["count"],
-                                              mu=opt["mu"], nu=opt["nu"]))
+        saved = torch.load(self.directory / str(step) / _FILE,
+                           map_location=device, weights_only=True)
+        if "kind" not in saved:        # written before bare trees were kept
+            saved = {"kind": _TRAIN_STATE, "tree": saved}
+        tree = saved["tree"]
+        if cfg is None:
+            return _as_train_state(tree) if saved["kind"] == _TRAIN_STATE \
+                else tree
+        if not {"step", "params", "opt_state"} <= set(tree):
+            raise ValueError(f"step {step} holds no train state (keys "
+                             f"{sorted(tree)}); restore it without cfg")
+        check_params(tree["params"], cfg.model)
+        return _as_train_state(tree)
 
     def wait(self) -> None:
         """Saves are synchronous: nothing is pending."""

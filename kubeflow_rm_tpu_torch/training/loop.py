@@ -86,7 +86,7 @@ def fit(cfg: TrainConfig, data: Iterable[dict], loop: LoopConfig = LoopConfig(),
     resumed = False
     if state is None:
         dev = default_device(device)
-        state = ckpt.restore(device=dev) if ckpt else None
+        state = ckpt.restore(cfg, device=dev) if ckpt else None
         if state is not None:
             resumed = True
             log.info("resumed from step %d", state.step)

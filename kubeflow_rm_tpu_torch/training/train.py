@@ -10,7 +10,9 @@ passed in, its tensors updated.
 
 With ``OptimConfig(train_only="lora")`` the frozen leaves are set to
 ``requires_grad=False``: the backward computes no base-weight gradient
-and the optimizer keeps no moments for them.
+and the optimizer keeps no moments for them. That includes the int8 and
+float32 arrays of a quantized base (QLoRA); full fine-tuning of a
+quantized base raises, since int8 weights take no gradient.
 """
 
 from __future__ import annotations
@@ -46,9 +48,19 @@ class TrainState:
 
 def trainable_paths(cfg: TrainConfig, params: dict) -> list[str]:
     """Leaf paths the step differentiates: every leaf, or only the
-    adapters under ``train_only="lora"``."""
-    paths = list(leaf_paths(params))
+    adapters under ``train_only="lora"``. A quantized leaf's arrays are
+    leaves of their own (``blocks/wq/q``, ``blocks/wq/s``)."""
+    flat = leaf_paths(params)
+    paths = list(flat)
     if cfg.optim.train_only is None:
+        quantized = [p for p, t in flat.items()
+                     if not t.dtype.is_floating_point]
+        if quantized:
+            raise ValueError(
+                f"full fine-tuning of a quantized base ({quantized[0]}, "
+                "...) is not possible: int8 weights take no gradient. "
+                "Train LoRA adapters over it (QLoRA: add_lora, "
+                "train_only='lora') or start from unquantized weights")
         return paths
     if cfg.optim.train_only != "lora":
         raise ValueError(f"unknown train_only={cfg.optim.train_only!r} "

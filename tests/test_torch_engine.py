@@ -241,11 +241,30 @@ def test_engine_validation_and_sampling(model):
 
 
 def test_engine_refuses_quantized_weights_at_construction(model):
+    """Weights are checked against the config at construction, so a
+    malformed quantized leaf is refused there, before any request.
+    Packed int4 is then unpacked once; int8 is kept as given."""
+    from kubeflow_rm_tpu_torch.models.quantize import quantize_params
+
     _, _, tcfg, tparams = model
-    q = dict(tparams, blocks=dict(tparams["blocks"],
-                                  wq={"q4": None, "s": None}))
-    with pytest.raises(NotImplementedError, match="wq"):
-        tgen.ContinuousBatchingEngine(q, tcfg, slots=1, slot_len=16)
+    q4 = quantize_params(tparams, bits=4, group_size=16)
+    wq = q4["blocks"]["wq"]
+    bad = [
+        ({"q4": None, "s": None}, "not an array"),
+        ({"q4": wq["q4"], "s": wq["s"][:, :1]}, "shape"),           # groups
+        ({"q4": wq["q4"][..., :-1], "s": wq["s"][..., :-1]}, "shape"),
+        ({"q4": wq["q4"][:, :, :-1], "s": wq["s"]}, "shape"),     # packing
+    ]
+    for leaf, match in bad:
+        q = dict(q4, blocks=dict(q4["blocks"], wq=leaf))
+        with pytest.raises(ValueError, match=match):
+            tgen.ContinuousBatchingEngine(q, tcfg, slots=1, slot_len=16)
+    e = tgen.ContinuousBatchingEngine(quantize_params(tparams, bits=4), tcfg,
+                                      slots=1, slot_len=16)
+    assert set(e.params["blocks"]["wq"]) == {"q8g", "s"}
+    q8 = quantize_params(tparams, bits=8)
+    e = tgen.ContinuousBatchingEngine(q8, tcfg, slots=1, slot_len=16)
+    assert e.params["blocks"]["wq"]["q"] is q8["blocks"]["wq"]["q"]
 
 
 def test_engine_caches_live_on_the_parameters_device(model):

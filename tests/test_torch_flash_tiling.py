@@ -455,3 +455,70 @@ def test_tile_sizes_are_the_kernels():
             + DKV["DQ_STAGES"] * (2 * DQ_BK * D * 2 + DQ_BK * 4)
             + 8 * (2 + 4 * DKV["DQ_STAGES"]) + 1024)
     assert smem <= 232448
+
+
+# ---------------------------------------------------------------------
+# rows above the kernels' grid bound: the wrappers' chunk plan
+# ---------------------------------------------------------------------
+
+def test_row_bound_is_the_kernels():
+    """``GRID_ROWS_MAX`` is the bound every C entry point enforces (the
+    kernels put B·H, or B·KVH for dK/dV, on grid y)."""
+    fwd = re.findall(r"BH > (\d+)", (CSRC / "flash_fwd.cu").read_text())
+    bwd = re.findall(r"rows > (\d+)", (CSRC / "flash_bwd.cu").read_text())
+    assert fwd == bwd == [str(fa.GRID_ROWS_MAX)]
+
+
+@pytest.mark.parametrize("heads,group", [(32, 1), (32, 4), (32, 8),
+                                         (40, 1), (8, 8), (1, 1)])
+@pytest.mark.parametrize("B", [1, 2047, 2048, 2100, 6000])
+def test_row_chunk_plan_covers_every_row_once(B, heads, group):
+    """Every q row exactly once, in order; each launch whole batch rows
+    (a multiple of ``heads``, so segment rows and the kv row
+    ``bh // group`` stay whole) and within the bound for its q rows and
+    its kv rows; as few launches as the bound allows."""
+    limit, BH = fa.GRID_ROWS_MAX, B * heads
+    chunks = fa.row_chunks(BH, heads)
+    starts = [a for a, _ in chunks]
+    stops = [b for _, b in chunks]
+    assert starts[0] == 0 and stops[-1] == BH and starts[1:] == stops[:-1]
+    for a, b in chunks:
+        assert a % heads == 0 and b % heads == 0 and a % group == 0
+        assert 0 < b - a <= limit and (b - a) // group <= limit
+    per = limit // heads * heads
+    assert len(chunks) == -(-BH // per)
+    assert (len(chunks) == 1) == (BH <= limit)
+    with pytest.raises(ValueError, match="heads"):
+        fa.row_chunks(10, 5, limit=4)
+
+
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_chunked_launches_compose_to_the_whole(monkeypatch, group):
+    """The views each launch gets (q, kv, δ/lse rows and segment rows)
+    give, launch by launch through the plain versions, the whole call's
+    result: forward, dQ and dK/dV, at a bound of three batch rows."""
+    B, H, T, D = 7, 4, 40, 16
+    KVH = H // group
+    q, k, v, do, segq, segkv = make_inputs(
+        11, B, H, KVH, T, D, seg_lengths=[(15, 25)] * B, orphans=(5, 9))
+    q, k, v, do = bh(q), bh(k), bh(v), bh(do)
+    segq, segkv = tseg(segq), tseg(segkv)
+    kw = dict(heads=H, group=group, causal=True)
+    out, lse = fa.flash_attention_reference_bh(q, k, v, segq, segkv, **kw)
+    grads = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, segq,
+                                             segkv, **kw)
+    monkeypatch.setattr(fa, "GRID_ROWS_MAX", 3 * H)
+    parts = list(fa._chunks(B * H, H, group, segq, segkv))
+    assert len(parts) == 3
+    got_o, got_l = torch.empty_like(out), torch.empty_like(lse)
+    got = [torch.empty_like(g) for g in grads]
+    for qs, ks, sq, skv in parts:
+        o, l = fa.flash_attention_reference_bh(q[qs], k[ks], v[ks], sq, skv,
+                                               **kw)
+        got_o[qs], got_l[qs] = o, l
+        dq, dk, dv = fa.flash_attention_bwd_reference(
+            q[qs], k[ks], v[ks], o, l, do[qs], sq, skv, **kw)
+        got[0][qs], got[1][ks], got[2][ks] = dq, dk, dv
+    assert torch.equal(got_o, out) and torch.equal(got_l, lse)
+    for g, r in zip(got, grads):
+        assert torch.equal(g, r)

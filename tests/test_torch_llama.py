@@ -126,9 +126,26 @@ def test_from_numpy_params_layout(model):
                                   np.asarray(head.astype(np.float32)))
     with pytest.raises(ValueError, match="shape"):
         from_numpy_params({"out_norm": np.zeros(3, np.float32)}, tcfg, "cpu")
-    with pytest.raises(NotImplementedError, match="quantized"):
+    # quantized leaves are carried over as they are, their shapes checked
+    # against the quantized form of the base weight's shape
+    L, D = tcfg.n_layers, tcfg.dim
+    q8 = {"q": np.ones((L, D, D), np.int8), "s": np.ones((L, 1, D),
+                                                          np.float32)}
+    t = from_numpy_params({"blocks": {"wq": q8}}, tcfg, "cpu")["blocks"]["wq"]
+    assert t["q"].dtype == torch.int8 and t["s"].dtype == torch.float32
+    q4 = {"q4": np.ones((L, 2, 16, D), np.int8),
+          "s": np.ones((L, 2, 1, D), np.float32)}
+    t = from_numpy_params({"blocks": {"wq": q4}}, tcfg, "cpu")["blocks"]["wq"]
+    assert tuple(t["q4"].shape) == (L, 2, 16, D)
+    with pytest.raises(ValueError, match="shape"):
         from_numpy_params({"blocks": {"wq": {"q": np.zeros(1), "s": 0}}},
                           tcfg, "cpu")
+    with pytest.raises(ValueError, match="shape"):
+        from_numpy_params({"blocks": {"wq": dict(q4, s=np.ones(
+            (L, 4, 1, D), np.float32))}}, tcfg, "cpu")
+    with pytest.raises(ValueError, match="quantized leaf"):
+        from_numpy_params({"blocks": {"wq": {"w": np.zeros(1)}}}, tcfg,
+                          "cpu")
 
 
 def test_init_params_follows_init_rule():

@@ -176,3 +176,102 @@ def test_main_selftest_speculative_on_cpu(capsys):
     assert main(["--preset", "tiny", "--device", "cpu", "--selftest",
                  "--speculative", "--max-new-tokens", "3"]) == 0
     assert "selftest ok: 6 tokens" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------
+# quantized weights, text requests, HF directories
+# ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("flags", [["--int8"], ["--int4"],
+                                   ["--int4", "--speculative"]],
+                         ids=["int8", "int4", "int4_speculative"])
+def test_main_selftest_quantized_on_cpu(capsys, flags):
+    assert main(["--preset", "tiny", "--device", "cpu", "--selftest",
+                 "--max-new-tokens", "3", *flags]) == 0
+    assert "selftest ok: 6 tokens" in capsys.readouterr().out
+
+
+def test_int8_and_int4_flags_are_exclusive():
+    with pytest.raises(SystemExit):
+        main(["--preset", "tiny", "--device", "cpu", "--int8", "--int4"])
+
+
+def test_make_app_unpacks_int4_once_at_construction(served, monkeypatch):
+    """The app unpacks packed int4 when it is made and serves the
+    unpacked tree: no request unpacks again, and the tokens are those
+    of the per-token ``generate`` on the packed tree."""
+    from kubeflow_rm_tpu_torch.models import quantize
+    from kubeflow_rm_tpu_torch.models.generate import generate
+    from kubeflow_rm_tpu_torch.models.quantize import quantize_params
+
+    cfg, params, _ = served
+    q4 = quantize_params(params, bits=4)
+    calls = []
+    unpack = quantize.unpack_int4
+    monkeypatch.setattr(quantize, "unpack_int4",
+                        lambda leaf: (calls.append(1), unpack(leaf))[1])
+    app = make_app(cfg, q4, max_new_tokens=NEW, window_ms=1.0, device="cpu")
+    made = len(calls)
+    try:
+        outs = [request(app, "POST", "/generate", {"prompt": [5, 6, 7]})
+                for _ in range(2)]
+    finally:
+        app.batcher.close()
+    assert made == len(q4["blocks"]) - 2 + 1     # 7 projections + head
+    assert len(calls) == made
+    monkeypatch.undo()
+    want = generate(q4, cfg, torch.tensor([[5, 6, 7]]),
+                    max_new_tokens=NEW).tolist()[0]
+    assert outs == [(200, {"tokens": want})] * 2
+
+
+class StubTok:
+    """The minimal tokenizer of ``tests/test_examples.py``: no
+    ``skip_special_tokens`` keyword."""
+
+    def encode(self, text):
+        return [ord(c) % 250 + 1 for c in text]
+
+    def decode(self, ids):
+        return " ".join(str(i) for i in ids)
+
+
+def test_text_round_trip_with_a_server_side_tokenizer():
+    cfg = LlamaConfig.tiny()
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    app = make_app(cfg, params, max_new_tokens=3, window_ms=1.0,
+                   tokenizer=StubTok(), device="cpu")
+    try:
+        status, body = request(app, "POST", "/generate", {"text": "hello"})
+        assert status == 200, body
+        assert len(body["tokens"]) == 5 + 3
+        assert body["tokens"][:5] == StubTok().encode("hello")
+        assert body["text"] == " ".join(str(i) for i in body["tokens"])
+        status, body = request(app, "POST", "/generate", {"text": 5})
+        assert status == 400 and "text" in body["error"]
+        # token ids still work beside text
+        status, body = request(app, "POST", "/generate", {"prompt": [1, 2]})
+        assert status == 200 and "text" in body
+    finally:
+        app.batcher.close()
+    # without a tokenizer a text request is a bad request
+    app = make_app(cfg, params, max_new_tokens=3, window_ms=1.0,
+                   device="cpu")
+    try:
+        status, body = request(app, "POST", "/generate", {"text": "hello"})
+        assert status == 400 and "tokenizer" in body["error"]
+    finally:
+        app.batcher.close()
+
+
+def test_main_serves_an_hf_directory(tmp_path, capsys):
+    transformers = pytest.importorskip("transformers")
+    torch.manual_seed(0)
+    hf = transformers.LlamaForCausalLM(transformers.LlamaConfig(
+        vocab_size=128, hidden_size=64, intermediate_size=172,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=256))
+    hf.save_pretrained(tmp_path)
+    assert main(["--hf-model", str(tmp_path), "--device", "cpu", "--int8",
+                 "--selftest", "--max-new-tokens", "3"]) == 0
+    assert "selftest ok: 6 tokens" in capsys.readouterr().out

@@ -353,9 +353,14 @@ def test_add_lora_is_a_zero_delta_and_shares_the_base():
     with pytest.raises(KeyError):
         tlora.add_lora(base, 2, generator=torch.Generator(),
                        targets=("nope",))
-    with pytest.raises(NotImplementedError, match="quantized"):
-        tlora.add_lora({"blocks": {"wq": {"q": 0, "s": 0}}}, 2,
-                       generator=torch.Generator())
+    # a quantized base takes adapters too (QLoRA), bf16 by default
+    q = {"q4": torch.zeros(2, 2, 16, 64, dtype=torch.int8),
+         "s": torch.ones(2, 2, 1, 64)}
+    ql = tlora.add_lora({"blocks": {"wq": q}}, 2,
+                        generator=torch.Generator(), targets=("wq",))
+    assert ql["blocks"]["wq"] is q
+    assert ql["blocks"]["wq_lora_a"].shape == (2, 64, 2)
+    assert ql["blocks"]["wq_lora_b"].dtype == torch.bfloat16
 
 
 def test_merge_lora_equals_adapted_forward_and_jax():
@@ -618,3 +623,93 @@ def test_finetune_entry_point_runs_on_cpu():
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert "step 2 loss" in r.stdout and "sample token ids" in r.stdout
+
+
+def test_checkpointer_takes_jax_call_shapes(tmp_path):
+    """``save(state, *, force=False)`` takes a TrainState or any dict
+    with a "step" entry; ``restore(cfg=None, mesh=None, step=None)``
+    gives the tree back as saved, or a TrainState with a cfg; a mesh is
+    refused (one card)."""
+    ck = Checkpointer(tmp_path)
+    tree = {"step": 4, "notebook": {"x": torch.arange(3.0)}, "phase": "up"}
+    assert ck.save(tree)
+    assert not ck.save(dict(tree, phase="down"))
+    assert ck.save({"step": torch.tensor(4), "notebook": {
+        "x": torch.zeros(3)}, "phase": "down"}, force=True)
+    assert ck.all_steps() == [4]
+    back = ck.restore(device="cpu")
+    assert back["phase"] == "down" and int(back["step"]) == 4
+    assert torch.equal(back["notebook"]["x"], torch.zeros(3))
+    tcfg = _port_cfg()
+    with pytest.raises(ValueError, match="no train state"):
+        ck.restore(tcfg, device="cpu")
+    state = ttrain.init_train_state(tcfg, torch.Generator().manual_seed(0),
+                                    device="cpu")
+    state.step = 5
+    assert ck.save(state)
+    got = ck.restore(tcfg, None, 5, device="cpu")
+    assert isinstance(got, ttrain.TrainState) and got.step == 5
+    assert isinstance(ck.restore(step=4, device="cpu"), dict)
+    with pytest.raises(ValueError, match="mesh"):
+        ck.restore(tcfg, object(), device="cpu")
+    with pytest.raises(TypeError, match="step"):
+        ck.save({"no_step": 1})
+
+
+def test_finetune_quantized_base_and_export(tmp_path, capsys):
+    """``--int4-base`` trains adapters over a packed base;
+    ``--export-hf`` writes JAX's ``to_hf_llama`` arrays of the final
+    weights, which a ``transformers.LlamaForCausalLM`` loads (adapters
+    are left out, as in JAX)."""
+    from kubeflow_rm_tpu.models import convert as jconvert
+    from kubeflow_rm_tpu_torch import finetune
+
+    common = ["--preset", "tiny", "--device", "cpu", "--steps", "2",
+              "--batch", "2", "--seq-len", "32", "--lora-rank", "4"]
+    assert finetune.main(common + ["--int4-base"]) == 0
+    out = capsys.readouterr().out
+    assert "step 2 loss" in out and "sample token ids" in out
+    for bad in (["--int4-base", "--export-hf", str(tmp_path / "x.npz")],
+                ["--int8-base", "--int4-base"]):
+        with pytest.raises(SystemExit):
+            finetune.main(common + bad)
+    with pytest.raises(SystemExit):
+        finetune.main(common[:-2] + ["--int8-base"])     # no --lora-rank
+
+    npz = tmp_path / "hf.npz"
+    ckdir = tmp_path / "ck"
+    assert finetune.main(common + ["--no-sample", "--export-hf", str(npz),
+                                   "--checkpoint-dir", str(ckdir)]) == 0
+    final = Checkpointer(ckdir).restore(device="cpu")
+    jcfg = jllama.LlamaConfig.tiny()
+    jparams = jax.tree.map(lambda t: jnp.asarray(t.float().numpy()),
+                           final.params)
+    want = jconvert.to_hf_llama(jcfg, jparams)
+    got = np.load(npz)
+    assert sorted(got.files) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    transformers = pytest.importorskip("transformers")
+    hf = transformers.LlamaForCausalLM(transformers.LlamaConfig(
+        vocab_size=256, hidden_size=64, intermediate_size=128,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=128))
+    hf.load_state_dict({k: torch.tensor(got[k]) for k in got.files})
+
+
+def test_finetune_reads_an_hf_directory(tmp_path, capsys):
+    """``--hf-model DIR`` trains from a local ``save_pretrained``
+    directory: adapters over its int8-quantized weights here."""
+    from kubeflow_rm_tpu_torch import finetune
+
+    transformers = pytest.importorskip("transformers")
+    torch.manual_seed(0)
+    transformers.LlamaForCausalLM(transformers.LlamaConfig(
+        vocab_size=128, hidden_size=64, intermediate_size=172,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=256)).save_pretrained(tmp_path)
+    assert finetune.main(["--hf-model", str(tmp_path), "--device", "cpu",
+                          "--steps", "2", "--batch", "2", "--seq-len", "16",
+                          "--lora-rank", "4", "--int8-base"]) == 0
+    out = capsys.readouterr().out
+    assert "step 2 loss" in out and "sample token ids" in out
