@@ -61,6 +61,24 @@ prints one JSON line per phase:
    byte-identical after, the adapters trained, the kernels launched as in
    the train phase.
 
+11. moe    — Mixtral 8x7B at full width and 16 of its 32 layers (bf16,
+   47 GB; the 7B tree is dropped first): the forward at (1, 2048) with
+   one ``flash_fwd`` launch a layer and a router aux loss in [1, 8];
+   kernel and dense attention equally close to a float32 copy of the
+   first 4 layers; ``generate_fused`` equal to the per-token loop; the
+   engine (capacity factor 4: nothing drops) within δ of a
+   teacher-forced forward; 4 LoRA steps of ``fit`` (losses fall, base
+   bit-identical, ``router_aux`` reported, the kernels as counted).
+12. moe_int8 — the full 32-layer Mixtral built directly in int8
+   (``init_params_quantized``): stored bytes, fused decode equal to the
+   per-token loop, no kernel launch.
+13. offload — full fine-tuning of Llama-2-7B with adafactor and the
+   optimizer state in host memory (``offload="optimizer"``, chunks of 4
+   layers) against the on-card arm, 2 steps each from the same weights:
+   step-1 losses bit-equal, step-1 weights within ``OFFLOAD_MAX_STEPS``
+   bf16 steps, every layer of every leaf moved, the kernels as counted;
+   then adam and adafactor the same way at 2 layers.
+
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
 line, and last ``{"ok": true, "device": {...}}``. A failed check ends
 its phase; the later phases still run (so one run reports every fault),
@@ -111,6 +129,16 @@ ENGINE_SLOTS, ENGINE_SLOT_LEN, ENGINE_BLOCK = 8, 512, 16
 SPEC_CANDIDATES, SPEC_LEN, SPEC_NEW = 8, 128, 64
 # new tokens of the request installed as a chain
 CHAIN_NEW = 48
+# Host-offload optimizer: the learning rate of its 2-step runs (no
+# warmup: step 1 must move every bf16 weight, and adafactor's relative
+# step of lr·rms(w) rounds away below ~4e-3), and how far its step-1
+# weights may lie from the on-card arm's, in bf16 steps at the larger of
+# the weight before and after (``bf16_steps``): the host's means reduce
+# in another order than CUDA's, which moves a bf16 update u by a few of
+# its own last bits (k steps at |u| ≤ 2·max(|w|, |w'|)), and each arm
+# then rounds w + u once more: 2k + 1 steps with k ≤ 3
+OFFLOAD_LR = 1e-2
+OFFLOAD_MAX_STEPS = 7.0
 
 
 def emit(phase: str, **kw) -> None:
@@ -473,6 +501,41 @@ def phase_kernels(device_name: str):
     return worst, timing
 
 
+def versus(a, b):
+    """mean/max |a - b| and argmax agreement of a with b."""
+    d = (a - b).abs()
+    return dict(mean_abs=float(d.mean()), max_abs=float(d.max()),
+                argmax=float((a.argmax(-1) == b.argmax(-1)).float().mean()))
+
+
+def equally_close(x, y, truth, what):
+    """x and y are two bf16 computations of ``truth``: neither may be
+    further from it than the other by more than the stated margin."""
+    ex, ey = versus(x, truth), versus(y, truth)
+    ratio = ex["mean_abs"] / ey["mean_abs"]
+    check(1 / RATIO_MAX <= ratio <= RATIO_MAX
+          and abs(ex["argmax"] - ey["argmax"]) <= ARGMAX_GAP,
+          f"{what}: {ex} vs {ey} against the float32 forward")
+    return ex, ey
+
+
+def timed(fn, reps=3):
+    """``fn``'s output and the wall times of ``reps`` calls after a
+    warm-up call, as ``{"median", "min", "max"}`` in ms."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, dict(median=statistics.median(times), min=min(times),
+                     max=max(times))
+
+
 def phase_forward(cfg, params):
     import torch
 
@@ -482,22 +545,6 @@ def phase_forward(cfg, params):
     gen = torch.Generator(device="cuda").manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (2, 2048), generator=gen,
                            device="cuda", dtype=torch.int32)
-
-    def versus(a, b):
-        """mean/max |a - b| and argmax agreement of a with b."""
-        d = (a - b).abs()
-        return dict(mean_abs=float(d.mean()), max_abs=float(d.max()),
-                    argmax=float((a.argmax(-1) == b.argmax(-1)).float().mean()))
-
-    def equally_close(x, y, truth, what):
-        """x and y are two bf16 computations of ``truth``: neither may be
-        further from it than the other by more than the stated margin."""
-        ex, ey = versus(x, truth), versus(y, truth)
-        ratio = ex["mean_abs"] / ey["mean_abs"]
-        check(1 / RATIO_MAX <= ratio <= RATIO_MAX
-              and abs(ex["argmax"] - ey["argmax"]) <= ARGMAX_GAP,
-              f"{what}: {ex} vs {ey} against the float32 forward")
-        return ex, ey
 
     cfg32 = replace(cfg, dtype=torch.float32)   # float32 activations
     with torch.inference_mode():
@@ -748,14 +795,17 @@ def run_engine(eng, reqs, chain=None, profile_at=None):
 
 
 def teacher_forced(params, cfg, handles, cache, want_fp32=False):
-    """Each request's prompt + tokens through ``forward`` once (bf16, the
-    kernel path). Per request: does every token equal forward's argmax,
-    the first divergence, and the largest gap between forward's maximum
-    and the chosen token's logit. With ``want_fp32``, also the largest
+    """Each request's prompt + tokens through the family's forward once
+    (bf16, the kernel path). Per request: does every token equal
+    forward's argmax, the first divergence, and the largest gap between
+    forward's maximum and the chosen token's logit. With ``want_fp32``, also the largest
     |bf16 - float32| logit at the generated positions."""
     import torch
 
-    from kubeflow_rm_tpu_torch.models.llama import forward
+    from kubeflow_rm_tpu_torch.models import forward_with_aux
+
+    def forward(p, seq, c):
+        return forward_with_aux(p, seq, c)[0]
 
     cfg32 = replace(cfg, dtype=torch.float32)
     dev = params["embed"]["tokens"].device
@@ -984,20 +1034,6 @@ def phase_quant(cfg, params, forward_err, card):
     cpu_tree = {"blocks": {k: params["blocks"][k][:1].cpu()
                            for k in ("wq", "w_down")},
                 "lm_head": params["lm_head"].cpu()}
-
-    def timed(fn, reps=3):
-        """``fn``'s output and the wall times of ``reps`` calls after a
-        warm-up call, as ``{"median", "min", "max"}`` in ms."""
-        fn()
-        times = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return out, dict(median=statistics.median(times), min=min(times),
-                         max=max(times))
 
     report, launches = {"bf16_bytes": quantized_bytes(params)}, {}
     with torch.no_grad():
@@ -1285,7 +1321,9 @@ def checksums(params: dict) -> dict:
     out = {}
     for k, t in leaf_paths(params).items():
         sums = []
-        for part in (t if t.dim() >= 3 else t[None]):
+        # one (layer, expert) slice at a time: the int64 temporaries stay
+        # the size of one slice
+        for part in (t.flatten(0, t.dim() - 3) if t.dim() >= 3 else t[None]):
             bits = part.reshape(-1).view(
                 torch.int16 if t.element_size() % 2 == 0 else torch.uint8
             ).long()
@@ -1460,6 +1498,448 @@ def phase_qlora(card):
     return launches
 
 
+def active_dense(cfg):
+    """The dense Llama whose matmuls a token of the MoE ``cfg`` runs:
+    hidden width top_k × the expert width (the router's D × E aside)."""
+    from kubeflow_rm_tpu_torch.models.llama import LlamaConfig
+
+    dense = LlamaConfig(**{f: getattr(cfg, f)
+                           for f in LlamaConfig.__dataclass_fields__})
+    return replace(dense, hidden_dim=cfg.moe.top_k * cfg.hidden_dim)
+
+
+def phase_moe(card):
+    """Mixtral 8x7B at full width and 16 of its 32 layers (bf16): the
+    forward, kernel against dense attention on 4 layers, fused decode
+    against the per-token loop, the engine against a teacher-forced
+    forward, and 4 LoRA steps of ``fit``. Returns the launches of the
+    forward and of the LoRA run."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from kubeflow_rm_tpu_torch.models import forward_with_aux
+    from kubeflow_rm_tpu_torch.models.generate import (
+        ContinuousBatchingEngine, generate, generate_fused,
+    )
+    from kubeflow_rm_tpu_torch.models.lora import add_lora, is_lora_name
+    from kubeflow_rm_tpu_torch.models.mixtral import (
+        MixtralConfig, init_params,
+    )
+    from kubeflow_rm_tpu_torch.models.quantize import quantized_bytes
+    from kubeflow_rm_tpu_torch.training.data import to_device
+    from kubeflow_rm_tpu_torch.training.loop import LoopConfig, fit
+    from kubeflow_rm_tpu_torch.training.optim import OptimConfig, leaf_paths
+    from kubeflow_rm_tpu_torch.training.train import (
+        TrainConfig, init_train_state, make_train_step,
+    )
+    from kubeflow_rm_tpu_torch.utils.flops import (
+        matmul_param_count, train_flops_per_token,
+    )
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    cfg = MixtralConfig.mixtral_8x7b(n_layers=16, param_dtype=torch.bfloat16)
+    L, V = cfg.n_layers, cfg.vocab_size
+    # capacity for E / top_k = 4 slots a token: no token is ever dropped,
+    # so decode and a full forward route every token alike
+    no_drop = replace(cfg, moe=replace(cfg.moe, capacity_factor=4.0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(7),
+                         "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in leaf_paths(params).values())
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    tokens = torch.randint(0, V, (1, 2048), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    out = dict(card=card, preset="mixtral_8x7b", n_layers=L,
+               params=n_params, param_bytes=quantized_bytes(params),
+               active_params=matmul_param_count(active_dense(cfg))
+               + cfg.n_layers * cfg.dim * cfg.moe.n_experts, init_s=init_s)
+
+    with torch.inference_mode():
+        reset_launches()
+        logits, aux = forward_with_aux(params, tokens, cfg)   # the main path
+        torch.cuda.synchronize()
+        fwd_counts = read_launches()
+        check(fwd_counts == {"flash_fwd": L, "flash_bwd_dq": 0,
+                             "flash_bwd_dkv": 0},
+              f"moe forward launched {fwd_counts}, expected flash_fwd {L}")
+        check(tuple(logits.shape) == (1, 2048, V)
+              and bool(torch.isfinite(logits).all()),
+              "bad Mixtral forward logits")
+        aux = float(aux)
+        check(1.0 <= aux <= cfg.moe.n_experts,
+              f"router aux {aux} outside [1, {cfg.moe.n_experts}]")
+        del logits
+        _, fwd_t = timed(lambda: forward_with_aux(params, tokens, cfg)[0])
+        out.update(forward_launches=fwd_counts, router_aux=aux,
+                   forward_ms=fwd_t,
+                   forward_tokens_per_s=2048 / fwd_t["median"] * 1e3)
+
+        # kernel and dense attention against float32 on the first 4
+        # layers (the 16-layer tree in float32 would not fit beside it)
+        cut = replace(cfg, n_layers=4)
+        sub = dict(params, blocks={k: v[:4]
+                                   for k, v in params["blocks"].items()})
+        sub32 = {k: ({n: t.float() for n, t in v.items()}
+                     if isinstance(v, dict) else v.float())
+                 for k, v in sub.items()}
+        cut32 = replace(cut, dtype=torch.float32,
+                        param_dtype=torch.float32)
+        lk = forward_with_aux(sub, tokens, cut)[0]
+        ld = forward_with_aux(sub, tokens, cut, impl="dense")[0]
+        l32 = forward_with_aux(sub32, tokens, cut32)[0]
+        k32, d32 = equally_close(lk, ld, l32, "moe kernel vs dense forward")
+        del lk, ld, l32
+        # the engine's tolerance: bf16-vs-float32 at the engine's config
+        lk = forward_with_aux(sub, tokens, replace(cut, moe=no_drop.moe))[0]
+        l32 = forward_with_aux(sub32, tokens,
+                               replace(cut32, moe=no_drop.moe))[0]
+        err32 = float((lk - l32).abs().max())
+        del lk, l32, sub32
+        free()
+        out.update(kernel_vs_fp32_4l=k32, dense_vs_fp32_4l=d32,
+                   bf16_vs_fp32_max_abs_4l_no_drop=err32)
+
+    # fused decode against the per-token loop: 4 prompts x 16 tokens
+    new = 16
+    prompt = torch.randint(1, V, (4, 32), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    fused, fused_t = timed(lambda: generate_fused(params, cfg, prompt,
+                                                  max_new_tokens=new), reps=2)
+    _, one_t = timed(lambda: generate_fused(params, cfg, prompt,
+                                            max_new_tokens=1), reps=2)
+    loop = generate(params, cfg, prompt, max_new_tokens=new)
+    check(torch.equal(fused, loop), "moe generate_fused differs from the "
+          "per-token loop")
+    out.update(decode=dict(
+        prompts=[4, 32], new_tokens=new, fused_ms=fused_t,
+        step_ms=(fused_t["median"] - one_t["median"]) / (new - 1)))
+
+    # the engine, teacher-forced against the forward (no drops)
+    rng = np.random.default_rng(1)
+    reqs = [dict(prompt=rng.integers(1, V, n).tolist(), new=new,
+                 slo_class=c)
+            for n, c in ((12, "interactive"), (40, "batch"),
+                         (77, "best_effort"), (130, "interactive"))]
+    eng = ContinuousBatchingEngine(params, no_drop, slots=4, slot_len=512,
+                                   block_size=16)
+    reset_launches()
+    handles, latency, wall, step_ms, _ = run_engine(eng, reqs)
+    eng_counts = read_launches()
+    st = eng.stats()
+    del eng
+    free()
+    tf, _ = teacher_forced(params, no_drop, handles, {})
+    delta = DELTA_PER_ERROR * err32
+    toks = sum(len(h.tokens) for h in handles)
+    out.update(engine=dict(
+        requests=len(handles), done=sum(h.done for h in handles),
+        tokens_out=toks, tokens_per_s=toks / wall,
+        median_step_ms=statistics.median(step_ms),
+        decode_steps=st["decode_steps"], launches=eng_counts,
+        exact_fraction=sum(c["exact"] for c in tf) / len(tf),
+        max_gap=max(c["max_gap"] for c in tf), delta=delta,
+        first_divergence={i: c["first"] for i, c in enumerate(tf)
+                          if not c["exact"]}))
+    check(all(h.done and len(h.tokens) == new for h in handles),
+          "a Mixtral engine request did not finish")
+    check(eng_counts == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                         "flash_bwd_dkv": 0},
+          f"the Mixtral engine launched {eng_counts}")
+    check(out["engine"]["max_gap"] <= delta,
+          f"Mixtral engine: a token trails forward's maximum by "
+          f"{out['engine']['max_gap']} > delta {delta}")
+
+    # LoRA: rank 16 on wq/wv over the frozen bf16 base, 4 steps of fit
+    steps, B, T = 4, 1, 2048
+    lp = add_lora(params, 16, generator=torch.Generator(device="cuda")
+                  .manual_seed(2), targets=("wq", "wv"))
+    tcfg = TrainConfig(model=cfg, optim=OptimConfig(
+        train_only="lora", learning_rate=TRAIN_LR, warmup_steps=1,
+        total_steps=steps))
+    batch = packed_rows(B, T, V, seed=9)
+    base = {k: v for k, v in leaf_paths(lp).items()
+            if not is_lora_name(k.rsplit("/", 1)[-1])}
+    before = checksums(base)
+    state = init_train_state(tcfg, params=lp)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    state, history = fit(tcfg, itertools.repeat(batch),
+                         LoopConfig(total_steps=steps, log_every=1),
+                         state=state)
+    torch.cuda.synchronize()
+    lora_counts = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [h.loss for h in history]
+    timed_h = history[1:]      # the first record holds the start-up sync
+    after = checksums(base)
+    step_fn = make_train_step(tcfg, state)
+    dev_batch = to_device(batch, "cuda")
+    box = {}
+    prof = device_profile(lambda: box.update(m=step_fn(state, dev_batch)[1]))
+    metrics = {k: float(v) for k, v in box["m"].items()}
+    step_ms = statistics.median(h.step_time_ms for h in timed_h)
+    tps = statistics.median(h.tokens_per_sec for h in timed_h)
+    peak = peaks_for(torch.cuda.get_device_name(0))[1]
+    out.update(lora=dict(
+        rank=16, targets=["wq", "wv"], tokens=[B, T], steps=steps,
+        learning_rate=TRAIN_LR, remat=cfg.remat_policy, losses=losses,
+        grad_norms=[h.grad_norm for h in history], launches=lora_counts,
+        router_aux=metrics.get("router_aux"), step_time_ms=step_ms,
+        tokens_per_s=tps,
+        mfu_pct_dense_count=statistics.median(h.mfu_pct for h in timed_h),
+        mfu_pct_active_count=100 * tps * train_flops_per_token(
+            active_dense(cfg), T, frozen_base=True) / peak,
+        peak_mem_gb=peak_gb, base_bit_identical=before == after,
+        profile_one_step=prof))
+    emit("moe", **out)
+    check(all(np.isfinite(losses)), f"non-finite Mixtral loss: {losses}")
+    check(losses[-1] < losses[0], f"Mixtral loss did not fall: {losses}")
+    check(before == after, "a frozen Mixtral base weight changed")
+    check(metrics.get("router_aux") is not None
+          and np.isfinite(metrics["router_aux"]),
+          f"router_aux not reported: {metrics}")
+    check(lora_counts == {"flash_fwd": 2 * L * steps,
+                          "flash_bwd_dq": L * steps,
+                          "flash_bwd_dkv": L * steps},
+          f"Mixtral LoRA launches {lora_counts}, expected per step "
+          f"flash_fwd {2 * L} and {L} of each backward kernel")
+    return fwd_counts, lora_counts
+
+
+def phase_moe_int8(card):
+    """Mixtral 8x7B at full width and depth, built directly in int8
+    (``init_params_quantized``): stored bytes, and fused decode against
+    the per-token loop. Decode takes the dense attention path, so no
+    kernel runs. Returns the launches (all zero)."""
+    import torch
+
+    from kubeflow_rm_tpu_torch.models.generate import generate, generate_fused
+    from kubeflow_rm_tpu_torch.models.mixtral import MixtralConfig
+    from kubeflow_rm_tpu_torch.models.quantize import (
+        init_params_quantized, quantized_bytes,
+    )
+    from kubeflow_rm_tpu_torch.training.optim import leaf_paths
+
+    cfg = MixtralConfig.mixtral_8x7b(param_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params_quantized(
+        cfg, torch.Generator(device="cuda").manual_seed(11), "cuda", bits=8)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    flat = leaf_paths(params)
+    by_kind = {"q": 0, "s": 0, "float": 0}
+    for k, t in flat.items():
+        kind = k.rsplit("/", 1)[-1]
+        by_kind[kind if kind in ("q", "s") else "float"] += (
+            t.numel() * t.element_size())
+    new = 16
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    prompt = torch.randint(1, cfg.vocab_size, (4, 32), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    reset_launches()
+    fused, fused_t = timed(lambda: generate_fused(params, cfg, prompt,
+                                                  max_new_tokens=new), reps=2)
+    _, one_t = timed(lambda: generate_fused(params, cfg, prompt,
+                                            max_new_tokens=1), reps=2)
+    loop = generate(params, cfg, prompt, max_new_tokens=new)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    emit("moe_int8", card=card, preset="mixtral_8x7b",
+         n_layers=cfg.n_layers, bits=8, stored_bytes=quantized_bytes(params),
+         bytes_by_kind=by_kind, init_s=init_s, init_peak_gb=init_peak,
+         prompts=[4, 32], new_tokens=new, fused_ms=fused_t,
+         decode_step_ms=(fused_t["median"] - one_t["median"]) / (new - 1),
+         fused_equals_loop=bool(torch.equal(fused, loop)), launches=counts,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check(torch.equal(fused, loop),
+          "int8 Mixtral generate_fused differs from the per-token loop")
+    check(counts == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
+          f"int8 Mixtral decode launched {counts}")
+    return counts
+
+
+def bf16_steps(a, b, w0):
+    """Per element |a - b| in bf16 steps at max(|w0|, |a|, |b|): the
+    spacing of bf16 numbers at the larger of a weight before (``w0``) and
+    after its update (float32 math; the smallest normal's spacing at
+    least). Measured at the result alone, an update that nearly cancels
+    its weight would count its own rounding as a large error."""
+    import torch
+
+    a, b = a.float(), b.float()
+    mag = torch.maximum(torch.maximum(a.abs(), b.abs()), w0.float().abs())
+    spacing = torch.exp2(torch.floor(torch.log2(
+        mag.clamp_min(torch.finfo(torch.bfloat16).tiny))) - 7)
+    return (a - b).abs() / spacing
+
+
+def phase_offload(card):
+    """Full fine-tuning of Llama-2-7B with adafactor and the optimizer in
+    host memory (``offload="optimizer"``, chunks of 4 layers): 2 steps of
+    the streamed arm against 2 of the on-card arm from the same weights
+    and batch; then both scalers at 7B width and 2 layers. Returns the
+    streamed arm's launches."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from kubeflow_rm_tpu_torch.models.llama import LlamaConfig, init_params
+    from kubeflow_rm_tpu_torch.training.data import to_device
+    from kubeflow_rm_tpu_torch.training.optim import OptimConfig, leaf_paths
+    from kubeflow_rm_tpu_torch.training.train import (
+        TrainConfig, init_train_state, make_train_step,
+    )
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    host_free = subprocess.run(["free", "-g"], capture_output=True,
+                               text=True, timeout=60).stdout
+    B, T = 1, 2048
+    batch = packed_rows(B, T, 32000, seed=13)
+
+    def arms(cfg, factored, steps, seed):
+        """Both arms from one seed: per arm the losses, step times, the
+        streamed arm's metrics and the launches; the largest step-1
+        parameter difference between the arms in bf16 steps and the share
+        of elements that differ; whether every layer of every leaf moved
+        in step 1. The peak memory is the steps' own (the checks between
+        them are left out)."""
+        res, ref = {}, None
+        for off in ("none", "optimizer"):
+            tcfg = TrainConfig(model=cfg, optim=OptimConfig(
+                factored=factored, offload=off, offload_chunk_layers=4,
+                learning_rate=OFFLOAD_LR, warmup_steps=0,
+                total_steps=100))
+            params = init_params(
+                cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+            init_sums = checksums(params)
+            state = init_train_state(tcfg, params=params)
+            del params
+            step = make_train_step(tcfg, state)
+            dev_batch = to_device(batch, "cuda")
+            losses, ms, extra, peak = [], [], [], 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            for i in range(steps):
+                t0 = time.perf_counter()
+                state, m = step(state, dev_batch)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                peak = max(peak, torch.cuda.max_memory_allocated())
+                losses.append(float(m["loss"]))
+                extra.append({k: float(m[k]) for k in
+                              ("offload_transfer_ms", "offload_overlap_frac")
+                              if k in m})
+                if i > 0:
+                    continue
+                flat = leaf_paths(state.params)
+                after = checksums(state.params)
+                res[f"changed_{off}"] = {
+                    k: all(x != y for x, y in zip(init_sums[k], after[k]))
+                    for k in init_sums}
+                if ref is None:        # the on-card arm's step-1 weights
+                    ref = {k: t.detach().to("cpu", copy=True)
+                           for k, t in flat.items()}
+                    torch.cuda.reset_peak_memory_stats()
+                    continue
+                # the initial weights again, from the seed
+                w0 = leaf_paths(init_params(
+                    cfg, torch.Generator(device="cuda").manual_seed(seed),
+                    "cuda"))
+                worst, differ, total = 0.0, 0, 0
+                for k, t in flat.items():
+                    rows = zip(*(x.reshape(-1, t.shape[-1]).split(4096)
+                                 for x in (ref[k], t.detach(), w0[k])))
+                    for a, b, c in rows:
+                        a = a.to("cuda")
+                        worst = max(worst, float(bf16_steps(a, b, c).max()))
+                        differ += int((a != b).sum())
+                        total += a.numel()
+                res.update(max_steps_step1=worst,
+                           differing_fraction_step1=differ / total)
+                ref = w0 = None
+                torch.cuda.reset_peak_memory_stats()
+            flat = None
+            res[off] = dict(losses=losses, step_ms=ms, metrics=extra,
+                            launches=read_launches(), peak_gb=peak / 1e9)
+            if off == "optimizer":
+                tensors = [t for s in state.opt_state.values()
+                           for f in s.__dataclass_fields__ if f != "count"
+                           for t in getattr(s, f).values()]
+                res["host_state_bytes"] = sum(
+                    t.numel() * t.element_size() for t in tensors)
+                res["host_state_pinned"] = all(
+                    t.device.type == "cpu" and t.is_pinned()
+                    for t in tensors)
+            del state, step
+            free()
+        return res
+
+    cfg = LlamaConfig.llama2_7b(param_dtype=torch.bfloat16)
+    full = arms(cfg, True, 2, 14)
+    L = cfg.n_layers
+    small = {name: arms(replace(cfg, n_layers=2), fac, 2, 15)
+             for name, fac in (("adam", False), ("adafactor", True))}
+    stream = full["optimizer"]
+    emit("offload", card=card, preset="llama2_7b", optimizer="adafactor",
+         offload="optimizer", chunk_layers=4, tokens=[B, T],
+         learning_rate=OFFLOAD_LR, host_free_g=host_free.split("\n")[:2],
+         on_card=full["none"], streamed=stream,
+         host_state_bytes=full["host_state_bytes"],
+         host_state_pinned=full["host_state_pinned"],
+         jax_priced_on_chip_gb=32.05,
+         step1_max_bf16_steps=full["max_steps_step1"],
+         step1_differing_fraction=full["differing_fraction_step1"],
+         every_leaf_changed=all(full["changed_none"].values())
+         and all(full["changed_optimizer"].values()),
+         two_layer={n: {k: v for k, v in r.items()
+                        if not k.startswith("changed")}
+                    for n, r in small.items()})
+    for name, r in (("7b adafactor", full), *((f"2-layer {n}", r)
+                                              for n, r in small.items())):
+        on, off = r["none"], r["optimizer"]
+        check(np.isfinite(on["losses"]).all()
+              and np.isfinite(off["losses"]).all(),
+              f"{name}: non-finite loss {on['losses']} {off['losses']}")
+        check(on["losses"][0] == off["losses"][0],
+              f"{name}: step-1 losses differ: {on['losses'][0]} vs "
+              f"{off['losses'][0]}")
+        check(r["max_steps_step1"] <= OFFLOAD_MAX_STEPS,
+              f"{name}: step-1 parameters differ by "
+              f"{r['max_steps_step1']} bf16 steps")
+        for arm in ("none", "optimizer"):
+            moved = r[f"changed_{arm}"]
+            check(all(moved.values()),
+                  f"{name} ({arm}): unchanged after step 1: "
+                  f"{[k for k, c in moved.items() if not c]}")
+        check(all(0.0 <= m["offload_overlap_frac"] <= 1.0
+                  for m in off["metrics"]), f"{name}: overlap fraction")
+    check(full["host_state_pinned"], "the offload state is not pinned")
+    want = {"flash_fwd": 2 * L * 2, "flash_bwd_dq": L * 2,
+            "flash_bwd_dkv": L * 2}
+    check(stream["launches"] == want and full["none"]["launches"] == want,
+          f"offload launches {stream['launches']} / on-card "
+          f"{full['none']['launches']}, expected per step flash_fwd {2 * L} "
+          f"and {L} of each backward kernel")
+    return stream["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -1501,6 +1981,15 @@ def main() -> int:
     paths["train"] = run("train", phase_train, cfg, params)
     torch.cuda.empty_cache()
     paths["qlora"] = run("qlora", phase_qlora, smi)
+    # the MoE and offload phases need the card to themselves
+    del params
+    torch.cuda.empty_cache()
+    paths["moe_forward"], paths["moe_lora"] = (
+        run("moe", phase_moe, smi) or (None, None))
+    torch.cuda.empty_cache()
+    paths["moe_int8"] = run("moe_int8", phase_moe_int8, smi)
+    torch.cuda.empty_cache()
+    paths["offload"] = run("offload", phase_offload, smi)
     if failures:
         print("chip_smoke: FAILED\n  " + "\n  ".join(failures),
               file=sys.stderr)

@@ -16,8 +16,10 @@ frozen and, since it never takes an update, stored in the compute dtype
 directly in quantized form from the seed, or quantized after the load).
 ``fit`` resumes from ``--checkpoint-dir`` when it holds a checkpoint.
 ``--export-hf PATH`` writes the final weights as an HF-keyed ``.npz``
-(adapters are left out: merge them first to keep them). Not ported yet
-(ROADMAP.md): ``--tb-logdir`` and the mesh flags.
+(adapters are left out: merge them first to keep them).
+``--tb-logdir DIR`` writes the loop's metrics as tensorboard events
+(``utils.tensorboard``; needs the ``tensorboard`` package). Not ported
+yet (ROADMAP.md): the mesh flags.
 """
 
 from __future__ import annotations
@@ -77,6 +79,9 @@ def main(argv=None) -> int:
                     help="write the final weights as an HF state_dict "
                          "(.npz) here")
     ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--tb-logdir", default=None,
+                    help="write tensorboard events here (point a "
+                         "Tensorboard CR at the same pvc:// path)")
     ap.add_argument("--data", default=None,
                     help="glob of pre-tokenized jsonl shards (default: "
                          "synthetic)")
@@ -139,7 +144,18 @@ def main(argv=None) -> int:
                       log_every=max(1, args.steps // 10),
                       checkpoint_dir=args.checkpoint_dir,
                       grad_accum=args.grad_accum)
-    state, history = fit(cfg, batches, loop, state=state, device=device)
+    callbacks = ()
+    if args.tb_logdir:
+        from kubeflow_rm_tpu_torch.utils.tensorboard import (
+            TensorboardCallback,
+        )
+        callbacks = (TensorboardCallback(args.tb_logdir),)
+    try:
+        state, history = fit(cfg, batches, loop, state=state, device=device,
+                             callbacks=callbacks)
+    finally:
+        for cb in callbacks:
+            cb.close()
     for rec in history:
         print(f"step {rec.step} loss {rec.loss:.4f} grad_norm "
               f"{rec.grad_norm:.4f} {rec.tokens_per_sec:.0f} tok/s "

@@ -1,6 +1,7 @@
 """Models of the port. ``generate`` (the per-step loop) is reached as
 ``models.generate.generate``: the package attribute ``generate`` is the
-submodule."""
+submodule. ``init_params`` and ``forward_with_aux`` dispatch on the
+config's family, so generic code (training) never branches on it."""
 
 from kubeflow_rm_tpu_torch.models.convert import (
     config_from_hf, from_hf_llama, load_hf_dir, to_hf_llama,
@@ -19,10 +20,13 @@ from kubeflow_rm_tpu_torch.models.generate import (
     init_slot_cache,
     slot_decode_step,
 )
+from kubeflow_rm_tpu_torch.models import llama as _llama
+from kubeflow_rm_tpu_torch.models import mixtral as _mixtral
 from kubeflow_rm_tpu_torch.models.llama import (
-    LlamaConfig, forward, forward_with_aux, init_params, param_spec_shapes,
+    LlamaConfig, forward, param_spec_shapes,
 )
 from kubeflow_rm_tpu_torch.models.lora import add_lora, lora_mask, merge_lora
+from kubeflow_rm_tpu_torch.models.mixtral import MixtralConfig
 from kubeflow_rm_tpu_torch.models.paging import (
     BlockPool,
     PagedKVCache,
@@ -36,6 +40,22 @@ from kubeflow_rm_tpu_torch.models.quantize import (
     init_params_quantized, quantize_params,
 )
 
+
+def init_params(cfg: LlamaConfig, generator, device=None) -> dict:
+    """Family-correct random parameters for any model config."""
+    if isinstance(cfg, MixtralConfig):
+        return _mixtral.init_params(cfg, generator, device)
+    return _llama.init_params(cfg, generator, device)
+
+
+def forward_with_aux(params, tokens, cfg: LlamaConfig, **kwargs):
+    """Uniform forward: ``(logits, aux)``, where aux is the router
+    load-balancing loss for MoE families and None for dense ones."""
+    if isinstance(cfg, MixtralConfig):
+        return _mixtral.forward(params, tokens, cfg, **kwargs)
+    return _llama.forward_with_aux(params, tokens, cfg, **kwargs)
+
+
 __all__ = [
     "BlockPool",
     "ContinuousBatchingEngine",
@@ -43,6 +63,7 @@ __all__ = [
     "EngineRequest",
     "KVCache",
     "LlamaConfig",
+    "MixtralConfig",
     "PagedKVCache",
     "SLO_CLASSES",
     "SlotCache",

@@ -44,11 +44,15 @@ from kubeflow_rm_tpu_torch.models.llama import (
     LlamaConfig, _mlp, embed, layer_params, logits_head,
 )
 from kubeflow_rm_tpu_torch.models.lora import lora_proj
+from kubeflow_rm_tpu_torch.models.mixtral import MixtralConfig
 from kubeflow_rm_tpu_torch.models.params import check_params
-from kubeflow_rm_tpu_torch.models.quantize import unpack_int4_params
+from kubeflow_rm_tpu_torch.models.quantize import (
+    maybe_dequant, unpack_int4_params,
+)
 from kubeflow_rm_tpu_torch.ops.attention import dot_product_attention
 from kubeflow_rm_tpu_torch.ops.norms import rms_norm
 from kubeflow_rm_tpu_torch.ops.rope import apply_rope, rope_angles
+from kubeflow_rm_tpu_torch.parallel.moe import moe_ffn
 
 _UNFILLED = torch.iinfo(torch.int32).max
 
@@ -118,11 +122,11 @@ def _run_blocks(params, cfg, tokens, positions, kv_positions, write_kv):
     """Transformer trunk against the KV cache: embed, per layer
     attention over the whole cache (dense, position-masked) + FFN,
     final norm, lm head. ``write_kv(i, k, v)`` lands this chunk's K/V in
-    layer ``i``'s cache and returns that layer's full (k, v)."""
-    if getattr(cfg, "moe", None) is not None:
-        raise NotImplementedError(
-            "Mixtral/MoE decode is not ported yet: it comes with the "
-            "Mixtral/parallel slice of the port (ROADMAP.md, queue A)")
+    layer ``i``'s cache and returns that layer's full (k, v). The FFN
+    half is the family's: the dense SwiGLU, or the expert mixture on its
+    dequantized ``moe*`` leaves with the router aux loss dropped (a
+    training quantity). MoE capacity is per call (N = B·Tc tokens), so a
+    decode step can drop a token that a full forward keeps, as in JAX."""
     B, Tc = tokens.shape
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
@@ -131,6 +135,14 @@ def _run_blocks(params, cfg, tokens, positions, kv_positions, write_kv):
     rope_pos = torch.where(positions == _UNFILLED, 0, positions)
     cos, sin = rope_angles(rope_pos, hd, cfg.rope_theta)
     x = embed(params, tokens, cfg)
+    if isinstance(cfg, MixtralConfig):
+        def ffn(layer, h):
+            dq = {k: (maybe_dequant(v, cfg.dtype) if k.startswith("moe")
+                      else v) for k, v in layer.items()}
+            return moe_ffn(dq, h, cfg.moe, dtype=cfg.dtype)[0]
+    else:
+        def ffn(layer, h):
+            return _mlp(cfg, layer, h)
     blocks = params["blocks"]
     for i in range(cfg.n_layers):
         layer = layer_params(blocks, i)
@@ -148,8 +160,7 @@ def _run_blocks(params, cfg, tokens, positions, kv_positions, write_kv):
             q, ck, cv, causal=True,
             positions_q=positions, positions_kv=kv_positions)
         x = x + proj("wo", attn.reshape(B, Tc, H * hd))
-        x = x + _mlp(cfg, layer, rms_norm(x, layer["mlp_norm"],
-                                          cfg.norm_eps))
+        x = x + ffn(layer, rms_norm(x, layer["mlp_norm"], cfg.norm_eps))
     return logits_head(params, x, cfg)
 
 

@@ -164,7 +164,7 @@ def init_leaf(cfg: LlamaConfig, name: str, shape, generator: torch.Generator,
     if "norm" in name:
         return torch.ones(shape, dtype=cfg.param_dtype, device=device)
     scale = 0.02
-    if name in ("wo", "w_down"):
+    if name in ("wo", "w_down", "moe_down"):
         scale = 0.02 / (2.0 * cfg.n_layers) ** 0.5
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=device)
@@ -274,29 +274,42 @@ def forward(
     Where autograd records and ``cfg.remat`` is set, each block runs
     under ``torch.utils.checkpoint`` with ``cfg.remat_policy``.
     """
-    B, T = tokens.shape
-    attn_positions = None if (positions is None or packed) else positions
-    if positions is None:
-        positions = torch.arange(T, dtype=torch.int32,
-                                 device=tokens.device).expand(B, T)
-    x = embed(params, tokens, cfg)
-    cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    x, cos, sin, attn_positions = _prologue(params, tokens, cfg, positions,
+                                            packed)
     blocks = params["blocks"]
-    block = partial(_block, cfg)
-    if cfg.remat and torch.is_grad_enabled():
-        # the block draws no random numbers: no RNG state to replay
-        block = partial(checkpoint, block, use_reentrant=False,
-                        preserve_rng_state=False,
-                        context_fn=remat_context_fn(cfg.remat_policy))
+    block = remat_block(partial(_block, cfg), cfg)
     for i in range(cfg.n_layers):
         x = block(x, layer_params(blocks, i), cos, sin, attn_positions,
                   segments, impl)
     return logits_head(params, x, cfg)
 
 
+def _prologue(params, tokens, cfg, positions, packed):
+    """Embedding and rotary angles of a forward, and the positions the
+    attention mask sees: None (a plain causal mask, the flash path) unless
+    explicit positions come without ``packed``."""
+    B, T = tokens.shape
+    attn_positions = None if (positions is None or packed) else positions
+    if positions is None:
+        positions = torch.arange(T, dtype=torch.int32,
+                                 device=tokens.device).expand(B, T)
+    cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    return embed(params, tokens, cfg), cos, sin, attn_positions
+
+
+def remat_block(block, cfg):
+    """``block`` under ``torch.utils.checkpoint`` with ``cfg.remat_policy``
+    where autograd records and ``cfg.remat`` is set, else ``block``."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return block
+    # the block draws no random numbers: no RNG state to replay
+    return partial(checkpoint, block, use_reentrant=False,
+                   preserve_rng_state=False,
+                   context_fn=remat_context_fn(cfg.remat_policy))
+
+
 def forward_with_aux(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
                      **kwargs):
-    """Uniform forward: ``(logits, aux)``, where aux is the MoE router
-    loss for MoE families and None for dense ones (only dense Llama is
-    ported)."""
+    """``(logits, None)``: a dense model has no router aux loss
+    (``models.forward_with_aux`` dispatches on the family)."""
     return forward(params, tokens, cfg, **kwargs), None

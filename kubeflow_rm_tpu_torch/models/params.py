@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from kubeflow_rm_tpu_torch.models import mixtral
 from kubeflow_rm_tpu_torch.models.llama import LlamaConfig, param_spec_shapes
 from kubeflow_rm_tpu_torch.models.lora import is_lora_name
 from kubeflow_rm_tpu_torch.models.quantize import is_quantized
@@ -51,8 +52,9 @@ def quantized_leaf_shapes(leaf: dict, shape: tuple) -> dict:
 
 def _walk(tree: dict, cfg: LlamaConfig, leaf_fn) -> dict:
     """``tree`` with ``leaf_fn`` applied to every array, each checked
-    against ``param_spec_shapes(cfg)`` (a quantized leaf's arrays
-    against ``quantized_leaf_shapes``); LoRA adapters pass unchecked."""
+    against the family's ``param_spec_shapes(cfg)`` (a quantized leaf's
+    arrays against ``quantized_leaf_shapes``); LoRA adapters pass
+    unchecked."""
 
     def walk(sub, shapes, path):
         out = {}
@@ -81,7 +83,10 @@ def _walk(tree: dict, cfg: LlamaConfig, leaf_fn) -> dict:
             out[name] = t
         return out
 
-    return walk(tree, param_spec_shapes(cfg), ())
+    shapes = (mixtral.param_spec_shapes(cfg)
+              if isinstance(cfg, mixtral.MixtralConfig)
+              else param_spec_shapes(cfg))
+    return walk(tree, shapes, ())
 
 
 def check_params(params: dict, cfg: LlamaConfig) -> None:

@@ -31,8 +31,7 @@ from __future__ import annotations
 
 import torch
 
-#: weight leaves consumed by matmuls (the ``moe_*`` names come into use
-#: with the Mixtral port)
+#: weight leaves consumed by matmuls (the router stays float)
 _MATMUL_LEAVES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
                   "moe_gate", "moe_up", "moe_down")
 
@@ -111,26 +110,33 @@ def init_params_quantized(cfg, generator: torch.Generator,
     """Random-init a model directly into quantized form, one leaf at a
     time, so the full-precision tree never exists: each matmul leaf is
     drawn (``llama.init_leaf``) and quantized before the next is drawn.
-    The draws come from ``generator`` in ``init_params``' order, so the
-    result is bit-identical to ``quantize_params(init_params(cfg,
-    generator, device))`` from the same generator state."""
+    The draws come from ``generator`` in ``init_params``' order (for a
+    ``MixtralConfig``, ``mixtral.init_params``': every stacked leaf one
+    layer at a time), so the result is bit-identical to
+    ``quantize_params(init_params(cfg, generator, device))`` from the
+    same generator state."""
     from kubeflow_rm_tpu_torch.device import default_device
+    from kubeflow_rm_tpu_torch.models import mixtral
     from kubeflow_rm_tpu_torch.models.llama import init_leaf, param_spec_shapes
 
     device = default_device(device)
     quant = _quant_fn(bits, group_size)
 
+    def transform(name, leaf):
+        if name in _MATMUL_LEAVES or name == "lm_head":
+            return quant(leaf)
+        return leaf
+
+    if isinstance(cfg, mixtral.MixtralConfig):
+        # one layer at a time (mixtral.init_params): quantization reduces
+        # along axis -2, so a layer's quantization is the stack's slice
+        return mixtral.init_params(cfg, generator, device,
+                                   transform=transform)
+
     def walk(tree):
-        out = {}
-        for name, s in tree.items():
-            if isinstance(s, dict):
-                out[name] = walk(s)
-                continue
-            leaf = init_leaf(cfg, name, s, generator, device)
-            if name in _MATMUL_LEAVES or name == "lm_head":
-                leaf = quant(leaf)
-            out[name] = leaf
-        return out
+        return {name: (walk(s) if isinstance(s, dict) else transform(
+                    name, init_leaf(cfg, name, s, generator, device)))
+                for name, s in tree.items()}
 
     return walk(param_spec_shapes(cfg))
 

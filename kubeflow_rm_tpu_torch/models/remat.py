@@ -25,8 +25,14 @@ forward, like any ``autograd.Function``, hence the explicit skip.) What
 the replay recomputes is then JAX's set:
 ``full`` wq, wk, wv, wo, gate, up; ``dots`` none; ``attn`` wo, gate,
 up; ``mlp`` wq, wk, wv, wo; ``attn+mlp`` wo (wo because the MLP's norm
-needs ``x + wo(attn)``). The flash forward reruns under every policy,
-because its lse is never a saved name, as in JAX.
+needs ``x + wo(attn)``). In a MoE block (``parallel.moe``) the expert
+gate and up products are ``project``s of batched weights too, named
+``mlp_gate``/``mlp_up`` as the dense MLP's. The expert down product's
+output is read by the combine's backward and no policy saves it, so
+every policy recomputes it; ``dots``, which saves only unbatched
+products (``aten.mm``), recomputes all three expert products, as JAX's
+``checkpoint_dots_with_no_batch_dims`` does. The flash forward reruns
+under every policy, because its lse is never a saved name, as in JAX.
 """
 
 from __future__ import annotations
@@ -51,9 +57,11 @@ _NAME_POLICIES = {
 }
 REMAT_POLICIES = ("full", "dots", *_NAME_POLICIES)
 
-#: the projection whose output alone makes each name
-_NAME_SOURCE = {"q_rope": "wq", "k_rope": "wk", "v_proj": "wv",
-                "mlp_gate": "w_gate", "mlp_up": "w_up"}
+#: the projections whose output alone makes each name (the dense MLP's
+#: or the expert FFN's)
+_NAME_SOURCE = {"q_rope": ("wq",), "k_rope": ("wk",), "v_proj": ("wv",),
+                "mlp_gate": ("w_gate", "moe_gate"),
+                "mlp_up": ("w_up", "moe_up")}
 
 #: projections whose output the backward never reads
 _UNREAD = frozenset({"w_down"})
@@ -89,7 +97,8 @@ def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
 
 class _Projection(torch.autograd.Function):
     """``h @ w`` whose forward may skip the product (``skip``) while its
-    backward stays exact: it needs only ``h`` and ``w``."""
+    backward stays exact: it needs only ``h`` and ``w``. ``w`` is one
+    (in, out) weight, or a batch (E, in, out) against ``h`` (E, C, in)."""
 
     @staticmethod
     def forward(ctx, h, w, skip):
@@ -107,9 +116,13 @@ class _Projection(torch.autograd.Function):
         h, w = ctx.saved_tensors
         gh = gw = None
         if ctx.needs_input_grad[0]:
-            gh = g @ w.t()
+            gh = g @ w.transpose(-2, -1)
         if ctx.needs_input_grad[1]:
-            gw = h.reshape(-1, h.shape[-1]).t() @ g.reshape(-1, g.shape[-1])
+            if w.dim() == 2:
+                gw = (h.reshape(-1, h.shape[-1]).t()
+                      @ g.reshape(-1, g.shape[-1]))
+            else:
+                gw = h.transpose(-2, -1) @ g
         return gh, gw, None
 
 
@@ -151,7 +164,7 @@ def _full_contexts():
 def _named_contexts(names: frozenset):
     fwd, rec = create_selective_checkpoint_contexts(
         partial(_save_names, names))
-    skip = _UNREAD | {_NAME_SOURCE[n] for n in names if n in _NAME_SOURCE}
+    skip = _UNREAD | {w for n in names for w in _NAME_SOURCE.get(n, ())}
     return fwd, _replay(rec, skip)
 
 

@@ -16,6 +16,14 @@ was saved, or with a ``cfg`` a ``TrainState`` checked against it. Trees
 with quantized leaves (dicts of int8 and float32 tensors) round trip
 unchanged. The format is the port's own: it is NOT orbax-compatible, and
 a JAX checkpoint cannot be restored here (nor the other way round).
+
+The optimizer state is any of the trainer's layouts: adam's
+``AdamState``, adafactor's ``FactoredState``, or the host-offload
+layout ``{leaf key: per-leaf state}`` (``OptimConfig(offload=
+"optimizer")``). A host-offload state is saved from host memory and
+restored into it (pinned where a CUDA device exists), never onto the
+card, whatever ``device`` the parameters go to (JAX's
+``abstract_state``), so a resumed run continues bit for bit.
 """
 
 from __future__ import annotations
@@ -26,7 +34,9 @@ from pathlib import Path
 
 import torch
 
-from kubeflow_rm_tpu_torch.training.optim import AdamState
+from kubeflow_rm_tpu_torch.training.optim import (
+    AdamState, FactoredState, host_put,
+)
 from kubeflow_rm_tpu_torch.training.train import TrainState
 
 _FILE = "state.pt"
@@ -43,11 +53,34 @@ def _cpu(tree):
     return _map(tree, lambda t: t.detach().cpu())
 
 
-def _as_train_state(tree: dict) -> TrainState:
-    opt = tree["opt_state"]
+_OFFLOAD = "offload"
+_STATES = {frozenset({"count", "mu", "nu"}): AdamState,
+           frozenset({"count", "v_row", "v_col", "v"}): FactoredState}
+
+
+def _opt_tree(opt) -> dict:
+    """An optimizer state as plain dicts of CPU tensors."""
+    if isinstance(opt, dict):                      # host-offload layout
+        return {_OFFLOAD: {k: _opt_tree(v) for k, v in opt.items()}}
+    return {"count": opt.count, **{f: _cpu(getattr(opt, f))
+                                   for f in opt.__dataclass_fields__
+                                   if f != "count"}}
+
+
+def _opt_state(tree: dict, device):
+    """The inverse of ``_opt_tree``: the offload layout in host memory,
+    the on-card states on ``device``."""
+    if set(tree) == {_OFFLOAD}:
+        return {k: _opt_state(_map(v, host_put), None)
+                for k, v in tree[_OFFLOAD].items()}
+    if device is not None:
+        tree = _map(tree, lambda t: t.to(device))
+    return _STATES[frozenset(tree)](**tree)
+
+
+def _as_train_state(tree: dict, device) -> TrainState:
     return TrainState(step=int(tree["step"]), params=tree["params"],
-                      opt_state=AdamState(count=opt["count"], mu=opt["mu"],
-                                          nu=opt["nu"]))
+                      opt_state=_opt_state(tree["opt_state"], device))
 
 
 class Checkpointer:
@@ -75,9 +108,7 @@ class Checkpointer:
         if isinstance(state, TrainState):
             kind = _TRAIN_STATE
             tree = {"step": int(state.step), "params": _cpu(state.params),
-                    "opt_state": {"count": state.opt_state.count,
-                                  "mu": _cpu(state.opt_state.mu),
-                                  "nu": _cpu(state.opt_state.nu)}}
+                    "opt_state": _opt_tree(state.opt_state)}
         elif isinstance(state, dict) and "step" in state:
             kind, tree = _TREE, _cpu(state)
         else:
@@ -127,19 +158,26 @@ class Checkpointer:
             step = self.latest_step()
         if step is None:
             return None
+        # loaded on the host; the parameters then go to ``device`` and a
+        # host-offload optimizer state stays in host memory
         saved = torch.load(self.directory / str(step) / _FILE,
-                           map_location=device, weights_only=True)
+                           map_location="cpu", weights_only=True)
         if "kind" not in saved:        # written before bare trees were kept
             saved = {"kind": _TRAIN_STATE, "tree": saved}
         tree = saved["tree"]
+        if saved["kind"] == _TRAIN_STATE:
+            tree = dict(tree, params=_map(tree["params"],
+                                          lambda t: t.to(device)))
+        else:
+            tree = _map(tree, lambda t: t.to(device))
         if cfg is None:
-            return _as_train_state(tree) if saved["kind"] == _TRAIN_STATE \
-                else tree
+            return _as_train_state(tree, device) \
+                if saved["kind"] == _TRAIN_STATE else tree
         if not {"step", "params", "opt_state"} <= set(tree):
             raise ValueError(f"step {step} holds no train state (keys "
                              f"{sorted(tree)}); restore it without cfg")
         check_params(tree["params"], cfg.model)
-        return _as_train_state(tree)
+        return _as_train_state(tree, device)
 
     def wait(self) -> None:
         """Saves are synchronous: nothing is pending."""

@@ -44,6 +44,9 @@ class LoopConfig:
     max_to_keep: int = 3
     seed: int = 0
     grad_accum: int = 1                # microbatches per optimizer step
+    # "none" | "optimizer" | None (follow cfg.optim.offload): the
+    # streamed host-offload arm of make_train_step
+    offload: str | None = None
 
 
 @dataclass
@@ -55,6 +58,11 @@ class LoopMetrics:
     tokens_per_sec: float
     mfu_pct: float
     step_time_ms: float
+    # offload arm only (0.0 on the on-card arm): ms the stream spent
+    # blocked on device-to-host transfers, and the share of the streaming
+    # phase not blocked (how much of the transfer the lookahead hid)
+    offload_transfer_ms: float = 0.0
+    offload_overlap_frac: float = 0.0
 
 
 def _device_of(state: TrainState) -> torch.device:
@@ -112,7 +120,8 @@ def fit(cfg: TrainConfig, data: Iterable[dict], loop: LoopConfig = LoopConfig(),
         return state, []
     if batch_keys is None:
         batch_keys = tuple(first.keys())
-    step_fn = make_train_step(cfg, state, grad_accum=loop.grad_accum)
+    step_fn = make_train_step(cfg, state, grad_accum=loop.grad_accum,
+                              offload=loop.offload)
     peak = device_peak_flops(dev)
 
     history: list[LoopMetrics] = []
@@ -152,7 +161,9 @@ def fit(cfg: TrainConfig, data: Iterable[dict], loop: LoopConfig = LoopConfig(),
                     step=now, loss=m["loss"], grad_norm=m["grad_norm"],
                     tokens_per_sec=tps,
                     mfu_pct=100.0 * flops / peak if peak else 0.0,
-                    step_time_ms=1e3 * dt / max(steps_done, 1))
+                    step_time_ms=1e3 * dt / max(steps_done, 1),
+                    offload_transfer_ms=m.get("offload_transfer_ms", 0.0),
+                    offload_overlap_frac=m.get("offload_overlap_frac", 0.0))
                 history.append(rec)
                 log.info("step %d loss %.4f %.0f tok/s mfu %.1f%%",
                          rec.step, rec.loss, rec.tokens_per_sec, rec.mfu_pct)

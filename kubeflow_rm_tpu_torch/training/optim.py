@@ -4,8 +4,12 @@
 in its order:
 
 1. ``clip_by_global_norm(grad_clip)``;
-2. ``scale_by_adam(b1, b2, eps=1e-8, eps_root=0)`` with ``mu`` stored in
-   ``mu_dtype`` and ``nu`` in the parameter's dtype;
+2. the scaler: ``scale_by_adam(b1, b2, eps=1e-8, eps_root=0)`` with
+   ``mu`` stored in ``mu_dtype`` and ``nu`` in the parameter's dtype;
+   or with ``factored=True`` adafactor's three terms,
+   ``scale_by_factored_rms(decay_rate=b2, min_dim_size_to_factor=
+   factored_min_dim)``, ``clip_by_block_rms(1.0)`` and
+   ``scale_by_param_block_rms()``;
 3. ``add_decayed_weights(weight_decay)``, masked off every leaf whose
    path holds ``norm`` or starts with ``embed``;
 4. ``scale_by_schedule(-warmup_cosine_decay_schedule)``, where the decay
@@ -15,11 +19,17 @@ It follows optax 0.2.6's arithmetic, including where it rounds: the
 bias-corrected update is computed from the un-rounded first moment, and
 ``mu`` is cast to ``mu_dtype`` only after that; a Python scalar meets a
 tensor in the tensor's dtype (JAX's weak typing), so the port rounds
-every scalar to the tensor's dtype first. It is not
+every scalar to the tensor's dtype first, while a float32 array (the
+adafactor decay) promotes a bf16 operand to float32; a mean of a bf16
+tensor accumulates in float32 and rounds once. It is not
 ``torch.optim.AdamW``, whose eps placement and decay rounding differ.
 
 The port updates in place (JAX returns new arrays): ``update`` writes
-the parameters and the moments under ``torch.no_grad``.
+the parameters and the optimizer state under ``torch.no_grad``. Every
+term after the global-norm clip is leaf-local, so one function,
+``Optimizer.update_leaf``, updates a leaf given the global norm; the
+on-card chain and the host-offload policy (``OffloadOptimizer``, below)
+both run it, which keeps the two arms' arithmetic identical.
 """
 
 from __future__ import annotations
@@ -41,14 +51,18 @@ class OptimConfig:
     b2: float = 0.95
     grad_clip: float = 1.0
     mu_dtype: str = "bfloat16"
-    # adafactor (factored second moment): not ported yet
+    # adafactor: a factored second moment (row/col RMS vectors), no first
+    # moment
     factored: bool = False
+    # dims below this stay unfactored (optax's default; tests lower it)
     factored_min_dim: int = 128
     # "lora": train only adapter leaves; frozen leaves get neither
     # gradients nor moments
     train_only: str | None = None
-    # "optimizer": host-offloaded optimizer state: not ported yet
+    # "optimizer": the state lives in host memory and the update runs on
+    # the host (training.train's streamed arm)
     offload: str = "none"
+    # layer-group size of the streamed transfers of stacked (L, ...) leaves
     offload_chunk_layers: int = 4
 
 
@@ -96,11 +110,43 @@ def _weak(x: float, t: torch.Tensor) -> float:
     return torch.tensor(x, dtype=t.dtype).item()
 
 
+def _mean(x: torch.Tensor, dim=None, keepdim: bool = False):
+    """``jnp.mean``: a bf16 (or f16) mean accumulates in float32 and is
+    rounded to the input's dtype once."""
+    if dim is None:
+        return x.mean(dtype=torch.float32).to(x.dtype)
+    return x.mean(dim=dim, keepdim=keepdim, dtype=torch.float32).to(x.dtype)
+
+
+def factored_dims(shape, min_dim: int):
+    """optax's ``_factored_dims``: the two largest axes ``(d1, d0)`` (by
+    ``numpy.argsort``, as optax sorts), or None for a leaf of fewer than
+    two axes or whose second largest axis is below ``min_dim``."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < min_dim:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
 @dataclass
 class AdamState:
     count: int       # updates applied so far (optax's step count)
     mu: dict         # {path: first moment}, mu_dtype
     nu: dict         # {path: second moment}, the parameter's dtype
+
+
+@dataclass
+class FactoredState:
+    """Adafactor's state: per path the row and column statistics of a
+    factored leaf (``v`` a (1,) placeholder), or the full second moment
+    ``v`` of an unfactored one (``v_row``/``v_col`` placeholders), all
+    in the parameter's dtype — optax's ``FactoredState`` layout."""
+    count: int
+    v_row: dict
+    v_col: dict
+    v: dict
 
 
 class Optimizer:
@@ -110,47 +156,118 @@ class Optimizer:
     def __init__(self, cfg: OptimConfig):
         self.cfg = cfg
         self.mu_dtype = getattr(torch, cfg.mu_dtype)
+        self.state_type = FactoredState if cfg.factored else AdamState
 
-    def init(self, params: dict) -> AdamState:
-        return AdamState(
-            count=0,
-            mu={k: torch.zeros_like(p, dtype=self.mu_dtype)
-                for k, p in params.items()},
-            nu={k: torch.zeros_like(p) for k, p in params.items()})
+    @property
+    def slots(self) -> tuple[str, ...]:
+        """The per-leaf tensors of the state."""
+        return ("v_row", "v_col", "v") if self.cfg.factored else ("mu", "nu")
+
+    def init_leaf(self, p: torch.Tensor) -> dict:
+        """One leaf's state tensors (``slots``), zeros beside ``p``."""
+        if not self.cfg.factored:
+            return {"mu": torch.zeros_like(p, dtype=self.mu_dtype),
+                    "nu": torch.zeros_like(p)}
+        one = p.new_zeros((1,))
+        dims = factored_dims(tuple(p.shape), self.cfg.factored_min_dim)
+        if dims is None:
+            return {"v_row": one, "v_col": one.clone(),
+                    "v": torch.zeros_like(p)}
+        d1, d0 = dims
+        shape = list(p.shape)
+        row = shape[:d0] + shape[d0 + 1:]
+        col = shape[:d1] + shape[d1 + 1:]
+        return {"v_row": p.new_zeros(row), "v_col": p.new_zeros(col),
+                "v": one}
+
+    def init(self, params: dict):
+        per = {k: self.init_leaf(p) for k, p in params.items()}
+        return self.state_type(0, **{s: {k: d[s] for k, d in per.items()}
+                                     for s in self.slots})
 
     @torch.no_grad()
-    def update(self, grads: dict, state: AdamState, params: dict) -> None:
-        """One step: ``params`` and ``state`` are updated in place."""
+    def update_leaf(self, path: str, slots: dict, g: torch.Tensor,
+                    p: torch.Tensor, gnorm: torch.Tensor,
+                    count: int) -> None:
+        """The whole chain on one leaf, in place: ``p`` and its state
+        tensors ``slots`` are updated. ``gnorm`` is the global norm of
+        all the gradients (a 0-dim tensor on ``g``'s device) and
+        ``count`` the updates applied so far."""
         cfg = self.cfg
+        # clip_by_global_norm: select(trigger, g, g / ‖g‖ · max_norm)
+        g = torch.where(gnorm < cfg.grad_clip, g,
+                        g / gnorm.to(g.dtype) * _weak(cfg.grad_clip, g))
+        if cfg.factored:
+            u = self._adafactor(slots, g, p, count)
+        else:
+            u = self._adam(slots, g, count)
+        # add_decayed_weights (masked)
+        if decays(path):
+            u = u + _weak(cfg.weight_decay, p) * p
+        # scale_by_schedule, then apply_updates in the param's dtype
+        u = _weak(-schedule(cfg, count), u) * u
+        p.copy_((p + u).to(p.dtype))
+
+    def _adam(self, slots, g, count):
+        cfg = self.cfg
+        n = count + 1
+        bc1 = np.float32(1) - np.float32(cfg.b1) ** np.float32(n)
+        bc2 = np.float32(1) - np.float32(cfg.b2) ** np.float32(n)
+        mu_prev, nu_prev = slots["mu"], slots["nu"]
+        mu = _weak(1 - cfg.b1, g) * g + _weak(cfg.b1, mu_prev) * mu_prev
+        g2 = g * g
+        nu = _weak(1 - cfg.b2, g2) * g2 + _weak(cfg.b2, nu_prev) * nu_prev
+        mu_hat = mu / _weak(float(bc1), mu)
+        nu_hat = nu / _weak(float(bc2), nu)
+        u = mu_hat / (torch.sqrt(nu_hat) + _weak(1e-8, nu_hat))
+        mu_prev.copy_(mu.to(self.mu_dtype))
+        nu_prev.copy_(nu)
+        return u
+
+    def _adafactor(self, slots, g, p, count):
+        cfg = self.cfg
+        dtype = p.dtype
+        # scale_by_factored_rms: optax's decay_rate is an exponent,
+        # beta2_t = 1 - (t + 1)^-decay_rate, a float32 array
+        t = torch.tensor(count + 1, dtype=torch.float32, device=g.device)
+        decay = 1.0 - t ** -cfg.b2
+        keep = 1.0 - decay
+        g2 = g * g + _weak(1e-30, g)
+        dims = factored_dims(tuple(p.shape), cfg.factored_min_dim)
+        if dims is not None:
+            d1, d0 = dims
+            v_row = (decay * slots["v_row"].float()
+                     + keep * _mean(g2, d0).float()).to(dtype)
+            v_col = (decay * slots["v_col"].float()
+                     + keep * _mean(g2, d1).float()).to(dtype)
+            reduced_d1 = d1 - 1 if d1 > d0 else d1
+            row_col_mean = _mean(v_row, reduced_d1, keepdim=True)
+            row_factor = (v_row / row_col_mean) ** -0.5
+            col_factor = v_col ** -0.5
+            u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+            slots["v_row"].copy_(v_row)
+            slots["v_col"].copy_(v_col)
+        else:
+            v = (decay * slots["v"].float() + keep * g2.float()).to(dtype)
+            u = g * v ** -0.5
+            slots["v"].copy_(v)
+        # clip_by_block_rms(1.0)
+        rms = torch.sqrt(_mean(u * u)) / _weak(1.0, u)
+        u = u / torch.maximum(torch.ones_like(rms), rms)
+        # scale_by_param_block_rms(min_scale=1e-3)
+        p_rms = torch.sqrt(_mean(p * p))
+        return u * torch.where(p_rms <= _weak(1e-3, p), _weak(1e-3, p),
+                               p_rms)
+
+    @torch.no_grad()
+    def update(self, grads: dict, state, params: dict) -> None:
+        """One step: ``params`` and ``state`` are updated in place."""
         gnorm = global_norm(grads)
-        trigger = gnorm < cfg.grad_clip
-        count = state.count + 1
-        bc1 = np.float32(1) - np.float32(cfg.b1) ** np.float32(count)
-        bc2 = np.float32(1) - np.float32(cfg.b2) ** np.float32(count)
-        step_size = -schedule(cfg, state.count)
         for k, g in grads.items():
-            p = params[k]
-            # clip_by_global_norm: select(trigger, g, g / ‖g‖ · max_norm)
-            g = torch.where(trigger, g,
-                            g / gnorm.to(g.dtype) * _weak(cfg.grad_clip, g))
-            # scale_by_adam
-            mu_prev, nu_prev = state.mu[k], state.nu[k]
-            mu = (_weak(1 - cfg.b1, g) * g
-                  + _weak(cfg.b1, mu_prev) * mu_prev)
-            g2 = g * g
-            nu = _weak(1 - cfg.b2, g2) * g2 + _weak(cfg.b2, nu_prev) * nu_prev
-            mu_hat = mu / _weak(float(bc1), mu)
-            nu_hat = nu / _weak(float(bc2), nu)
-            u = mu_hat / (torch.sqrt(nu_hat) + _weak(1e-8, nu_hat))
-            # add_decayed_weights (masked)
-            if decays(k):
-                u = u + _weak(cfg.weight_decay, p) * p
-            # scale_by_schedule, then apply_updates in the param's dtype
-            u = _weak(step_size, u) * u
-            p.copy_((p + u).to(p.dtype))
-            state.mu[k].copy_(mu.to(self.mu_dtype))
-            state.nu[k].copy_(nu)
-        state.count = count
+            self.update_leaf(k, {s: getattr(state, s)[k]
+                                 for s in self.slots},
+                             g, params[k], gnorm, state.count)
+        state.count += 1
 
 
 def global_norm(tensors: dict) -> torch.Tensor:
@@ -161,12 +278,93 @@ def global_norm(tensors: dict) -> torch.Tensor:
 
 
 def make_optimizer(cfg: OptimConfig) -> Optimizer:
-    if cfg.factored:
-        raise NotImplementedError(
-            "factored=True (adafactor) is not ported yet (ROADMAP.md, "
-            "queue A, slice 2 leftovers: adafactor)")
-    if cfg.offload != "none":
-        raise NotImplementedError(
-            f"offload={cfg.offload!r} is not ported yet (ROADMAP.md, "
-            "queue A, slice 5: the host-offload optimizer)")
     return Optimizer(cfg)
+
+
+# ---------------------------------------------------------------------
+# host-offload policy: per-leaf chains + host placement
+# ---------------------------------------------------------------------
+
+def host_zeros(shape, dtype: torch.dtype) -> torch.Tensor:
+    """Zeros in host memory: page-locked (``pin_memory``) where a CUDA
+    device exists, so transfers to and from the card are asynchronous
+    DMA (JAX's ``pinned_host``); plain CPU memory on a host without
+    one."""
+    return torch.zeros(shape, dtype=dtype,
+                       pin_memory=torch.cuda.is_available())
+
+
+def host_put(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in host memory (see ``host_zeros``); a tensor already there
+    is returned as is."""
+    if t.device.type == "cpu" and (t.is_pinned()
+                                   or not torch.cuda.is_available()):
+        return t
+    out = torch.empty(t.shape, dtype=t.dtype,
+                      pin_memory=torch.cuda.is_available())
+    out.copy_(t)
+    return out
+
+
+def leaf_key(path: str) -> str:
+    """The offload state's key of a leaf: its path joined with "."."""
+    return path.replace("/", ".")
+
+
+class OffloadOptimizer:
+    """The ``make_optimizer`` chain, decomposed for streaming.
+
+    Everything after the global-norm clip is leaf-local, so each leaf
+    gets its own chain state (``{key: AdamState | FactoredState}`` over
+    the one entry ``"leaf"``, keyed by the "."-joined leaf path) that
+    is updated the moment that leaf's gradient lands on the host. The
+    clip's one cross-leaf input, the global norm, is computed on the
+    card and threaded through ``update_leaf``, which runs
+    ``Optimizer.update_leaf`` — the on-card chain's arithmetic exactly.
+    """
+
+    def __init__(self, cfg: OptimConfig, params: dict):
+        self.cfg = cfg
+        self.opt = Optimizer(cfg)
+        self.paths = tuple(leaf_paths(params))
+        self.keys = tuple(leaf_key(p) for p in self.paths)
+        if len(set(self.keys)) != len(self.keys):
+            raise ValueError("param leaf paths do not join uniquely")
+        self._path = dict(zip(self.keys, self.paths))
+
+    def init(self, params: dict) -> dict:
+        """Host-resident state: ``{key: per-leaf chain state}`` in
+        parameter order, built leaf by leaf in host memory."""
+        flat = leaf_paths(params)
+        out = {}
+        for key, path in zip(self.keys, self.paths):
+            # the layout from a shape-only (meta) leaf: no copy of the
+            # parameter is made anywhere
+            meta = torch.empty(flat[path].shape, dtype=flat[path].dtype,
+                               device="meta")
+            out[key] = self.opt.state_type(0, **{
+                s: {"leaf": host_zeros(t.shape, t.dtype)}
+                for s, t in self.opt.init_leaf(meta).items()})
+        return out
+
+    def update_leaf(self, key: str, leaf_state, grad: torch.Tensor,
+                    param: torch.Tensor, gnorm: torch.Tensor) -> None:
+        """One leaf's whole update, in place on ``param`` and
+        ``leaf_state``: the global-norm clip against the precomputed
+        ``gnorm``, the leaf's chain, then the update applied."""
+        self.opt.update_leaf(
+            self._path[key], {s: getattr(leaf_state, s)["leaf"]
+                              for s in self.opt.slots},
+            grad, param, gnorm, leaf_state.count)
+        leaf_state.count += 1
+
+
+def make_offload_optimizer(cfg: OptimConfig, params: dict) -> OffloadOptimizer:
+    if cfg.offload != "optimizer":
+        raise ValueError(f"offload policy is {cfg.offload!r}, expected "
+                         "'optimizer'")
+    if cfg.train_only is not None:
+        raise ValueError("offload='optimizer' does not compose with "
+                         "train_only (LoRA states are small enough to "
+                         "stay on the card)")
+    return OffloadOptimizer(cfg, params)

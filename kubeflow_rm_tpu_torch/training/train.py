@@ -1,12 +1,17 @@
 """The training step (counterpart of ``kubeflow_rm_tpu/training/train.py``).
 
-Single device: no mesh, no pipeline stages, no host offload (later
-slices of the port). ``make_train_step`` returns ``step(state, batch)
--> (state, metrics)``, which differentiates the loss with
-``torch.autograd.grad``, accumulates over ``grad_accum`` interleaved
-microbatches, and applies ``training.optim``'s chain in place — the
-port's counterpart of buffer donation: the returned state is the one
-passed in, its tensors updated.
+Single device: no mesh and no pipeline stages (later slices of the
+port). ``make_train_step`` returns ``step(state, batch) -> (state,
+metrics)``, which differentiates the loss with ``torch.autograd.grad``,
+accumulates over ``grad_accum`` interleaved microbatches, and applies
+``training.optim``'s chain in place — the port's counterpart of buffer
+donation: the returned state is the one passed in, its tensors updated.
+With ``offload="optimizer"`` it returns the streamed host-offload arm
+instead (``_build_offload_step``): the optimizer state lives in host
+memory and the update runs there.
+
+For a MoE family the loss adds ``cfg.model.moe.router_aux_weight`` times
+the router aux loss, which the metrics report as ``router_aux``.
 
 With ``OptimConfig(train_only="lora")`` the frozen leaves are set to
 ``requires_grad=False``: the backward computes no base-weight gradient
@@ -17,18 +22,20 @@ quantized base raises, since int8 weights take no gradient.
 
 from __future__ import annotations
 
+import time
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable
 
 import torch
 
-from kubeflow_rm_tpu_torch.models.llama import (
-    LlamaConfig, forward_with_aux, init_params,
-)
+from kubeflow_rm_tpu_torch.models import forward_with_aux, init_params
+from kubeflow_rm_tpu_torch.models.llama import LlamaConfig
 from kubeflow_rm_tpu_torch.models.lora import is_lora_name
 from kubeflow_rm_tpu_torch.ops.losses import softmax_cross_entropy
 from kubeflow_rm_tpu_torch.training.optim import (
-    AdamState, OptimConfig, global_norm, leaf_paths, make_optimizer,
+    AdamState, FactoredState, OptimConfig, global_norm, leaf_paths,
+    make_offload_optimizer, make_optimizer,
 )
 
 
@@ -43,7 +50,9 @@ class TrainConfig:
 class TrainState:
     step: int
     params: dict
-    opt_state: AdamState
+    # AdamState | FactoredState, or under offload="optimizer" the host
+    # layout {leaf key: per-leaf state}
+    opt_state: AdamState | FactoredState | dict
 
 
 def trainable_paths(cfg: TrainConfig, params: dict) -> list[str]:
@@ -76,13 +85,18 @@ def init_train_state(cfg: TrainConfig, generator: torch.Generator | None = None,
                      device: str | torch.device | None = None) -> TrainState:
     """Fresh state; pass ``params`` to start from existing weights (an
     ``add_lora`` output for adapter training), else they are drawn from
-    ``generator`` on ``device``."""
+    ``generator`` on ``device``. Under ``offload="optimizer"`` the
+    optimizer state is built leaf by leaf in host memory
+    (``OffloadOptimizer.init``); it never touches the card."""
     if params is None:
         params = init_params(cfg.model, generator, device)
     flat = leaf_paths(params)
-    opt = make_optimizer(cfg.optim)
     train = {p: flat[p] for p in trainable_paths(cfg, params)}
-    return TrainState(step=0, params=params, opt_state=opt.init(train))
+    if cfg.optim.offload == "optimizer":
+        opt_state = make_offload_optimizer(cfg.optim, params).init(params)
+    else:
+        opt_state = make_optimizer(cfg.optim).init(train)
+    return TrainState(step=0, params=params, opt_state=opt_state)
 
 
 def loss_fn(params: dict, batch: dict, cfg: TrainConfig):
@@ -91,14 +105,20 @@ def loss_fn(params: dict, batch: dict, cfg: TrainConfig):
     documents (then ``packed=True``: the ``pack_documents`` layout keeps
     attention on the flash kernel)."""
     segments = batch.get("segments")
-    logits, _ = forward_with_aux(
+    logits, router_aux = forward_with_aux(
         params, batch["tokens"], cfg.model, positions=batch.get("positions"),
         segments=segments, packed=segments is not None)
-    return softmax_cross_entropy(logits, batch["labels"], z_loss=cfg.z_loss)
+    loss, aux = softmax_cross_entropy(logits, batch["labels"],
+                                      z_loss=cfg.z_loss)
+    if router_aux is not None:
+        aux = dict(aux, router_aux=router_aux)
+        loss = loss + cfg.model.moe.router_aux_weight * router_aux
+    return loss, aux
 
 
 def make_train_step(cfg: TrainConfig, state: TrainState,
-                    grad_accum: int = 1) -> Callable:
+                    grad_accum: int = 1,
+                    offload: str | None = None) -> Callable:
     """Return ``step(state, batch) -> (state, metrics)``.
 
     ``batch`` maps names to (B, T) integer tensors on the parameters'
@@ -107,12 +127,20 @@ def make_train_step(cfg: TrainConfig, state: TrainState,
     and averages their gradients before ONE optimizer update. Metrics
     are 0-dim tensors (``loss``, ``grad_norm`` and the loss's aux
     terms), read by the caller when it chooses to sync.
+
+    ``offload="optimizer"`` (default: ``cfg.optim.offload``) returns the
+    streamed host-offload arm (``_build_offload_step``); it never falls
+    back to the on-card arm.
     """
+    if offload is None:
+        offload = cfg.optim.offload
+    if offload not in ("none", "optimizer"):
+        raise ValueError(f"unknown offload={offload!r} "
+                         "(expected 'none' or 'optimizer')")
     train_paths = trainable_paths(cfg, state.params)
     train_set = set(train_paths)
     for path, leaf in leaf_paths(state.params).items():
         leaf.requires_grad_(path in train_set)
-    opt = make_optimizer(cfg.optim)
 
     def grads_of(params, batch):
         flat = leaf_paths(params)
@@ -122,26 +150,38 @@ def make_train_step(cfg: TrainConfig, state: TrainState,
         return loss.detach(), {k: a.detach() for k, a in aux.items()}, \
             dict(zip(train_paths, grads))
 
-    def step(state: TrainState, batch: dict):
+    def compute_grads(params, batch):
         if grad_accum == 1:
-            loss, aux, grads = grads_of(state.params, batch)
-        else:
-            rows = batch["tokens"].shape[0]
-            if rows % grad_accum:
-                raise ValueError(f"batch {rows} not divisible by "
-                                 f"grad_accum={grad_accum}")
-            grads, losses, auxes = None, [], []
-            for m in range(grad_accum):
-                micro = {k: v[m::grad_accum] for k, v in batch.items()}
-                loss_m, aux_m, g = grads_of(state.params, micro)
-                losses.append(loss_m)
-                auxes.append(aux_m)
-                grads = g if grads is None else {
-                    k: grads[k] + g[k] for k in grads}
-            grads = {k: g / grad_accum for k, g in grads.items()}
-            loss = torch.stack(losses).mean()
-            aux = {k: torch.stack([a[k] for a in auxes]).mean()
-                   for k in auxes[0]}
+            return grads_of(params, batch)
+        rows = batch["tokens"].shape[0]
+        if rows % grad_accum:
+            raise ValueError(f"batch {rows} not divisible by "
+                             f"grad_accum={grad_accum}")
+        grads, losses, auxes = None, [], []
+        for m in range(grad_accum):
+            micro = {k: v[m::grad_accum] for k, v in batch.items()}
+            loss_m, aux_m, g = grads_of(params, micro)
+            losses.append(loss_m)
+            auxes.append(aux_m)
+            grads = g if grads is None else {
+                k: grads[k] + g[k] for k in grads}
+            del g
+        grads = {k: g / grad_accum for k, g in grads.items()}
+        loss = torch.stack(losses).mean()
+        aux = {k: torch.stack([a[k] for a in auxes]).mean()
+               for k in auxes[0]}
+        return loss, aux, grads
+
+    if offload == "optimizer":
+        return _build_offload_step(cfg, state, compute_grads)
+
+    if isinstance(state.opt_state, dict):
+        raise ValueError("state.opt_state is the host-offload layout; the "
+                         "on-card arm needs make_optimizer's state")
+    opt = make_optimizer(cfg.optim)
+
+    def step(state: TrainState, batch: dict):
+        loss, aux, grads = compute_grads(state.params, batch)
         flat = leaf_paths(state.params)
         opt.update(grads, state.opt_state,
                    {p: flat[p] for p in train_paths})
@@ -149,4 +189,149 @@ def make_train_step(cfg: TrainConfig, state: TrainState,
         state.step += 1
         return state, metrics
 
+    return step
+
+
+#: transfer chunks dispatched beyond the one being consumed: chunk k's
+#: update runs while chunks k+1..k+2 are in flight
+_STREAM_LOOKAHEAD = 2
+
+
+class _HostStream:
+    """Device-to-host copies on a side ``torch.cuda.Stream`` into pinned
+    buffers, each chunk with an event to wait on; on a CPU device every
+    copy is done when it is issued."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.stream = torch.cuda.Stream(device) if self.cuda else None
+
+    def start(self) -> None:
+        """Order the side stream after the work queued so far (the
+        grad phase)."""
+        if self.cuda:
+            self.stream.wait_stream(torch.cuda.current_stream())
+
+    def copy(self, dst: torch.Tensor, src: torch.Tensor):
+        """``dst.copy_(src)`` on the side stream; returns the event that
+        marks it done (None on the CPU)."""
+        if not self.cuda:
+            dst.copy_(src)
+            return None
+        with torch.cuda.stream(self.stream):
+            dst.copy_(src, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record()
+        return ev
+
+    def finish(self) -> None:
+        """Order later work on the current stream after every copy."""
+        if self.cuda:
+            torch.cuda.current_stream().wait_stream(self.stream)
+
+
+def _build_offload_step(cfg: TrainConfig, state: TrainState,
+                        compute_grads) -> Callable:
+    """The streamed host-offload arm of ``make_train_step``.
+
+    1. **Grad phase (card).** The grad-accum fold and the global norm,
+       the on-card arm's code.
+    2. **Streaming phase (host).** Gradient and parameter leaves go
+       host-ward on a side CUDA stream into pinned buffers, stacked
+       ``(L, ...)`` leaves in slices of ``offload_chunk_layers`` layers,
+       ``_STREAM_LOOKAHEAD`` chunks in flight beyond the one being
+       consumed. Once a leaf is whole on the host, its update
+       (``OffloadOptimizer.update_leaf``, the on-card chain's arithmetic)
+       runs on the CPU, the new leaf goes back with a ``non_blocking``
+       copy into the parameter on the card (in place, as the on-card arm
+       updates), and the leaf's device gradient is freed.
+
+    The update is per leaf while the transfers are per chunk: adafactor's
+    block-RMS clips reduce over whole leaves. Metrics add
+    ``offload_transfer_ms`` (time the host spent blocked on transfers)
+    and ``offload_overlap_frac`` (the share of the streaming phase not
+    blocked).
+    """
+    opt = make_offload_optimizer(cfg.optim, state.params)
+    keys = opt.keys
+    if not (isinstance(state.opt_state, dict)
+            and set(state.opt_state) == set(keys)):
+        raise ValueError(
+            "state.opt_state is not the host-offload layout; build the "
+            "state with OptimConfig(offload='optimizer') so "
+            "init_train_state lays it out in host memory")
+    flat = leaf_paths(state.params)
+    shapes = [tuple(flat[p].shape) for p in opt.paths]
+    chunk_layers = max(1, cfg.optim.offload_chunk_layers)
+    # stacked (L, ...) leaves stream in layer groups; flat leaves whole
+    chunks = [[(a, min(a + chunk_layers, shp[0]))
+               for a in range(0, shp[0], chunk_layers)]
+              if len(shp) >= 3 and shp[0] > 1 else None for shp in shapes]
+    work = [(i, r) for i, c in enumerate(chunks) for r in (c or [None])]
+    # pinned host buffers, one gradient and one parameter per leaf, made
+    # at the first step and reused
+    bufs: dict = {}
+
+    def step(state: TrainState, batch: dict):
+        loss, aux, grads = compute_grads(state.params, batch)
+        gnorm = global_norm(grads)
+        params = leaf_paths(state.params)
+        g_leaves = [grads.pop(p) for p in opt.paths]
+        p_leaves = [params[p] for p in opt.paths]
+        if not bufs:
+            pin = torch.cuda.is_available()
+            bufs.update(**{k: [torch.empty(shp, dtype=t.dtype, pin_memory=pin)
+                               for shp, t in zip(shapes, p_leaves)]
+                           for k in ("g", "p")})
+        gh, ph = bufs["g"], bufs["p"]
+        hs = _HostStream(p_leaves[0].device)
+        blocked = 0.0
+        t_stream = time.perf_counter()
+        hs.start()
+        inflight: deque = deque()
+        pos = 0
+
+        def dispatch_next():
+            nonlocal pos
+            i, r = work[pos]
+            pos += 1
+            sl = slice(None) if r is None else slice(*r)
+            hs.copy(gh[i][sl], g_leaves[i].detach()[sl])
+            inflight.append(hs.copy(ph[i][sl], p_leaves[i].detach()[sl]))
+
+        for _ in range(min(1 + _STREAM_LOOKAHEAD, len(work))):
+            dispatch_next()
+        t1 = time.perf_counter()
+        gnorm_host = gnorm.to("cpu")
+        blocked += time.perf_counter() - t1
+
+        with torch.no_grad():
+            for i, key in enumerate(keys):
+                for _ in range(1 if chunks[i] is None else len(chunks[i])):
+                    ev = inflight.popleft()
+                    if ev is not None:
+                        t1 = time.perf_counter()
+                        ev.synchronize()
+                        blocked += time.perf_counter() - t1
+                    if pos < len(work):
+                        dispatch_next()
+                # the leaf is whole on the host: its device gradient goes
+                g_leaves[i] = None
+                opt.update_leaf(key, state.opt_state[key], gh[i], ph[i],
+                                gnorm_host)
+                # back to the card behind this leaf's own transfers
+                hs.copy(p_leaves[i].detach(), ph[i])
+        hs.finish()
+        stream_wall = time.perf_counter() - t_stream
+        metrics = {
+            "loss": loss, "grad_norm": gnorm, **aux,
+            "offload_transfer_ms": blocked * 1e3,
+            "offload_overlap_frac": (max(0.0, 1.0 - blocked / stream_wall)
+                                     if stream_wall > 0 else 0.0),
+        }
+        state.step += 1
+        return state, metrics
+
+    step.chunk_plan = dict(zip(keys, chunks))
+    step.offload = "optimizer"
     return step

@@ -97,6 +97,49 @@ def test_engine_tokens_and_stats_equal_jax(model, paged):
         assert st["prefix_hit_tokens"] > 0 and st["cow_forks"] >= 1
 
 
+@pytest.fixture(scope="module")
+def moe_model():
+    """``tiny_moe`` as JAX defines it (capacity factor 2 = E / top_k:
+    no token is ever dropped, whatever the rows of a step)."""
+    from kubeflow_rm_tpu.models import mixtral as jmixtral
+    from kubeflow_rm_tpu_torch.models import mixtral as tmixtral
+
+    jcfg = jmixtral.MixtralConfig.tiny_moe()
+    jparams = jmixtral.init_params(jcfg, jax.random.key(0))
+    tcfg = tmixtral.MixtralConfig.tiny_moe()
+    tparams = from_numpy_params(jax.tree.map(np.asarray, jparams), tcfg,
+                                "cpu")
+    return jcfg, jparams, tcfg, tparams
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "contiguous"])
+def test_mixtral_engine_tokens_and_stats_equal_jax(moe_model, paged):
+    """The engine serves the MoE family: tokens, admission and retirement
+    steps and ``stats()`` equal JAX's engine on ``tiny_moe``."""
+    _, _, tcfg, tparams = moe_model
+    reqs = _mixed_requests(tparams, tcfg)
+    je, jr, te, tr = _run_both(moe_model, reqs, slots=2, slot_len=32,
+                               block_size=4, paged=paged)
+    assert [r.tokens for r in tr] == [r.tokens for r in jr]
+    assert [(r.admitted_step, r.finished_step) for r in tr] == \
+        [(r.admitted_step, r.finished_step) for r in jr]
+    assert te.stats() == je.stats()
+
+
+def test_mixtral_speculative_tokens_equal_jax(moe_model):
+    jcfg, jparams, tcfg, tparams = moe_model
+    prompt, new, _ = SPEC_CASES["periodic"]
+    js, ts = {}, {}
+    ref = jgen.generate_speculative_fused(
+        jparams, jcfg, jnp.asarray(prompt, jnp.int32), max_new_tokens=new,
+        stats=js)
+    got = tgen.generate_speculative_fused(
+        tparams, tcfg, torch.tensor(prompt, dtype=torch.int32),
+        max_new_tokens=new, stats=ts)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert ts == js
+
+
 def test_slo_admission_order_equals_jax(model):
     """One slot, three backed-up queues: the weighted round-robin admits
     in JAX's order (test_paging.py:225), interactive first by weight but

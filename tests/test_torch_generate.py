@@ -162,17 +162,54 @@ def test_argument_checks(model):
             entry(tparams, tcfg, prompt, max_new_tokens=4, temperature=0.5)
 
 
-def test_moe_config_is_refused(model):
-    from dataclasses import dataclass
+@pytest.fixture(scope="module")
+def moe_model():
+    """``tiny_moe`` with room for every token (capacity factor 8, JAX's
+    decode test): a decode step then routes as a full forward does."""
+    from dataclasses import replace
 
-    _, _, tcfg, tparams = model
+    from kubeflow_rm_tpu.models import mixtral as jmixtral
+    from kubeflow_rm_tpu_torch.models import mixtral as tmixtral
 
-    @dataclass(frozen=True)
-    class MoeConfig(tllama.LlamaConfig):
-        moe: object = object()
+    jcfg = jmixtral.MixtralConfig.tiny_moe()
+    jcfg = replace(jcfg, moe=replace(jcfg.moe, capacity_factor=8.0))
+    jparams = jmixtral.init_params(jcfg, jax.random.key(0))
+    tcfg = tmixtral.MixtralConfig.tiny_moe()
+    tcfg = replace(tcfg, moe=replace(tcfg.moe, capacity_factor=8.0))
+    tparams = from_numpy_params(jax.tree.map(np.asarray, jparams), tcfg,
+                                "cpu")
+    return jcfg, jparams, tcfg, tparams
 
-    cfg = MoeConfig(**{f: getattr(tcfg, f)
-                       for f in tcfg.__dataclass_fields__})
-    with pytest.raises(NotImplementedError, match="Mixtral"):
-        tgen.generate(tparams, cfg, torch.zeros(1, 2, dtype=torch.int32),
-                      max_new_tokens=1)
+
+def test_mixtral_prefill_matches_forward_and_jax(moe_model):
+    from kubeflow_rm_tpu_torch.models import mixtral as tmixtral
+
+    jcfg, jparams, tcfg, tparams = moe_model
+    tok = _prompt(7, 2, 9, lo=1)
+    ref, _ = jgen.decode_chunk(jparams, jcfg, jgen.init_cache(jcfg, 2, 20),
+                               jnp.asarray(tok))
+    cache = tgen.init_cache(tcfg, 2, 20, "cpu")
+    pre, _ = tgen.decode_chunk(tparams, tcfg, cache, torch.from_numpy(tok))
+    fwd, _ = tmixtral.forward(tparams, torch.from_numpy(tok), tcfg)
+    np.testing.assert_allclose(pre.numpy(), np.asarray(ref), atol=1e-4,
+                               rtol=1e-4)
+    np.testing.assert_allclose(pre.numpy(), fwd.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+def test_mixtral_greedy_tokens_equal_jax(moe_model, ragged):
+    """Greedy ``generate`` and ``generate_fused`` on the MoE family equal
+    JAX's ``generate_fused`` token for token (and each other), with and
+    without left padding."""
+    jcfg, jparams, tcfg, tparams = moe_model
+    tok = _prompt(8, 3, 10, lo=1)
+    pads = np.array([0, 3, 6], np.int32) if ragged else None
+    want = np.asarray(jgen.generate_fused(
+        jparams, jcfg, jnp.asarray(tok), max_new_tokens=8,
+        pad_counts=None if pads is None else jnp.asarray(pads)))
+    kw = dict(max_new_tokens=8,
+              pad_counts=None if pads is None else torch.from_numpy(pads))
+    got = tgen.generate(tparams, tcfg, torch.from_numpy(tok), **kw)
+    fused = tgen.generate_fused(tparams, tcfg, torch.from_numpy(tok), **kw)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(fused, got)

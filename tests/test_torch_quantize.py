@@ -155,6 +155,67 @@ def test_init_params_quantized_equals_two_step(bits):
 
 
 @pytest.mark.parametrize("bits", [8, 4])
+def test_mixtral_init_params_quantized_equals_two_step(bits):
+    """For the MoE family both paths draw every stacked leaf one layer at
+    a time (``mixtral.init_params``), so building it quantized equals
+    quantizing the drawn tree; the ``moe_*`` experts are quantized, the
+    router and norms are not."""
+    from kubeflow_rm_tpu_torch.models import mixtral as tmixtral
+
+    cfg = tmixtral.MixtralConfig.tiny_moe(n_layers=3)
+    direct = tq.init_params_quantized(
+        cfg, torch.Generator().manual_seed(3), "cpu", bits=bits,
+        group_size=32)
+    two = tq.quantize_params(
+        tmixtral.init_params(cfg, torch.Generator().manual_seed(3), "cpu"),
+        bits=bits, group_size=32)
+    a, b = leaf_paths(direct), leaf_paths(two)
+    assert list(a) == list(b)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    blocks = direct["blocks"]
+    assert all(tq.is_quantized(blocks[k])
+               for k in ("moe_gate", "moe_up", "moe_down", "wq", "wo"))
+    assert not tq.is_quantized(blocks["router"])
+    assert not tq.is_quantized(blocks["mlp_norm"])
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_moe_decode_matches_jax(bits):
+    """JAX's quantized MoE decode (``test_quantize.py``'s
+    ``test_quantized_moe_decode_runs``, capacity factor 8): the port's
+    ``decode_chunk`` on JAX's quantized tree gives JAX's logits, and
+    greedy tokens equal JAX's ``generate_fused``."""
+    from dataclasses import replace
+
+    from kubeflow_rm_tpu.models import mixtral as jmixtral
+    from kubeflow_rm_tpu_torch.models import mixtral as tmixtral
+
+    jcfg = jmixtral.MixtralConfig.tiny_moe()
+    jcfg = replace(jcfg, moe=replace(jcfg.moe, capacity_factor=8.0))
+    tcfg = tmixtral.MixtralConfig.tiny_moe()
+    tcfg = replace(tcfg, moe=replace(tcfg.moe, capacity_factor=8.0))
+    jqp = jq.quantize_params(jmixtral.init_params(jcfg, jax.random.key(0)),
+                             bits=bits, group_size=32)
+    assert jq.is_quantized(jqp["blocks"]["moe_gate"])
+    tqp = from_numpy_params(_np_tree(jqp), tcfg, "cpu")
+    tok = np.random.default_rng(6).integers(1, 256, (2, 7)).astype(np.int32)
+    ref, _ = jgen.decode_chunk(jqp, jcfg, jgen.init_cache(jcfg, 2, 16),
+                               jnp.asarray(tok))
+    got, _ = tgen.decode_chunk(tqp, tcfg, tgen.init_cache(tcfg, 2, 16, "cpu"),
+                               torch.from_numpy(tok))
+    assert np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=LOGIT_ATOL,
+                               rtol=0)
+    want = np.asarray(jgen.generate_fused(jqp, jcfg, jnp.asarray(tok),
+                                          max_new_tokens=6))
+    prompt = torch.from_numpy(tok)
+    loop = tgen.generate(tqp, tcfg, prompt, max_new_tokens=6).tolist()
+    fused = tgen.generate_fused(tqp, tcfg, prompt, max_new_tokens=6).tolist()
+    assert loop == fused == want.tolist()
+
+
+@pytest.mark.parametrize("bits", [8, 4])
 def test_quantized_bytes_equal_jax(model, bits):
     jqp, tqp = _quantized(model, bits)
     assert tq.quantized_bytes(tqp) == jq.quantized_bytes(jqp)

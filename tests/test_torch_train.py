@@ -168,11 +168,62 @@ def test_configs_have_jax_fields_and_defaults():
     assert tc.z_loss == jc.z_loss
 
 
-def test_unported_optimizer_arms_raise():
-    with pytest.raises(NotImplementedError, match="adafactor"):
-        toptim.make_optimizer(toptim.OptimConfig(factored=True))
-    with pytest.raises(NotImplementedError, match="offload"):
-        toptim.make_optimizer(toptim.OptimConfig(offload="optimizer"))
+@pytest.mark.parametrize("min_dim", [4, 128])
+def test_adafactor_matches_optax_chain(min_dim):
+    """``factored=True`` against optax's adafactor chain over 3 steps
+    (the global-norm clip firing and not), stacked (L, D, D) and flat
+    leaves factored where ``factored_min_dim`` allows (4: every matrix;
+    128: none), norms never; the parameters at atol 1e-6 and the
+    factored statistics at rtol 1e-5 (float32 means summed in another
+    order)."""
+    rng = np.random.default_rng(2)
+    params = jax.tree.map(lambda a: a.astype(np.float32), _opt_tree(rng))
+    cfg = dict(learning_rate=1e-2, warmup_steps=1, total_steps=8,
+               factored=True, factored_min_dim=min_dim)
+    jopt = joptim.make_optimizer(joptim.OptimConfig(**cfg))
+    jp = jax.tree.map(jnp.asarray, params)
+    jstate = jopt.init(jp)
+    tp = toptim.leaf_paths(jax.tree.map(lambda a: torch.from_numpy(a.copy()),
+                                        params))
+    topt = toptim.make_optimizer(toptim.OptimConfig(**cfg))
+    tstate = topt.init(tp)
+    assert isinstance(tstate, toptim.FactoredState)
+    for step in range(3):
+        scale = 5.0 if step % 2 else 0.05
+        g = jax.tree.map(lambda a: (rng.standard_normal(a.shape) * scale)
+                         .astype(np.float32), params)
+        upd, jstate = jopt.update(jax.tree.map(jnp.asarray, g), jstate, jp)
+        jp = optax.apply_updates(jp, upd)
+        topt.update({k: torch.from_numpy(v.copy()) for k, v in
+                     toptim.leaf_paths(g).items()}, tstate, tp)
+        for k, v in toptim.leaf_paths(np_tree(jp)).items():
+            np.testing.assert_allclose(t2n(tp[k]), v, atol=1e-6, rtol=0,
+                                       err_msg=k)
+    fac = jstate[1][0]
+    assert tstate.count == int(fac.count) == 3
+    for f in ("v_row", "v_col", "v"):
+        for k, v in toptim.leaf_paths(np_tree(getattr(fac, f))).items():
+            got = getattr(tstate, f)[k]
+            assert tuple(got.shape) == v.shape, (f, k)
+            np.testing.assert_allclose(t2n(got), v, rtol=1e-5, atol=1e-12,
+                                       err_msg=f"{f} {k}")
+    factored = {k for k, v in tstate.v.items() if v.shape == (1,)}
+    if min_dim == 4:
+        assert factored == {"embed/tokens", "blocks/wq", "lm_head"}
+    else:
+        assert not factored
+
+
+def test_factored_dims_take_the_two_largest_axes():
+    """optax's ``_factored_dims``: a stacked (L, D, F) leaf keeps L, and
+    a second-largest axis below the minimum means no factoring."""
+    from optax._src.factorized import _factored_dims
+
+    for shape in [(32, 4096, 11008), (32, 4096), (4096,), (2, 8, 8),
+                  (8, 4, 64, 128), (32000, 4096), (16, 100)]:
+        for min_dim in (4, 128):
+            assert toptim.factored_dims(shape, min_dim) == \
+                _factored_dims(shape, True, min_dim), (shape, min_dim)
 
 
 # ---------------------------------------------------------------------
@@ -612,6 +663,59 @@ def test_fit_resume_is_bit_exact(tmp_path):
         assert torch.equal(toptim.leaf_paths(resumed.params)[k], v), k
     for k, v in straight.opt_state.mu.items():
         assert torch.equal(resumed.opt_state.mu[k], v), k
+
+
+def test_loop_config_and_metrics_have_jax_fields():
+    from kubeflow_rm_tpu.training import loop as jloop
+    from kubeflow_rm_tpu_torch.training import loop as tloop
+
+    def fields(cls):
+        return {f.name: f.default for f in dataclasses.fields(cls)}
+
+    assert fields(tloop.LoopConfig) == fields(jloop.LoopConfig)
+    assert fields(tloop.LoopMetrics) == fields(jloop.LoopMetrics)
+
+
+def test_tensorboard_callback_writes_the_five_tags(tmp_path):
+    """``TensorboardCallback`` writes JAX's five scalars under JAX's tags,
+    one point per call."""
+    from tensorboard.backend.event_processing.event_accumulator import (
+        EventAccumulator,
+    )
+
+    from kubeflow_rm_tpu_torch.training.loop import LoopMetrics
+    from kubeflow_rm_tpu_torch.utils.tensorboard import TensorboardCallback
+
+    cb = TensorboardCallback(str(tmp_path))
+    for step in (1, 2):
+        cb(LoopMetrics(step=step, loss=5.0 / step, grad_norm=1.5,
+                       tokens_per_sec=100.0 * step, mfu_pct=0.0,
+                       step_time_ms=12.5))
+    cb.close()
+    acc = EventAccumulator(str(tmp_path))
+    acc.Reload()
+    tags = {"train/loss", "train/grad_norm", "perf/tokens_per_sec",
+            "perf/mfu_pct", "perf/step_time_ms"}
+    assert set(acc.Tags()["scalars"]) == tags
+    loss = acc.Scalars("train/loss")
+    assert [(e.step, e.value) for e in loss] == [(1, 5.0), (2, 2.5)]
+    assert [e.value for e in acc.Scalars("perf/tokens_per_sec")] == \
+        [100.0, 200.0]
+
+
+def test_finetune_tb_logdir_writes_events(tmp_path):
+    from tensorboard.backend.event_processing.event_accumulator import (
+        EventAccumulator,
+    )
+
+    from kubeflow_rm_tpu_torch import finetune
+
+    assert finetune.main(["--preset", "tiny", "--device", "cpu", "--steps",
+                          "2", "--batch", "2", "--seq-len", "32",
+                          "--no-sample", "--tb-logdir", str(tmp_path)]) == 0
+    acc = EventAccumulator(str(tmp_path))
+    acc.Reload()
+    assert [e.step for e in acc.Scalars("train/loss")] == [1, 2]
 
 
 def test_finetune_entry_point_runs_on_cpu():
