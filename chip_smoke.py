@@ -78,6 +78,23 @@ prints one JSON line per phase:
    step-1 losses bit-equal, step-1 weights within ``OFFLOAD_MAX_STEPS``
    bf16 steps, every layer of every leaf moved, the kernels as counted;
    then adam and adafactor the same way at 2 layers.
+14. mesh1  — the mesh path at world size 1 over NCCL (run right after
+   train, on the same 7B tree): ``make_mesh(MeshConfig(dp=1, fsdp=1,
+   tp=1))``; the train phase's LoRA recipe through ``fit(..., mesh=)``
+   for 3 steps (step-1 loss bit-equal to the train phase's, the kernels
+   as counted, step time and peak beside train's); ``make_generate_step``
+   of 4 prompts × 32 tokens equal to ``generate_fused``; ``make_app(...,
+   mesh=)`` answering one ``/generate``; Ulysses at sp=1 on (2, 2048, 32,
+   128), KVH 32 and 8, bit-equal to the flash op in output and gradients
+   with one ``flash_fwd`` a call and one of each backward kernel; ring
+   and zigzag at sp=1 in float32 within ``RING_ATOL`` of dense; and what
+   a one-rank NCCL collective (which the port skips) would cost.
+15. mesh_multi — only on a machine with two or more cards:
+   ``min(count, 4)`` NCCL ranks, one per card: a 7B-width 4-layer LoRA
+   step at fsdp=2 (fsdp=2 × tp=2 at world 4) against the one-rank loss,
+   Ulysses and ring at sp=world against the one-card flash op, and the
+   step's collective times. A one-card machine prints ``{"phase":
+   "mesh_multi", "skipped": "1 card"}``.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
 line, and last ``{"ok": true, "device": {...}}``. A failed check ends
@@ -129,6 +146,26 @@ ENGINE_SLOTS, ENGINE_SLOT_LEN, ENGINE_BLOCK = 8, 512, 16
 SPEC_CANDIDATES, SPEC_LEN, SPEC_NEW = 8, 128, 64
 # new tokens of the request installed as a chain
 CHAIN_NEW = 48
+# Ring and zigzag at sp=1 on float32 inputs: an online softmax against
+# one dense softmax, both float32 (a few ulps of the ~1 outputs)
+RING_ATOL = 1e-5
+# mesh_multi: MESH_STEPS LoRA steps of a bf16 model on the mesh against
+# one rank (the first at lr 0: warmup). The tp all-reduces sum partial
+# products, and the fsdp reduce-scatters bf16 partial gradients, in
+# another order than one card's matmul. Loss: ~10x the 1.4e-5 measured
+# at step 1 on four H100s. Grad norm (a bf16 scalar): under 2 of its
+# ulps. The adapters' gradients at the same weights (||g_mesh - g_one||
+# / ||g_one||): bf16 rounding of the partial sums moves them by ~1e-2,
+# a reduction that drops, repeats or misplaces a rank's share by ~1.
+# The adapters' update over the steps: Adam's first updates are near
+# +-lr per element, so rounding flips whole elements where a gradient
+# is near 0 (0.13-0.36 measured on four H100s, a few % of the elements
+# flipped), while an unrelated update differs by sqrt(2).
+MESH_STEPS = 3
+MESH_LOSS_RTOL = 1.5e-4
+MESH_GNORM_RTOL = 1e-2
+MESH_GRAD_RTOL = 5e-2
+MESH_UPDATE_RTOL = 0.7
 # Host-offload optimizer: the learning rate of its 2-step runs (no
 # warmup: step 1 must move every bf16 weight, and adafactor's relative
 # step of lr·rms(w) rounds away below ~4e-3), and how far its step-1
@@ -1408,7 +1445,511 @@ def phase_train(cfg, params):
           f"train launches {launches}, expected per step flash_fwd "
           f"{2 * L} and {L} of each backward kernel")
     check(history[-1].mfu_pct > 0, "LoopMetrics MFU is 0")
-    return launches
+    return launches, {"losses": losses, "step_ms": step_ms,
+                      "peak_mem_gb": peak_gb}
+
+
+def free_port() -> int:
+    """A free localhost TCP port for a process group's rendezvous."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_lora_fit(cfg, params, steps: int, mesh):
+    """The train phase's recipe (rank-16 LoRA on wq/wv, B=2×2048 packed,
+    seed 3) for ``steps`` steps of ``fit`` on ``mesh``: (history,
+    launches, peak GB, wall s, a profile of one more step, the ms of
+    steps on one device and on the mesh taken in turns)."""
+    import torch
+
+    from kubeflow_rm_tpu_torch.models.lora import add_lora
+    from kubeflow_rm_tpu_torch.training.loop import LoopConfig, fit
+    from kubeflow_rm_tpu_torch.training.optim import OptimConfig
+    from kubeflow_rm_tpu_torch.training.data import to_device
+    from kubeflow_rm_tpu_torch.training.train import (
+        TrainConfig, init_train_state, make_train_step, shard_batch,
+    )
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    lp = add_lora(params, 16, generator=torch.Generator(device=dev)
+                  .manual_seed(2), targets=("wq", "wv"))
+    tcfg = TrainConfig(model=cfg, optim=OptimConfig(
+        train_only="lora", learning_rate=TRAIN_LR, warmup_steps=1,
+        total_steps=6))
+    batch = packed_rows(2, 2048, cfg.vocab_size, seed=3)
+    whole = init_train_state(tcfg, params=lp)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    state, history = fit(tcfg, itertools.repeat(batch),
+                         LoopConfig(total_steps=steps, log_every=1),
+                         state=whole, mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_fn = make_train_step(tcfg, state, mesh=mesh)
+    local = to_device(shard_batch(batch, mesh), dev)
+    prof = device_profile(lambda: step_fn(state, local))
+    # one step on one device and one on the mesh, in turns (A B B A): at
+    # world 1 the mesh's state is the same memory as the whole one
+    one = make_train_step(tcfg, whole)
+    glob = to_device(batch, dev)
+    runs = {"one_device": lambda: one(whole, glob),
+            "mesh": lambda: step_fn(state, local)}
+    turns = {k: [] for k in runs}
+    for name in ("one_device", "mesh", "mesh", "one_device"):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        runs[name]()[1]["loss"].item()
+        torch.cuda.synchronize()
+        turns[name].append((time.perf_counter() - t1) * 1e3)
+    return history, launches, peak_gb, wall, prof, turns
+
+
+def one_rank_nccl_cost(w, group, calls: int = 200) -> dict:
+    """What a one-rank collective would cost if the port ran it (it
+    skips them): host µs a call and device ms a call of
+    ``all_gather_into_tensor`` of the weight ``w`` over ``group``, out of
+    place and in place, and of an ``all_reduce`` of it; and that NCCL
+    sums right over the world."""
+    import torch
+    import torch.distributed as dist
+
+    x = w.contiguous()
+    y = torch.empty_like(x)
+    ops = {"all_gather": lambda: dist.all_gather_into_tensor(y, x,
+                                                             group=group),
+           "all_gather_in_place": lambda: dist.all_gather_into_tensor(
+               y, y, group=group),
+           "all_reduce": lambda: dist.all_reduce(y, group=group)}
+    out = {"bytes": x.numel() * x.element_size()}
+    for name, op in ops.items():
+        for _ in range(5):
+            op()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(calls):
+            op()
+        end.record()
+        host = (time.perf_counter() - t0) / calls * 1e6
+        end.synchronize()
+        out[name] = {"host_us_per_call": host,
+                     "device_ms_per_call": start.elapsed_time(end) / calls}
+    one = torch.ones(8, device=x.device)
+    dist.all_reduce(one)
+    check(bool((one == dist.get_world_size()).all()),
+          f"NCCL all_reduce over the world gave {one.tolist()}")
+    return out
+
+
+def phase_mesh1(cfg, params, train_ref):
+    """The mesh path at world size 1 over NCCL: one rank, a
+    ``make_mesh(MeshConfig(dp=1, fsdp=1, tp=1))`` mesh, the kernels under
+    the mesh code. Every axis spans one rank, so the port's collectives
+    return their input and no NCCL collective runs in the model (XLA
+    emits none for a size-1 axis either); ``one_rank_nccl_cost`` times
+    what such a call would cost. The collectives run across cards only
+    in ``mesh_multi``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from kubeflow_rm_tpu_torch.models.generate import (
+        generate_fused, make_generate_step,
+    )
+    from kubeflow_rm_tpu_torch.ops.attention import dot_product_attention
+    from kubeflow_rm_tpu_torch.ops.flash_attention import flash_attention
+    from kubeflow_rm_tpu_torch.parallel.mesh import (
+        MeshConfig, axis_group, make_mesh, mesh_shape,
+    )
+    from kubeflow_rm_tpu_torch.parallel.ring_attention import ring_attention
+    from kubeflow_rm_tpu_torch.parallel.sharding import shard_params
+    from kubeflow_rm_tpu_torch.parallel.ulysses import ulysses_attention
+    from kubeflow_rm_tpu_torch.parallel.zigzag_ring import (
+        zigzag_ring_attention,
+    )
+    from kubeflow_rm_tpu_torch.serve import make_app, request
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    paths, out = {}, {}
+    try:
+        mesh = make_mesh(MeshConfig(dp=1, fsdp=1, tp=1))
+        out["mesh"] = mesh_shape(mesh)
+        out["torch"] = torch.__version__
+        out["nccl"] = ".".join(map(str, torch.cuda.nccl.version()))
+        out["one_rank_nccl"] = one_rank_nccl_cost(
+            params["blocks"]["w_gate"][0], axis_group(mesh, "fsdp"))
+
+        # 1. LoRA: the train phase's recipe, 3 steps of fit on the mesh
+        L, steps = cfg.n_layers, 3
+        history, launches, peak_gb, wall, prof, turns = mesh_lora_fit(
+            cfg, params, steps, mesh)
+        paths["mesh1_lora"] = launches
+        losses = [h.loss for h in history]
+        step_ms = statistics.median(h.step_time_ms for h in history[1:])
+        out["lora"] = {"steps": steps, "losses": losses,
+                       "train_losses": train_ref["losses"][:steps],
+                       "step_ms": step_ms,
+                       "train_step_ms": train_ref["step_ms"],
+                       "peak_mem_gb": peak_gb,
+                       "train_peak_mem_gb": train_ref["peak_mem_gb"],
+                       "fit_wall_s": wall, "launches": launches,
+                       "step_ms_in_turns": turns,
+                       "profile_one_step": prof}
+        check(losses[0] == train_ref["losses"][0],
+              f"mesh step-1 loss {losses[0]!r} != one-device "
+              f"{train_ref['losses'][0]!r}")
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"mesh losses {losses}")
+        check(launches == {"flash_fwd": 2 * L * steps,
+                           "flash_bwd_dq": L * steps,
+                           "flash_bwd_dkv": L * steps},
+              f"mesh1 LoRA launches {launches}")
+
+        # 2. decode: the sharded generate step against generate_fused
+        new, T = 32, 256
+        rng = np.random.default_rng(0)
+        lens = (5, 17, 64, 200)
+        ids = np.zeros((4, T), np.int32)
+        for i, n in enumerate(lens):
+            ids[i, T - n:] = rng.integers(1, cfg.vocab_size, n)
+        prompt = torch.from_numpy(ids).cuda()
+        pads = torch.tensor([T - n for n in lens], dtype=torch.int32,
+                            device="cuda")
+        local = shard_params(params, mesh)
+        step = make_generate_step(local, cfg, mesh, max_new_tokens=new,
+                                  total_len=T + new)
+        runs = {
+            "generate_fused": lambda: generate_fused(
+                params, cfg, prompt, max_new_tokens=new, max_len=T + new,
+                pad_counts=pads),
+            "mesh": lambda: step(local, prompt, None, pads)}
+        # in turns (A B B A): the host's speed drifts within a call
+        wall = {k: [] for k in runs}
+        tokens = {}
+        for name in ("generate_fused", "mesh", "mesh", "generate_fused"):
+            t0 = time.perf_counter()
+            tokens[name] = runs[name]()
+            torch.cuda.synchronize()
+            wall[name].append((time.perf_counter() - t0) * 1e3)
+        same = bool(torch.equal(tokens["mesh"], tokens["generate_fused"]))
+        out["decode"] = {"prompt_lens": list(lens), "max_new_tokens": new,
+                         "wall_ms": wall["mesh"],
+                         "generate_fused_ms": wall["generate_fused"],
+                         "equal_to_generate_fused": same}
+        check(same, "make_generate_step tokens differ from generate_fused")
+        app = make_app(cfg, params, max_new_tokens=new, max_batch=4,
+                       device="cuda", mesh=mesh)
+        try:
+            prompt0 = ids[0, T - lens[0]:].tolist()
+            status, body = request(app, "POST", "/generate",
+                                   {"prompt": prompt0})
+        finally:
+            app.close()
+        # the app left-pads a lone prompt into the 16-token bucket
+        bucket = np.zeros((1, 16), np.int32)
+        bucket[0, 16 - lens[0]:] = prompt0
+        solo = generate_fused(
+            params, cfg, torch.from_numpy(bucket).cuda(), max_new_tokens=new,
+            max_len=16 + new, pad_counts=torch.tensor(
+                [16 - lens[0]], dtype=torch.int32, device="cuda"))
+        out["serve"] = {"status": status, "tokens": len(body.get("tokens",
+                                                                  []))}
+        check(status == 200
+              and body["tokens"] == solo[0, 16 - lens[0]:].tolist(),
+              f"mesh make_app /generate: {status} {body}")
+
+        # 3. Ulysses at sp=1 on the 7B attention shape: bit-equal to the
+        # flash op, one flash_fwd a call, the backward kernels in training
+        sp = axis_group(mesh, "sp")
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        uly = {}
+        for kvh in (32, 8):
+            q = torch.randn(2, 2048, 32, 128, generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            k = torch.randn(2, 2048, kvh, 128, generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            v = torch.randn_like(k)
+            qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
+            reset_launches()
+            o = ulysses_attention(qs, ks, vs, group=sp)
+            fwd = read_launches()
+            o.float().square().mean().backward()
+            both = read_launches()
+            qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
+            r = flash_attention(qr, kr, vr)
+            r.float().square().mean().backward()
+            uly[f"kvh{kvh}"] = {
+                "bit_equal": bool(torch.equal(o, r)),
+                "grads_bit_equal": bool(
+                    torch.equal(qs.grad, qr.grad)
+                    and torch.equal(ks.grad, kr.grad)
+                    and torch.equal(vs.grad, vr.grad)),
+                "launches_fwd": fwd, "launches_fwd_bwd": both}
+            check(torch.equal(o, r), f"ulysses KVH={kvh} != flash op")
+            check(fwd == {"flash_fwd": 1, "flash_bwd_dq": 0,
+                          "flash_bwd_dkv": 0},
+                  f"ulysses KVH={kvh} forward launches {fwd}")
+            check(both["flash_bwd_dq"] == 1 and both["flash_bwd_dkv"] == 1,
+                  f"ulysses KVH={kvh} backward launches {both}")
+        paths["mesh1_ulysses"] = both
+        out["ulysses"] = uly
+
+        # 4. ring and zigzag at sp=1: float32 online softmax vs dense
+        q = torch.randn(1, 2048, 32, 128, generator=gen, device="cuda")
+        k = torch.randn(1, 2048, 32, 128, generator=gen, device="cuda")
+        v = torch.randn(1, 2048, 32, 128, generator=gen, device="cuda")
+        dense = dot_product_attention(q, k, v, causal=True, impl="dense")
+        with torch.no_grad():
+            errs = {
+                "ring": (ring_attention(q, k, v, group=sp) - dense)
+                .abs().max().item(),
+                "zigzag": (zigzag_ring_attention(q, k, v, group=sp) - dense)
+                .abs().max().item()}
+        out["ring_zigzag_max_abs_err"] = errs
+        for name, e in errs.items():
+            check(e <= RING_ATOL, f"{name} at sp=1: max |err| {e} > "
+                  f"{RING_ATOL}")
+    finally:
+        dist.destroy_process_group()
+    emit("mesh1", **out)
+    return paths
+
+
+def _mesh_multi_rank(rank: int, world: int, init: str, result: str,
+                     backend: str, preset: str, layers: int, T: int):
+    """One rank of the ``mesh_multi`` phase (a spawned process)."""
+    import torch
+    import torch.distributed as dist
+
+    from kubeflow_rm_tpu_torch.models import init_params
+    from kubeflow_rm_tpu_torch.models.llama import LlamaConfig
+    from kubeflow_rm_tpu_torch.models.lora import add_lora, is_lora_name
+    from kubeflow_rm_tpu_torch.ops.attention import dot_product_attention
+    from kubeflow_rm_tpu_torch.parallel.collectives import all_gather
+    from kubeflow_rm_tpu_torch.parallel.mesh import (
+        MeshConfig, axis_group, make_mesh, mesh_shape,
+    )
+    from kubeflow_rm_tpu_torch.parallel.ring_attention import ring_attention
+    from kubeflow_rm_tpu_torch.parallel.sharding import (
+        gather_tensor, leaf_spec, local_slices, shard_params,
+    )
+    from kubeflow_rm_tpu_torch.parallel.ulysses import ulysses_attention
+    from kubeflow_rm_tpu_torch.training.data import to_device
+    from kubeflow_rm_tpu_torch.training.optim import OptimConfig, leaf_paths
+    from kubeflow_rm_tpu_torch.training.train import (
+        TrainConfig, init_train_state, loss_fn, make_train_step,
+        reduce_grads, shard_batch,
+    )
+
+    cuda = backend == "nccl"
+    dev = torch.device("cuda", rank) if cuda else torch.device("cpu")
+    if cuda:
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=init, world_size=world,
+                            rank=rank)
+    out = {"world": world}
+    try:
+        dtype = torch.bfloat16 if cuda else torch.float32
+        cfg = getattr(LlamaConfig, preset)(n_layers=layers, dtype=dtype,
+                                           param_dtype=dtype)
+        mc = (MeshConfig(fsdp=2, tp=2) if world == 4
+              else MeshConfig(fsdp=world))
+        mesh = make_mesh(mc, dev)
+        out["mesh"] = mesh_shape(mesh)
+
+        def draw(m):
+            # the base from seed 0, rank-16 adapters from seed 2; on the
+            # mesh each rank keeps only its slices of every draw
+            p = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev, mesh=m)
+            return add_lora(p, 16, generator=torch.Generator(device=dev)
+                            .manual_seed(2), targets=("wq", "wv"), mesh=m)
+
+        def drawn_with_peak(m):
+            """``draw(m)`` and the GB it took at its peak beyond what was
+            allocated before it (this rank's card)."""
+            if not cuda:
+                return draw(m), None
+            torch.cuda.synchronize(dev)
+            before = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            tree = draw(m)
+            torch.cuda.synchronize(dev)
+            return tree, (torch.cuda.max_memory_allocated(dev) - before) / 1e9
+
+        local, local_gb = drawn_with_peak(mesh)
+        lp, whole_gb = drawn_with_peak(None)
+        out["init_peak_gb"] = {"sharded": local_gb, "one_rank": whole_gb}
+        want = leaf_paths(shard_params(lp, mesh))
+        out["sharded_init_equal"] = all(
+            torch.equal(t, want[p]) for p, t in leaf_paths(local).items())
+        del want
+        adapters0 = {p: t.detach().float().clone()
+                     for p, t in leaf_paths(lp).items()
+                     if is_lora_name(p.rsplit("/", 1)[-1])}
+        tcfg = TrainConfig(model=cfg, optim=OptimConfig(
+            train_only="lora", learning_rate=TRAIN_LR, warmup_steps=1))
+        batch = to_device(packed_rows(2, T, cfg.vocab_size, seed=3), dev)
+
+        def run(m, params, b):
+            """MESH_STEPS steps on mesh ``m`` (None: one rank): the
+            state, the step, each step's loss and grad norm, and the
+            adapters after them (whole, float32)."""
+            state = init_train_state(tcfg, params=params, mesh=m)
+            step = make_train_step(tcfg, state, mesh=m)
+            losses, norms = [], []
+            for _ in range(MESH_STEPS):
+                state, metrics = step(state, b)
+                losses.append(float(metrics["loss"]))
+                norms.append(float(metrics["grad_norm"]))
+            adapters = {}
+            for p, t in leaf_paths(state.params).items():
+                if p in adapters0:
+                    whole = t if m is None else gather_tensor(
+                        t, leaf_spec(p, t), m)
+                    adapters[p] = whole.detach().float()
+            return state, step, losses, norms, adapters
+
+        local_batch = shard_batch(batch, mesh)
+        state, step, losses, norms, adapters = run(mesh, local, local_batch)
+        ref, _, ref_losses, ref_norms, ref_adapters = run(None, lp, batch)
+        # the adapters' update over the steps, on the mesh against one
+        # rank: ||d_mesh - d_one|| / ||d_one|| per leaf
+        update_err = {}
+        for p, a0 in adapters0.items():
+            d_one = ref_adapters[p] - a0
+            d_mesh = adapters[p] - a0
+            update_err[p] = float((d_mesh - d_one).norm()
+                                  / d_one.norm().clamp_min(1e-30))
+
+        def adapter_grads(params, m, b):
+            """The adapters' gradients of one batch's loss (whole,
+            float32), through the mesh's backward on ``m``."""
+            flat = leaf_paths(params)
+            paths = sorted(adapters0)
+            loss = (loss_fn(params, b, tcfg) if m is None
+                    else loss_fn(params, b, tcfg, m))[0]
+            grads = dict(zip(paths, torch.autograd.grad(
+                loss, [flat[p] for p in paths])))
+            if m is not None:
+                grads = {p: gather_tensor(g, leaf_spec(p, flat[p]), m)
+                         for p, g in reduce_grads(grads, flat, m).items()}
+            return {p: g.float() for p, g in grads.items()}
+
+        # at the same weights (the one-rank run's last adapters, sliced
+        # into the mesh state; b is no longer 0, so every adapter takes
+        # a gradient): the backward's reduce-scatters and all-reduces
+        # across cards against one card's
+        ref_flat, mesh_flat = leaf_paths(ref.params), leaf_paths(state.params)
+        with torch.no_grad():
+            for p in adapters0:
+                t = mesh_flat[p]
+                t.copy_(ref_flat[p][local_slices(
+                    ref_flat[p].shape, leaf_spec(p, t), mesh)])
+        g_mesh = adapter_grads(state.params, mesh, local_batch)
+        g_one = adapter_grads(ref.params, None, batch)
+        grad_err = {p: float((g_mesh[p] - g_one[p]).norm()
+                             / g_one[p].norm().clamp_min(1e-30))
+                    for p in g_one}
+        out["lora"] = {"steps": MESH_STEPS, "losses": losses,
+                       "one_rank_losses": ref_losses, "grad_norms": norms,
+                       "one_rank_grad_norms": ref_norms,
+                       "update_rel_err": update_err,
+                       "grad_rel_err": grad_err}
+        if cuda:
+            prof = device_profile(lambda: step(state, local_batch), top=12)
+            comm = {}
+            for kern in prof["top_kernels"]:
+                for key in ("AllGather", "AllReduce", "ReduceScatter"):
+                    if key.lower() in kern["name"].lower():
+                        comm[key] = comm.get(key, 0.0) + kern["ms"]
+            out["step"] = {"wall_ms": prof["wall_ms"],
+                           "device_busy_ms": prof["device_busy_ms"],
+                           "collective_ms": comm}
+        del state, ref, lp, local
+
+        # Ulysses and ring at sp=world against the one-card flash op
+        smesh = make_mesh(MeshConfig(fsdp=1, sp=world), dev)
+        sp = axis_group(smesh, "sp")
+        gen = torch.Generator(device=dev).manual_seed(7)
+        Tg = T * world
+        q, k, v = (torch.randn(1, Tg, 32, 128, generator=gen, device=dev,
+                               dtype=dtype) for _ in range(3))
+        mine = slice(rank * T, (rank + 1) * T)
+        ref_o = dot_product_attention(q, k, v, causal=True)
+        errs = {}
+        for name, fn in (("ulysses", ulysses_attention),
+                         ("ring", ring_attention)):
+            with torch.no_grad():
+                o = fn(q[:, mine], k[:, mine], v[:, mine], group=sp)
+            full = all_gather(o.contiguous(), sp, 1)
+            errs[name] = (full.float() - ref_o.float()).abs().max().item()
+        out["sp_max_abs_err"] = errs
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        with open(result, "w") as f:
+            json.dump(out, f)
+
+
+def phase_mesh_multi(backend: str = "nccl", preset: str = "llama2_7b",
+                     layers: int = 4, T: int = 2048):
+    """Only where the machine has two or more cards: ``min(count, 4)``
+    NCCL ranks, one per card. A 7B-width, 4-layer LoRA model drawn on
+    each rank as its slices (``init_params``/``add_lora`` with ``mesh``,
+    checked equal to the one-rank draw's slices), ``MESH_STEPS`` steps at
+    fsdp=2 (fsdp=2 × tp=2 at world 4) against the same steps on one
+    rank: every step's loss and grad norm, and the adapters' update;
+    Ulysses and ring at sp=world against the one-card attention; the
+    step's collective times."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    count = torch.cuda.device_count() if backend == "nccl" else 4
+    if count < 2:
+        emit("mesh_multi", skipped=f"{count} card")
+        return None
+    world = min(count, 4)
+    with tempfile.TemporaryDirectory() as d:
+        result = f"{d}/mesh_multi.json"
+        mp.start_processes(_mesh_multi_rank, nprocs=world, start_method="spawn",
+                           args=(world, f"file://{d}/rendezvous", result,
+                                 backend, preset, layers, T))
+        with open(result) as f:
+            out = json.load(f)
+    lora = out["lora"]
+    emit("mesh_multi", **out)
+    check(out["sharded_init_equal"],
+          "mesh_multi: the ranks' own draws differ from the one-rank "
+          "draw's slices")
+    for i in range(lora["steps"]):
+        for what, tol in (("losses", MESH_LOSS_RTOL),
+                          ("grad_norms", MESH_GNORM_RTOL)):
+            got, want = lora[what][i], lora[f"one_rank_{what}"][i]
+            check(abs(got - want) <= tol * abs(want),
+                  f"mesh_multi step {i + 1} {what}: {got} vs one rank "
+                  f"{want} (rtol {tol})")
+    for what, tol in (("grad_rel_err", MESH_GRAD_RTOL),
+                      ("update_rel_err", MESH_UPDATE_RTOL)):
+        worst = max(lora[what].values())
+        check(worst <= tol,
+              f"mesh_multi adapters' {what}: {lora[what]} (limit {tol})")
+    errs = out["sp_max_abs_err"]
+    check(errs["ulysses"] == 0.0, f"ulysses at sp={world}: {errs}")
+    check(errs["ring"] <= O_TOL["atol"] * 2, f"ring at sp={world}: {errs}")
+    return out
 
 
 def phase_qlora(card):
@@ -1978,7 +2519,11 @@ def main() -> int:
     paths["quant"] = run("quant", phase_quant, cfg, params, forward_err, smi)
     torch.cuda.empty_cache()
     paths["train_grad"] = run("train_grad", phase_train_grad)
-    paths["train"] = run("train", phase_train, cfg, params)
+    paths["train"], train_ref = (run("train", phase_train, cfg, params)
+                                 or (None, None))
+    torch.cuda.empty_cache()
+    # the mesh at world size 1, while the 7B tree is still on the card
+    paths.update(run("mesh1", phase_mesh1, cfg, params, train_ref) or {})
     torch.cuda.empty_cache()
     paths["qlora"] = run("qlora", phase_qlora, smi)
     # the MoE and offload phases need the card to themselves
@@ -1990,6 +2535,8 @@ def main() -> int:
     paths["moe_int8"] = run("moe_int8", phase_moe_int8, smi)
     torch.cuda.empty_cache()
     paths["offload"] = run("offload", phase_offload, smi)
+    torch.cuda.empty_cache()
+    run("mesh_multi", phase_mesh_multi)
     if failures:
         print("chip_smoke: FAILED\n  " + "\n  ".join(failures),
               file=sys.stderr)

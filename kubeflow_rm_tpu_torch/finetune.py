@@ -18,8 +18,17 @@ directly in quantized form from the seed, or quantized after the load).
 ``--export-hf PATH`` writes the final weights as an HF-keyed ``.npz``
 (adapters are left out: merge them first to keep them).
 ``--tb-logdir DIR`` writes the loop's metrics as tensorboard events
-(``utils.tensorboard``; needs the ``tensorboard`` package). Not ported
-yet (ROADMAP.md): the mesh flags.
+(``utils.tensorboard``; needs the ``tensorboard`` package).
+
+``--dp/--fsdp/--tp`` train on a mesh: ``parallel.distributed.initialize``
+joins the job's process group first (torchrun's env, or the notebook
+webhook's), ``--fsdp`` defaults to world // (dp·tp), and every rank runs
+``fit`` on its shards; rank 0 prints, samples and exports:
+
+    torchrun --nproc-per-node 2 -m kubeflow_rm_tpu_torch.finetune \
+        --device cpu --fsdp 2 --preset tiny --steps 4
+    torchrun --nproc-per-node 4 -m kubeflow_rm_tpu_torch.finetune \
+        --preset llama2_7b --lora-rank 16 --fsdp 2 --tp 2
 """
 
 from __future__ import annotations
@@ -37,10 +46,18 @@ def main(argv=None) -> int:
 
     from kubeflow_rm_tpu_torch.device import default_device
     from kubeflow_rm_tpu_torch.models.convert import load_hf_dir, to_hf_llama
-    from kubeflow_rm_tpu_torch.models.generate import generate_fused
-    from kubeflow_rm_tpu_torch.models.llama import (
-        PRESETS, LlamaConfig, init_params,
+    from kubeflow_rm_tpu_torch.models.generate import (
+        generate_fused, make_generate_step,
     )
+    from kubeflow_rm_tpu_torch.parallel import distributed
+    from kubeflow_rm_tpu_torch.parallel.mesh import (
+        MeshConfig, axis_size, make_mesh, mesh_shape,
+    )
+    from kubeflow_rm_tpu_torch.parallel.sharding import (
+        gather_params, shard_params,
+    )
+    from kubeflow_rm_tpu_torch.models import init_params
+    from kubeflow_rm_tpu_torch.models.llama import PRESETS, LlamaConfig
     from kubeflow_rm_tpu_torch.models.lora import add_lora
     from kubeflow_rm_tpu_torch.models.quantize import (
         init_params_quantized, quantize_params,
@@ -65,6 +82,11 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=512)
     ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--dp", type=int, default=1)
+    ap.add_argument("--fsdp", type=int, default=0,
+                    help="0 = world // (dp·tp) (one process: no mesh "
+                         "unless --dp/--fsdp/--tp ask for one)")
+    ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--lora-rank", type=int, default=0,
                     help="train rank-r adapters on wq/wv instead of full "
                          "fine-tuning (frozen base: no grads, no moments)")
@@ -100,10 +122,24 @@ def main(argv=None) -> int:
     if bits and args.export_hf:
         ap.error("--export-hf cannot export a quantized base: adapters do "
                  "not merge into int8/int4 weights (merge_lora refuses)")
+    # 1. the job: a no-op for one process; torchrun ranks all join
+    distributed.initialize(device=args.device)
     device = default_device(args.device)
+    world, lead = distributed.world_size(), distributed.rank() == 0
+    mesh = None
+    if world > 1 or max(args.dp, args.fsdp, args.tp) > 1:
+        fsdp = args.fsdp or max(1, world // (args.dp * args.tp))
+        mesh = make_mesh(MeshConfig(dp=args.dp, fsdp=fsdp, tp=args.tp),
+                         device)
+        if lead:
+            print(f"process {distributed.rank()}/{world} mesh "
+                  f"{mesh_shape(mesh)}")
+    # on a mesh every rank holds only its slices: drawn weights are cut
+    # as they are drawn, a checkpoint is read into host memory and each
+    # rank takes its slices to the card
     if args.hf_model:
         model_cfg, params = load_hf_dir(
-            args.hf_model, device=device,
+            args.hf_model, device=device if mesh is None else "cpu",
             param_dtype=LlamaConfig.dtype if args.lora_rank else None)
     else:
         model_cfg = getattr(LlamaConfig, args.preset)()
@@ -117,22 +153,26 @@ def main(argv=None) -> int:
     if params is None and bits:
         # no checkpoint: the base is built directly in quantized form,
         # leaf by leaf, so its full-precision copy never exists
-        params = init_params_quantized(model_cfg, gen, device, bits=bits)
+        params = init_params_quantized(model_cfg, gen, device, bits=bits,
+                                       mesh=mesh)
     else:
         if params is None:
-            params = init_params(model_cfg, gen, device)
+            params = init_params(model_cfg, gen, device, mesh=mesh)
         if bits:
             params = quantize_params(params, bits=bits)
+        if mesh is not None:
+            params = shard_params(params, mesh, device)
     if args.lora_rank:
         params = add_lora(params, args.lora_rank,
                           generator=torch.Generator(device=device)
-                          .manual_seed(1))
+                          .manual_seed(1), mesh=mesh)
     # fit restores the latest checkpoint when there is one; otherwise it
-    # starts from these weights
+    # starts from these weights, the moments built on this rank's slices
     state = None
     if (args.checkpoint_dir is None
             or Checkpointer(args.checkpoint_dir).latest_step() is None):
-        state = init_train_state(cfg, params=params)
+        state = init_train_state(cfg, params=params, mesh=mesh)
+    del params
 
     if args.data:
         docs = jsonl_documents(sorted(glob.glob(args.data)), seed=0)
@@ -152,24 +192,35 @@ def main(argv=None) -> int:
         callbacks = (TensorboardCallback(args.tb_logdir),)
     try:
         state, history = fit(cfg, batches, loop, state=state, device=device,
-                             callbacks=callbacks)
+                             callbacks=callbacks if lead else (), mesh=mesh)
     finally:
         for cb in callbacks:
             cb.close()
-    for rec in history:
-        print(f"step {rec.step} loss {rec.loss:.4f} grad_norm "
-              f"{rec.grad_norm:.4f} {rec.tokens_per_sec:.0f} tok/s "
-              f"mfu {rec.mfu_pct:.1f}%")
+    if lead:
+        for rec in history:
+            print(f"step {rec.step} loss {rec.loss:.4f} grad_norm "
+                  f"{rec.grad_norm:.4f} {rec.tokens_per_sec:.0f} tok/s "
+                  f"mfu {rec.mfu_pct:.1f}%")
 
     if args.sample:
         prompt = torch.ones((1, 4), dtype=torch.int32, device=device)
-        out = generate_fused(state.params, model_cfg, prompt,
-                             max_new_tokens=8)
-        print("sample token ids:", out[0].tolist())
+        if mesh is None:
+            out = generate_fused(state.params, model_cfg, prompt,
+                                 max_new_tokens=8)
+        else:
+            rows = axis_size(mesh, ("dp", "fsdp"))
+            step = make_generate_step(state.params, model_cfg, mesh,
+                                      max_new_tokens=8, total_len=12)
+            out = step(state.params, prompt.expand(rows, 4).contiguous())
+        if lead:
+            print("sample token ids:", out[0].tolist())
 
     if args.export_hf:
-        np.savez(args.export_hf, **to_hf_llama(model_cfg, state.params))
-        print(f"exported HF state_dict -> {args.export_hf}")
+        params = (state.params if mesh is None
+                  else gather_params(state.params, mesh))
+        if lead:
+            np.savez(args.export_hf, **to_hf_llama(model_cfg, params))
+            print(f"exported HF state_dict -> {args.export_hf}")
     return 0
 
 

@@ -41,11 +41,27 @@ from kubeflow_rm_tpu_torch.models.quantize import (
 )
 
 
-def init_params(cfg: LlamaConfig, generator, device=None) -> dict:
-    """Family-correct random parameters for any model config."""
-    if isinstance(cfg, MixtralConfig):
-        return _mixtral.init_params(cfg, generator, device)
-    return _llama.init_params(cfg, generator, device)
+def init_params(cfg: LlamaConfig, generator, device=None, *, mesh=None,
+                transform=None) -> dict:
+    """Family-correct random parameters for any model config, each draw
+    passed through ``transform(path, tensor)`` (``llama.init_tree``). On
+    ``mesh`` every rank draws the same values and keeps only its slices
+    of each draw (``sharding.Sharder``): the result is
+    ``shard_params(init_params(...), mesh)``, but no rank ever holds the
+    global tree, only its shards and one layer of one leaf whole."""
+    family = _mixtral if isinstance(cfg, MixtralConfig) else _llama
+    if mesh is None:
+        return family.init_params(cfg, generator, device,
+                                  transform=transform)
+    from kubeflow_rm_tpu_torch.parallel.sharding import Sharder
+
+    sharder = Sharder(mesh, cfg.n_layers)
+
+    def cut(path, t):
+        return sharder(path, t if transform is None else transform(path, t))
+
+    return sharder.mark(family.init_params(cfg, generator, device,
+                                           transform=cut))
 
 
 def forward_with_aux(params, tokens, cfg: LlamaConfig, **kwargs):

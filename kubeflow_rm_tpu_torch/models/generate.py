@@ -41,9 +41,8 @@ from dataclasses import dataclass
 import torch
 
 from kubeflow_rm_tpu_torch.models.llama import (
-    LlamaConfig, _mlp, embed, layer_params, logits_head,
+    LlamaConfig, _mlp, _projector, embed, layer_params, logits_head,
 )
-from kubeflow_rm_tpu_torch.models.lora import lora_proj
 from kubeflow_rm_tpu_torch.models.mixtral import MixtralConfig
 from kubeflow_rm_tpu_torch.models.params import check_params
 from kubeflow_rm_tpu_torch.models.quantize import (
@@ -70,11 +69,14 @@ class KVCache:
 
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
-               device: str | torch.device | None = None) -> KVCache:
+               device: str | torch.device | None = None, *,
+               kv_heads: int | None = None) -> KVCache:
+    """An empty cache; ``kv_heads`` (default ``cfg.n_kv_heads``) is a
+    tp rank's share on a mesh."""
     from kubeflow_rm_tpu_torch.device import default_device
 
     device = default_device(device)
-    L, KVH, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    L, KVH, hd = cfg.n_layers, kv_heads or cfg.n_kv_heads, cfg.head_dim
     shape = (L, batch, max_len, KVH, hd)
     return KVCache(
         k=torch.zeros(shape, dtype=cfg.dtype, device=device),
@@ -87,13 +89,15 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
 
 def decode_chunk(params: dict, cfg: LlamaConfig, cache: KVCache,
                  tokens: torch.Tensor,
-                 pad_counts: torch.Tensor | None = None,
+                 pad_counts: torch.Tensor | None = None, *, view=None,
                  ) -> tuple[torch.Tensor, KVCache]:
     """Run ``tokens`` (B, Tc) through the model at the cache offset.
 
     Serves prefill (Tc = prompt length) and decode (Tc = 1). Returns
     (logits (B, Tc, V) float32, cache advanced by Tc); ``cache``'s
     tensors are written in place. Raises if the chunk does not fit.
+    ``view`` (a ``parallel.sharded.MeshView``): ``params``, ``cache``
+    and the rows are this rank's (``make_decode_step``).
     """
     B, Tc = tokens.shape
     off = cache.offset
@@ -113,12 +117,13 @@ def decode_chunk(params: dict, cfg: LlamaConfig, cache: KVCache,
         return cache.k[i], cache.v[i]
 
     logits = _run_blocks(params, cfg, tokens, positions, cache.positions,
-                         write_kv)
+                         write_kv, view)
     return logits, KVCache(k=cache.k, v=cache.v, positions=cache.positions,
                            offset=off + Tc)
 
 
-def _run_blocks(params, cfg, tokens, positions, kv_positions, write_kv):
+def _run_blocks(params, cfg, tokens, positions, kv_positions, write_kv,
+                view=None):
     """Transformer trunk against the KV cache: embed, per layer
     attention over the whole cache (dense, position-masked) + FFN,
     final norm, lm head. ``write_kv(i, k, v)`` lands this chunk's K/V in
@@ -126,31 +131,34 @@ def _run_blocks(params, cfg, tokens, positions, kv_positions, write_kv):
     half is the family's: the dense SwiGLU, or the expert mixture on its
     dequantized ``moe*`` leaves with the router aux loss dropped (a
     training quantity). MoE capacity is per call (N = B·Tc tokens), so a
-    decode step can drop a token that a full forward keeps, as in JAX."""
+    decode step can drop a token that a full forward keeps, as in JAX.
+    On a mesh (``view``) the heads are this rank's and the projections,
+    the FFN, the embedding and the head are ``view``'s."""
     B, Tc = tokens.shape
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if view is not None:
+        H, KVH = view.local_heads(cfg)
 
     # rope of a ~2^31 position is finite but wild; clamp pads to 0
     # (their K is masked out by the _UNFILLED position anyway)
     rope_pos = torch.where(positions == _UNFILLED, 0, positions)
     cos, sin = rope_angles(rope_pos, hd, cfg.rope_theta)
-    x = embed(params, tokens, cfg)
-    if isinstance(cfg, MixtralConfig):
+    x = embed(params, tokens, cfg, view)
+    if isinstance(cfg, MixtralConfig) and view is not None:
+        def ffn(layer, h):
+            return moe_ffn(layer, h, cfg.moe, dtype=cfg.dtype, view=view)[0]
+    elif isinstance(cfg, MixtralConfig):
         def ffn(layer, h):
             dq = {k: (maybe_dequant(v, cfg.dtype) if k.startswith("moe")
                       else v) for k, v in layer.items()}
             return moe_ffn(dq, h, cfg.moe, dtype=cfg.dtype)[0]
     else:
         def ffn(layer, h):
-            return _mlp(cfg, layer, h)
+            return _mlp(cfg, layer, h, view)
     blocks = params["blocks"]
     for i in range(cfg.n_layers):
         layer = layer_params(blocks, i)
-
-        def proj(name, t):
-            return lora_proj(layer, name, t, alpha=cfg.lora_alpha,
-                             dtype=cfg.dtype)
-
+        proj = _projector(cfg, layer, view)
         h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
         q = apply_rope(proj("wq", h).reshape(B, Tc, H, hd), cos, sin)
         k = apply_rope(proj("wk", h).reshape(B, Tc, KVH, hd), cos, sin)
@@ -161,7 +169,7 @@ def _run_blocks(params, cfg, tokens, positions, kv_positions, write_kv):
             positions_q=positions, positions_kv=kv_positions)
         x = x + proj("wo", attn.reshape(B, Tc, H * hd))
         x = x + ffn(layer, rms_norm(x, layer["mlp_norm"], cfg.norm_eps))
-    return logits_head(params, x, cfg)
+    return logits_head(params, x, cfg, view)
 
 
 def _pick(last: torch.Tensor, generator: torch.Generator | None, *,
@@ -195,12 +203,17 @@ def _check(prompt, *, max_new_tokens, max_len, temperature, generator):
 
 
 def _decode_loop(params, cfg, prompt, generator, *, max_new_tokens,
-                 temperature, top_k, eos_id, total_len, pad_counts):
+                 temperature, top_k, eos_id, total_len, pad_counts,
+                 view=None):
     """Prefill, then ``max_new_tokens`` picks; a row that emitted
-    ``eos_id`` keeps emitting it."""
+    ``eos_id`` keeps emitting it. On a mesh (``view``) the rows and the
+    cache are this rank's."""
     B, Tp = prompt.shape
-    cache = init_cache(cfg, B, total_len, prompt.device)
-    logits, cache = decode_chunk(params, cfg, cache, prompt, pad_counts)
+    cache = init_cache(cfg, B, total_len, prompt.device,
+                       kv_heads=None if view is None
+                       else view.local_heads(cfg)[1])
+    logits, cache = decode_chunk(params, cfg, cache, prompt, pad_counts,
+                                 view=view)
     last = logits[:, -1, :]
     out = torch.empty((B, Tp + max_new_tokens), dtype=torch.int32,
                       device=prompt.device)
@@ -214,7 +227,7 @@ def _decode_loop(params, cfg, prompt, generator, *, max_new_tokens,
         out[:, Tp + i] = nxt
         if i + 1 < max_new_tokens:
             logits, cache = decode_chunk(params, cfg, cache, nxt[:, None],
-                                         pad_counts)
+                                         pad_counts, view=view)
             last = logits[:, -1, :]
     return out
 
@@ -266,6 +279,94 @@ def generate_fused(params: dict, cfg: LlamaConfig, prompt: torch.Tensor, *,
             max_new_tokens=max_new_tokens,
             temperature=float(temperature), top_k=top_k, eos_id=eos_id,
             total_len=S, pad_counts=pad_counts)
+
+
+# ---------------------------------------------------------------------
+# decode on a mesh
+# ---------------------------------------------------------------------
+
+#: the batch rows of a decode are split over these axes
+_ROW_AXES = ("dp", "fsdp")
+
+
+def cache_shardings(cfg: LlamaConfig, mesh) -> KVCache:
+    """The spec tree of a ``KVCache`` on ``mesh``: batch over (dp, fsdp),
+    KV heads over tp — the decode-time analogue of
+    ``parallel.sharding`` (weights keep their training specs)."""
+    kv = (None, _ROW_AXES, None, "tp", None)
+    return KVCache(k=kv, v=kv, positions=(_ROW_AXES, None), offset=())
+
+
+def _decode_view(mesh, cfg, params):
+    from kubeflow_rm_tpu_torch.parallel.sharded import MeshView
+
+    view = MeshView(mesh, cfg, params)
+    if view.sp > 1:
+        raise ValueError("decode splits no sequence: the mesh's sp must "
+                         "be 1")
+    return view
+
+
+def make_decode_step(example_params: dict, cfg: LlamaConfig, mesh):
+    """``step(params, cache, tokens, pad_counts=None) -> (logits,
+    cache)`` on ``mesh``: ``decode_chunk`` on this rank's shards
+    (``shard_params``), its cache (``cache_shardings``: its (dp, fsdp)
+    rows and tp heads, ``init_cache(..., kv_heads=)``) and its rows of
+    ``tokens``; the logits are its rows over the whole vocabulary.
+    ``example_params`` is only inspected for its specs."""
+    view = _decode_view(mesh, cfg, example_params)
+
+    def step(params, cache, tokens, pad_counts=None):
+        with torch.inference_mode():
+            return decode_chunk(params, cfg, cache, tokens, pad_counts,
+                                view=view)
+
+    return step
+
+
+def make_generate_step(example_params: dict, cfg: LlamaConfig, mesh, *,
+                       max_new_tokens: int, total_len: int,
+                       temperature: float = 0.0, top_k: int | None = None,
+                       eos_id: int | None = None):
+    """Sharded ``generate_fused``: ``step(params, prompt,
+    generator=None, pad_counts=None) -> tokens``.
+
+    Every rank calls with its shards (``shard_params``) and the same
+    global ``prompt`` (B, T) and ``pad_counts``; each decodes its
+    (dp, fsdp) rows on its tp heads with a cache that never leaves the
+    card, and every rank gets the global (B, T + max_new_tokens)
+    tokens back. Greedy output equals ``generate_fused`` on one device.
+    Sampling draws from each rank's ``generator``: seed it alike on
+    every rank (the tp ranks of a row must draw the same token).
+    ``example_params`` is only inspected for its specs.
+    """
+    from kubeflow_rm_tpu_torch.parallel.collectives import all_gather
+    from kubeflow_rm_tpu_torch.parallel.mesh import axis_group
+    from kubeflow_rm_tpu_torch.parallel.sharding import (
+        local_slices, shard_tensor,
+    )
+
+    view = _decode_view(mesh, cfg, example_params)
+    rows = axis_group(mesh, _ROW_AXES)
+
+    def step(params, prompt, generator=None, pad_counts=None):
+        if total_len < prompt.shape[1] + max_new_tokens:
+            raise ValueError(
+                f"total_len={total_len} < prompt {prompt.shape[1]} + "
+                f"new {max_new_tokens}")
+        _check(prompt, max_new_tokens=max_new_tokens, max_len=total_len,
+               temperature=temperature, generator=generator)
+        mine = local_slices(prompt.shape, (_ROW_AXES, None), mesh)[0]
+        local_pads = None if pad_counts is None else pad_counts[mine]
+        with torch.inference_mode():
+            out = _decode_loop(
+                params, cfg, shard_tensor(prompt, (_ROW_AXES, None), mesh),
+                generator, max_new_tokens=max_new_tokens,
+                temperature=float(temperature), top_k=top_k, eos_id=eos_id,
+                total_len=total_len, pad_counts=local_pads, view=view)
+            return all_gather(out, rows, 0)
+
+    return step
 
 
 def rewind_cache(cache: KVCache, new_offset: int) -> KVCache:

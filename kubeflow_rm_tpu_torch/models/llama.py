@@ -16,8 +16,13 @@ RoPE work in float32 internally, and the logits are ``x @ lm_head`` in
 Rematerialization (``LlamaConfig.remat``/``remat_policy``) wraps each
 block in ``torch.utils.checkpoint`` with the selective-checkpoint
 policies of ``models.remat``, which save what JAX's ``_remat_policy``
-saves (``llama.py:162-180``). Meshes and ring/ulysses attention belong to later
-slices of the port.
+saves (``llama.py:162-180``).
+
+On a mesh (``forward(..., mesh=)``) each rank runs the same blocks on its
+local shards through ``parallel.sharded.MeshView``: weights gathered over
+fsdp, heads split over tp, the sequence over sp (ring or Ulysses
+attention by ``cfg.attention_backend``). ``mesh=None`` is the one-device
+path, untouched: no collective, no process group.
 """
 
 from __future__ import annotations
@@ -60,6 +65,14 @@ class LlamaConfig:
     remat_policy: str = "dots"
     # LoRA scaling (alpha/rank) for adapter-carrying params
     lora_alpha: float = 16.0
+    # attention under a mesh with sp > 1: "ring", "ulysses", or "auto"
+    # (K/V gathered over sp); one device ignores it
+    attention_backend: str = "auto"
+
+    def __post_init__(self):
+        if self.attention_backend not in ("auto", "ring", "ulysses"):
+            raise ValueError("attention_backend must be auto/ring/ulysses, "
+                             f"got {self.attention_backend!r}")
 
     @property
     def head_dim(self) -> int:
@@ -171,22 +184,64 @@ def init_leaf(cfg: LlamaConfig, name: str, shape, generator: torch.Generator,
     return w.mul_(scale).to(cfg.param_dtype)
 
 
+def _by_layer(n_layers: int, make):
+    """Stack ``make(i)`` (a tensor or a dict of tensors) over ``i`` into
+    preallocated ``(L, ...)`` tensors, one layer's result alive at a
+    time."""
+    out, is_dict = None, False
+    for i in range(n_layers):
+        part = make(i)
+        is_dict = isinstance(part, dict)
+        parts = part if is_dict else {"": part}
+        if out is None:
+            out = {k: t.new_empty((n_layers, *t.shape))
+                   for k, t in parts.items()}
+        for k, t in parts.items():
+            out[k][i] = t
+        del part, parts
+    return out if is_dict else out[""]
+
+
+def init_tree(cfg: LlamaConfig, shapes: dict, generator: torch.Generator,
+              device: torch.device, transform=None) -> dict:
+    """Random leaves for the shape tree ``shapes`` by ``init_leaf``'s
+    rules, drawn leaf by leaf from ``generator`` and every ``blocks``
+    leaf one layer at a time. ``transform(path, tensor)``, if given,
+    maps each draw (one layer of a stacked leaf, or a whole top-level
+    leaf; ``path`` as ``"blocks/wq"``, ``"embed/tokens"``) before the
+    next is drawn: the quantizer of ``quantize.init_params_quantized``,
+    the per-rank slicer of ``sharding.Sharder``."""
+    fn = transform or (lambda path, t: t)
+
+    def leaf(path, shape):
+        name = path.rsplit("/", 1)[-1]
+        return fn(path, init_leaf(cfg, name, shape, generator, device))
+
+    out = {}
+    for name, s in shapes.items():
+        if name == "blocks":
+            out[name] = {k: _by_layer(shp[0], lambda i, k=k, shp=shp:
+                                      leaf(f"blocks/{k}", shp[1:]))
+                         for k, shp in s.items()}
+        elif isinstance(s, dict):
+            out[name] = {k: leaf(f"{name}/{k}", shp) for k, shp in s.items()}
+        else:
+            out[name] = leaf(name, s)
+    return out
+
+
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
-                device: str | torch.device | None = None) -> dict:
-    """Random parameters matching ``param_spec_shapes``, drawn leaf by
-    leaf from ``generator`` (which must live on ``device``). The draws
-    are not JAX's: parity tests carry JAX's weights over with
-    ``params.from_numpy_params`` instead."""
+                device: str | torch.device | None = None, *,
+                transform=None) -> dict:
+    """Random parameters matching ``param_spec_shapes``, drawn from
+    ``generator`` (which must live on ``device``) by ``init_tree``: one
+    layer of a stacked leaf at a time, each draw passed through
+    ``transform``. The draws are not JAX's: parity tests carry JAX's
+    weights over with ``params.from_numpy_params`` instead."""
     from kubeflow_rm_tpu_torch.device import default_device
 
-    device = default_device(device)
-
-    def walk(tree):
-        return {name: (walk(s) if isinstance(s, dict)
-                       else init_leaf(cfg, name, s, generator, device))
-                for name, s in tree.items()}
-
-    return walk(param_spec_shapes(cfg))
+    return init_tree(cfg, param_spec_shapes(cfg), generator,
+                     default_device(device), transform)
 
 
 def layer_params(blocks: dict, i: int) -> dict:
@@ -197,55 +252,75 @@ def layer_params(blocks: dict, i: int) -> dict:
             for name, w in blocks.items()}
 
 
-def _attention_half(cfg: LlamaConfig, x, layer, cos, sin, positions,
-                    segments, impl):
-    """Pre-norm attention + residual. x: (B, T, D) in compute dtype."""
-    B, T, _ = x.shape
-    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+def _projector(cfg: LlamaConfig, layer, view):
+    """``proj(name, t)`` of one layer: ``lora_proj`` on one device, the
+    tp-parallel projection of ``view`` on a mesh."""
+    if view is not None:
+        return view.projector(cfg, layer)
 
     def proj(name, t):
         return lora_proj(layer, name, t, alpha=cfg.lora_alpha,
                          dtype=cfg.dtype)
 
+    return proj
+
+
+def _attention_half(cfg: LlamaConfig, x, layer, cos, sin, positions,
+                    segments, impl, view=None):
+    """Pre-norm attention + residual. x: (B, T, D) in compute dtype. On
+    a mesh (``view``) the heads are this rank's ``H/tp``."""
+    B, T, _ = x.shape
+    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if view is not None:
+        H, KVH = view.local_heads(cfg)
+    h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+    proj = _projector(cfg, layer, view)
     q = checkpoint_name(
         apply_rope(proj("wq", h).reshape(B, T, H, hd), cos, sin), "q_rope")
     k = checkpoint_name(
         apply_rope(proj("wk", h).reshape(B, T, KVH, hd), cos, sin), "k_rope")
     v = checkpoint_name(proj("wv", h).reshape(B, T, KVH, hd), "v_proj")
-    attn = dot_product_attention(
-        q, k, v, causal=True, positions_q=positions, positions_kv=positions,
-        segment_ids_q=segments, segment_ids_kv=segments, impl=impl)
+    if view is None:
+        attn = dot_product_attention(
+            q, k, v, causal=True, positions_q=positions,
+            positions_kv=positions, segment_ids_q=segments,
+            segment_ids_kv=segments, impl=impl)
+    else:
+        attn = view.attention(cfg, q, k, v, positions, segments, impl)
     attn = checkpoint_name(attn, "attn_out")
     return x + proj("wo", attn.reshape(B, T, H * hd))
 
 
-def _mlp(cfg: LlamaConfig, layer, h):
+def _mlp(cfg: LlamaConfig, layer, h, view=None):
     """Dense SwiGLU FFN."""
-    def proj(name, t):
-        return lora_proj(layer, name, t, alpha=cfg.lora_alpha,
-                         dtype=cfg.dtype)
-
+    proj = _projector(cfg, layer, view)
     gate = checkpoint_name(proj("w_gate", h), "mlp_gate")
     up = checkpoint_name(proj("w_up", h), "mlp_up")
     return proj("w_down", F.silu(gate) * up)
 
 
-def _block(cfg: LlamaConfig, x, layer, cos, sin, positions, segments, impl):
+def _block(cfg: LlamaConfig, x, layer, cos, sin, positions, segments, impl,
+           view=None):
     """One transformer block (attention + dense SwiGLU MLP)."""
-    x = _attention_half(cfg, x, layer, cos, sin, positions, segments, impl)
-    return x + _mlp(cfg, layer, rms_norm(x, layer["mlp_norm"], cfg.norm_eps))
+    x = _attention_half(cfg, x, layer, cos, sin, positions, segments, impl,
+                        view)
+    return x + _mlp(cfg, layer, rms_norm(x, layer["mlp_norm"], cfg.norm_eps),
+                    view)
 
 
-def embed(params: dict, tokens: torch.Tensor, cfg: LlamaConfig):
+def embed(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, view=None):
     """Gather the (B, T, D) rows first, then cast — never a compute-dtype
     copy of the whole (V, D) table. The embedding is never quantized."""
+    if view is not None:
+        return view.embed(params, tokens, cfg)
     return params["embed"]["tokens"][tokens.long()].to(cfg.dtype)
 
 
-def logits_head(params: dict, x: torch.Tensor, cfg: LlamaConfig):
+def logits_head(params: dict, x: torch.Tensor, cfg: LlamaConfig, view=None):
     """Final norm, lm head (dequantized if quantized) in the compute
     dtype, float32 logits."""
+    if view is not None:
+        return view.head(params, x, cfg)
     x = rms_norm(x, params["out_norm"], cfg.norm_eps)
     return (x @ maybe_dequant(params["lm_head"], cfg.dtype)).float()
 
@@ -259,6 +334,7 @@ def forward(
     *,
     packed: bool = False,
     impl: str = "auto",
+    mesh=None,
 ) -> torch.Tensor:
     """Causal LM forward pass: (B, T) token ids -> (B, T, vocab) float32
     logits.
@@ -273,28 +349,48 @@ def forward(
 
     Where autograd records and ``cfg.remat`` is set, each block runs
     under ``torch.utils.checkpoint`` with ``cfg.remat_policy``.
+
+    ``mesh`` (a ``parallel.mesh.make_mesh`` mesh): ``params`` are this
+    rank's shards (``parallel.sharding.shard_params``) and ``tokens``,
+    ``positions``, ``segments`` its (dp, fsdp) rows and sp columns
+    (``training.train.shard_batch``); the logits are this rank's rows and
+    columns over the whole vocabulary.
     """
+    view = _mesh_view(mesh, cfg, params)
     x, cos, sin, attn_positions = _prologue(params, tokens, cfg, positions,
-                                            packed)
+                                            packed, view)
     blocks = params["blocks"]
-    block = remat_block(partial(_block, cfg), cfg)
+    block = remat_block(partial(_block, cfg, view=view), cfg)
     for i in range(cfg.n_layers):
         x = block(x, layer_params(blocks, i), cos, sin, attn_positions,
                   segments, impl)
-    return logits_head(params, x, cfg)
+    return logits_head(params, x, cfg, view)
 
 
-def _prologue(params, tokens, cfg, positions, packed):
+def _mesh_view(mesh, cfg, params):
+    """``MeshView`` of ``mesh`` for this forward, or None (one device)."""
+    if mesh is None:
+        return None
+    from kubeflow_rm_tpu_torch.parallel.sharded import MeshView
+
+    return MeshView(mesh, cfg, params)
+
+
+def _prologue(params, tokens, cfg, positions, packed, view=None):
     """Embedding and rotary angles of a forward, and the positions the
     attention mask sees: None (a plain causal mask, the flash path) unless
-    explicit positions come without ``packed``."""
+    explicit positions come without ``packed``. On a mesh the default
+    positions are the global ones of this rank's sp chunk."""
     B, T = tokens.shape
     attn_positions = None if (positions is None or packed) else positions
     if positions is None:
-        positions = torch.arange(T, dtype=torch.int32,
-                                 device=tokens.device).expand(B, T)
+        if view is None:
+            positions = torch.arange(T, dtype=torch.int32,
+                                     device=tokens.device).expand(B, T)
+        else:
+            positions = view.chunk_positions(B, T, tokens.device)
     cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
-    return embed(params, tokens, cfg), cos, sin, attn_positions
+    return embed(params, tokens, cfg, view), cos, sin, attn_positions
 
 
 def remat_block(block, cfg):

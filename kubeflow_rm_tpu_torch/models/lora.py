@@ -29,42 +29,55 @@ def is_lora_name(name: str) -> bool:
     return name.endswith(LORA_A) or name.endswith(LORA_B)
 
 
-def _base_shape(w) -> tuple[int, int, int]:
+def _base_shape(w, shape=lambda t: tuple(t.shape)) -> tuple[int, int, int]:
     """(L, in, out) of a base weight: plain, int8 ``q``, or packed int4
-    ``q4`` (L, G, g/2, out), as JAX reads them."""
+    ``q4`` (L, G, g/2, out), as JAX reads them; ``shape`` reads an
+    array's shape (the global one of a local shard)."""
     if not is_quantized(w):
-        return tuple(w.shape)
+        return shape(w)
     if "q4" in w:
-        q4 = w["q4"]
-        return q4.shape[0], q4.shape[-3] * q4.shape[-2] * 2, q4.shape[-1]
-    return tuple(w["q"].shape)
+        q4 = shape(w["q4"])
+        return q4[0], q4[-3] * q4[-2] * 2, q4[-1]
+    return shape(w["q"])
 
 
 def add_lora(params: dict, rank: int, *, generator: torch.Generator,
              targets: tuple[str, ...] = DEFAULT_TARGETS,
-             param_dtype: torch.dtype | None = None) -> dict:
+             param_dtype: torch.dtype | None = None, mesh=None) -> dict:
     """Return ``params`` extended with rank-``rank`` adapters on
     ``targets``: ``a`` ~ N(0, 1)·0.02 drawn in float32 from
     ``generator`` (which must live on the weights' device), ``b`` zeros,
     both in ``param_dtype`` (default: the base weight's dtype, or bf16
     over a quantized base — the QLoRA recipe). The base tensors are
-    shared, not copied."""
+    shared, not copied. On ``mesh`` ``params`` is this rank's tree: the
+    adapters are drawn at their global shapes, as one device draws
+    them, and cut to this rank's slices (``sharding.shard_leaf``)."""
+    from kubeflow_rm_tpu_torch.parallel.sharding import (
+        global_shape, shard_leaf,
+    )
+
+    def shape(t):
+        return tuple(t.shape) if mesh is None else global_shape(t, mesh)
+
     blocks = dict(params["blocks"])
     for t in targets:
         if t not in blocks:
             raise KeyError(f"lora target {t!r} not in blocks "
                            f"({sorted(blocks)})")
         w = blocks[t]
-        L, d_in, d_out = _base_shape(w)
+        L, d_in, d_out = _base_shape(w, shape)
         if is_quantized(w):
             dt, device = param_dtype or torch.bfloat16, w["s"].device
         else:
             dt, device = param_dtype or w.dtype, w.device
         a = torch.randn((L, d_in, rank), generator=generator,
                         dtype=torch.float32, device=device)
-        blocks[t + LORA_A] = (a * 0.02).to(dt)
-        blocks[t + LORA_B] = torch.zeros((L, rank, d_out), dtype=dt,
-                                         device=device)
+        new = {t + LORA_A: (a * 0.02).to(dt),
+               t + LORA_B: torch.zeros((L, rank, d_out), dtype=dt,
+                                       device=device)}
+        for k, v in new.items():
+            blocks[k] = (v if mesh is None
+                         else shard_leaf(f"blocks/{k}", v, mesh))
     return dict(params, blocks=blocks)
 
 

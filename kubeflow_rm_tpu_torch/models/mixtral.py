@@ -24,8 +24,8 @@ from functools import partial
 import torch
 
 from kubeflow_rm_tpu_torch.models.llama import (
-    LlamaConfig, _attention_half, _prologue, init_leaf, layer_params,
-    logits_head, remat_block,
+    LlamaConfig, _attention_half, _mesh_view, _prologue, init_tree,
+    layer_params, logits_head, remat_block,
 )
 from kubeflow_rm_tpu_torch.models.llama import (
     param_spec_shapes as _llama_shapes,
@@ -76,61 +76,27 @@ def param_spec_shapes(cfg: MixtralConfig) -> dict:
     return {**shapes, "blocks": blocks}
 
 
-def _by_layer(n_layers: int, make):
-    """Stack ``make(i)`` (a tensor or a dict of tensors) over ``i`` into
-    preallocated ``(L, ...)`` tensors, one layer's result alive at a
-    time."""
-    out, is_dict = None, False
-    for i in range(n_layers):
-        part = make(i)
-        is_dict = isinstance(part, dict)
-        parts = part if is_dict else {"": part}
-        if out is None:
-            out = {k: t.new_empty((n_layers, *t.shape))
-                   for k, t in parts.items()}
-        for k, t in parts.items():
-            out[k][i] = t
-        del part, parts
-    return out if is_dict else out[""]
-
-
 def init_params(cfg: MixtralConfig, generator: torch.Generator,
                 device: str | torch.device | None = None, *,
                 transform=None) -> dict:
     """Random parameters matching ``param_spec_shapes``, by
-    ``llama.init_leaf``'s rules, drawn leaf by leaf from ``generator``
-    and every ``blocks`` leaf one layer at a time. ``transform(name,
-    tensor)``, if given, maps each draw (one layer of a stacked leaf, or
-    a whole flat leaf) before the next is drawn — the quantizer of
-    ``quantize.init_params_quantized``."""
+    ``llama.init_tree``: leaf by leaf from ``generator``, every
+    ``blocks`` leaf one layer at a time, each draw passed through
+    ``transform(path, tensor)``."""
     from kubeflow_rm_tpu_torch.device import default_device
 
-    device = default_device(device)
-    fn = transform or (lambda name, t: t)
-
-    def leaf(name, shape):
-        return fn(name, init_leaf(cfg, name, shape, generator, device))
-
-    shapes = param_spec_shapes(cfg)
-    out = {}
-    for name, s in shapes.items():
-        if name == "blocks":
-            out[name] = {k: _by_layer(shp[0], lambda i, k=k, shp=shp:
-                                      leaf(k, shp[1:]))
-                         for k, shp in s.items()}
-        elif isinstance(s, dict):
-            out[name] = {k: leaf(k, shp) for k, shp in s.items()}
-        else:
-            out[name] = leaf(name, s)
-    return out
+    return init_tree(cfg, param_spec_shapes(cfg), generator,
+                     default_device(device), transform)
 
 
 def _moe_block(cfg: MixtralConfig, x, layer, cos, sin, positions, segments,
-               impl):
-    """Llama's attention half, then the MoE FFN half. Returns (x, aux)."""
-    x = _attention_half(cfg, x, layer, cos, sin, positions, segments, impl)
+               impl, view=None):
+    """Llama's attention half, then the MoE FFN half (on a mesh, this
+    rank's experts). Returns (x, aux)."""
+    x = _attention_half(cfg, x, layer, cos, sin, positions, segments, impl,
+                        view)
     h = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
-    out, aux = moe_ffn(layer, h, cfg.moe, dtype=cfg.dtype)
+    out, aux = moe_ffn(layer, h, cfg.moe, dtype=cfg.dtype, view=view)
     return x + out, aux
 
 
@@ -143,17 +109,20 @@ def forward(
     *,
     packed: bool = False,
     impl: str = "auto",
+    mesh=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Causal LM forward: ((B, T, vocab) float32 logits, the router aux
-    loss averaged over layers). The arguments are ``llama.forward``'s;
-    each block runs under the same remat wrapper and policy."""
+    loss averaged over layers). The arguments are ``llama.forward``'s
+    (``mesh`` too); each block runs under the same remat wrapper and
+    policy."""
+    view = _mesh_view(mesh, cfg, params)
     x, cos, sin, attn_positions = _prologue(params, tokens, cfg, positions,
-                                            packed)
+                                            packed, view)
     blocks = params["blocks"]
-    block = remat_block(partial(_moe_block, cfg), cfg)
+    block = remat_block(partial(_moe_block, cfg, view=view), cfg)
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         x, aux = block(x, layer_params(blocks, i), cos, sin, attn_positions,
                        segments, impl)
         aux_sum = aux_sum + aux
-    return logits_head(params, x, cfg), aux_sum / cfg.n_layers
+    return logits_head(params, x, cfg, view), aux_sum / cfg.n_layers

@@ -106,39 +106,30 @@ def quantize_params(params: dict, bits: int = 8,
 
 def init_params_quantized(cfg, generator: torch.Generator,
                           device: str | torch.device | None = None, *,
-                          bits: int = 8, group_size: int = 128) -> dict:
-    """Random-init a model directly into quantized form, one leaf at a
+                          bits: int = 8, group_size: int = 128,
+                          mesh=None) -> dict:
+    """Random-init a model directly into quantized form, one draw at a
     time, so the full-precision tree never exists: each matmul leaf is
-    drawn (``llama.init_leaf``) and quantized before the next is drawn.
-    The draws come from ``generator`` in ``init_params``' order (for a
-    ``MixtralConfig``, ``mixtral.init_params``': every stacked leaf one
-    layer at a time), so the result is bit-identical to
-    ``quantize_params(init_params(cfg, generator, device))`` from the
-    same generator state."""
-    from kubeflow_rm_tpu_torch.device import default_device
-    from kubeflow_rm_tpu_torch.models import mixtral
-    from kubeflow_rm_tpu_torch.models.llama import init_leaf, param_spec_shapes
+    drawn a layer at a time (``llama.init_tree``) and each layer
+    quantized before the next is drawn. The draws come from
+    ``generator`` in ``init_params``' order, and quantization reduces
+    along axis -2, so a layer's quantization is the stack's slice: the
+    result is bit-identical to ``quantize_params(init_params(cfg,
+    generator, device))`` from the same generator state. On ``mesh``
+    each quantized layer is cut to this rank's slice as it is made
+    (``models.init_params``' ``mesh``)."""
+    from kubeflow_rm_tpu_torch.models import init_params
 
-    device = default_device(device)
     quant = _quant_fn(bits, group_size)
 
-    def transform(name, leaf):
+    def transform(path, leaf):
+        name = path.rsplit("/", 1)[-1]
         if name in _MATMUL_LEAVES or name == "lm_head":
             return quant(leaf)
         return leaf
 
-    if isinstance(cfg, mixtral.MixtralConfig):
-        # one layer at a time (mixtral.init_params): quantization reduces
-        # along axis -2, so a layer's quantization is the stack's slice
-        return mixtral.init_params(cfg, generator, device,
-                                   transform=transform)
-
-    def walk(tree):
-        return {name: (walk(s) if isinstance(s, dict) else transform(
-                    name, init_leaf(cfg, name, s, generator, device)))
-                for name, s in tree.items()}
-
-    return walk(param_spec_shapes(cfg))
+    return init_params(cfg, generator, device, mesh=mesh,
+                       transform=transform)
 
 
 def is_quantized(leaf) -> bool:

@@ -15,13 +15,18 @@ IGNORE_INDEX = -100
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
                           z_loss: float = 0.0,
-                          ignore_index: int = IGNORE_INDEX):
+                          ignore_index: int = IGNORE_INDEX,
+                          total=None):
     """Mean token cross-entropy over the tokens whose label is not
     ``ignore_index``.
 
     Args:
       logits: (..., V) unnormalized log-probs (promoted to float32).
       labels: (...) int targets.
+      total: where the tokens are one rank's share of a batch, the
+        function that sums a 0-dim tensor over the ranks (an autograd
+        all-reduce): the masked sums and the count go through it before
+        the division, so the mean is the global token mean.
 
     Returns:
       ``(loss, aux)``: the scalar masked-mean NLL (plus the z-loss when
@@ -35,13 +40,16 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
     label_logit = torch.gather(logits, -1, safe[..., None])[..., 0]
     nll = lse - label_logit
     weight = valid.float()
-    n_valid = weight.sum()
+    if total is None:
+        def total(t):
+            return t
+    n_valid = total(weight.sum())
     denom = torch.clamp(n_valid, min=1.0)
-    nll_mean = (nll * weight).sum() / denom
+    nll_mean = total((nll * weight).sum()) / denom
     aux = {"nll": nll_mean, "n_valid": n_valid}
     loss = nll_mean
     if z_loss:
-        zl = z_loss * (lse.square() * weight).sum() / denom
+        zl = z_loss * total((lse.square() * weight).sum()) / denom
         aux["z_loss"] = zl
         loss = loss + zl
     return loss, aux

@@ -1,4 +1,42 @@
 """Parallel layers of the port (counterpart of
-``kubeflow_rm_tpu/parallel``). Single device so far: the dense-dispatch
-MoE layer (``moe``). Meshes, sharding, ring/Ulysses attention and the
-pipeline come with the parallel slice."""
+``kubeflow_rm_tpu/parallel``): the process-group bootstrap
+(``distributed``), the six-axis mesh (``mesh``), the sharding rules
+(``sharding``), the autograd collectives (``collectives``), the model's
+view of a mesh (``sharded``), the sequence-parallel attention schedules
+(``ring_attention``, ``zigzag_ring``, ``ulysses``) and the dense-dispatch
+MoE layer (``moe``). The GPipe schedule (``pipeline``) is not ported
+yet."""
+
+from kubeflow_rm_tpu_torch.parallel.mesh import (
+    MeshConfig, make_hybrid_mesh, make_mesh,
+)
+from kubeflow_rm_tpu_torch.parallel.ring_attention import (
+    ring_attention, ring_self_attention,
+)
+from kubeflow_rm_tpu_torch.parallel.sharding import (
+    batch_pspec, param_pspecs, param_shardings,
+)
+from kubeflow_rm_tpu_torch.parallel.ulysses import (
+    ulysses_attention, ulysses_self_attention,
+)
+from kubeflow_rm_tpu_torch.parallel.zigzag_ring import (
+    zigzag_permutation, zigzag_positions, zigzag_ring_attention,
+    zigzag_ring_self_attention,
+)
+
+__all__ = [
+    "MeshConfig",
+    "batch_pspec",
+    "make_hybrid_mesh",
+    "make_mesh",
+    "param_pspecs",
+    "param_shardings",
+    "ring_attention",
+    "ring_self_attention",
+    "ulysses_attention",
+    "ulysses_self_attention",
+    "zigzag_permutation",
+    "zigzag_positions",
+    "zigzag_ring_attention",
+    "zigzag_ring_self_attention",
+]

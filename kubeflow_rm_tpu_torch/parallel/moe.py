@@ -9,8 +9,8 @@ residual path; the auxiliary load-balancing loss keeps routing uniform.
 The expert products are batched matmuls (``torch.einsum``, and
 ``models.remat.project`` for the two whose outputs the remat policies
 name), as the JAX package computes them in XLA outside any Pallas
-kernel. Expert parallelism over the
-``ep`` axis comes with the parallel slice of the port.
+kernel. On a mesh (``moe_ffn(..., view=)``) the experts are split
+over ``ep`` and routing runs over the global token axis.
 """
 
 from __future__ import annotations
@@ -20,6 +20,10 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+
+from kubeflow_rm_tpu_torch.parallel.collectives import (
+    all_reduce, copy_to_group,
+)
 
 
 @dataclass(frozen=True)
@@ -46,7 +50,8 @@ def top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def route(router_logits: torch.Tensor, cfg: MoeConfig, capacity: int):
+def route(router_logits: torch.Tensor, cfg: MoeConfig, capacity: int, *,
+          offsets=None, n_global: int | None = None, reduce=None):
     """Top-k routing with per-expert capacity.
 
     ``router_logits`` (N, E). Returns ``dispatch`` (N, E, C) 0/1 (token
@@ -55,6 +60,12 @@ def route(router_logits: torch.Tensor, cfg: MoeConfig, capacity: int):
     ``E · Σ_e frac_routed_e · mean_prob_e``. Priority is (slot, token):
     slot 0 (the argmax choice) of every token claims capacity before any
     token's slot 1, then token order breaks ties.
+
+    On a mesh the token axis is global (``sharded.MeshView.moe_route``):
+    ``offsets(onehot)`` maps the local (N, k, E) choices to each choice's
+    position within its expert in the global (slot, token) order,
+    ``reduce`` sums a per-rank statistic over the ranks and ``n_global``
+    is the global token count. Without them the N tokens are all.
     """
     N, E = router_logits.shape
     k = cfg.top_k
@@ -63,9 +74,12 @@ def route(router_logits: torch.Tensor, cfg: MoeConfig, capacity: int):
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
 
     onehot = F.one_hot(expert_idx, E).to(torch.int32)         # (N, k, E)
-    slot_major = onehot.transpose(0, 1).reshape(k * N, E)
-    pos = torch.cumsum(slot_major, dim=0) - 1                 # within expert
-    pos = pos.reshape(k, N, E).transpose(0, 1)
+    if offsets is None:
+        slot_major = onehot.transpose(0, 1).reshape(k * N, E)
+        pos = torch.cumsum(slot_major, dim=0) - 1             # within expert
+        pos = pos.reshape(k, N, E).transpose(0, 1)
+    else:
+        pos = offsets(onehot)
     pos = (pos * onehot).sum(-1)                              # (N, k)
     # one_hot of an index past the capacity is all zeros (jax.nn.one_hot)
     slots = torch.arange(capacity, device=pos.device)
@@ -76,8 +90,12 @@ def route(router_logits: torch.Tensor, cfg: MoeConfig, capacity: int):
 
     # load balance: the fraction of tokens whose top choice is e times
     # the mean router probability of e (differentiable through probs)
-    frac_routed = onehot[:, 0, :].float().mean(0)
-    mean_prob = probs.mean(0)
+    top = onehot[:, 0, :].float()
+    if reduce is None:
+        frac_routed, mean_prob = top.mean(0), probs.mean(0)
+    else:
+        frac_routed = reduce(top.sum(0)) / n_global
+        mean_prob = reduce(probs.sum(0)) / n_global
     aux_loss = E * (frac_routed * mean_prob).sum()
     return dispatch, combine, aux_loss
 
@@ -93,12 +111,18 @@ def moe_param_shapes(cfg: MoeConfig, dim: int, hidden: int) -> dict:
 
 
 def moe_ffn(params: dict, x: torch.Tensor, cfg: MoeConfig,
-            dtype: torch.dtype = torch.bfloat16):
+            dtype: torch.dtype = torch.bfloat16, *, view=None):
     """SwiGLU expert FFN: x (B, T, D) -> ((B, T, D), aux loss).
 
     The router runs in float32 (routing decisions should not flip with
     bf16 rounding); the experts run in ``dtype``. Capacity is per call:
     N = B·T tokens share ``expert_capacity(cfg, N)`` slots an expert.
+
+    ``view`` (a ``sharded.MeshView``): ``params`` and the routing are
+    this rank's on a mesh. The view gathers the weights and the router's
+    expert columns, routes over the global token axis, keeps this rank's
+    experts (ep) and ends the tp-split expert product and the ep combine
+    in their all-reduces; x is replicated over ep and tp.
     """
     # imported here: models.remat lives in the models package, which
     # imports this module through models.mixtral
@@ -107,19 +131,37 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: MoeConfig,
     B, T, D = x.shape
     N = B * T
     xf = x.reshape(N, D)
-    logits = xf.float() @ params["router"].float()
-    dispatch, combine, aux = route(logits, cfg, expert_capacity(cfg, N))
+    if view is None:
+        def weight(name):
+            return params[name].to(dtype)
+
+        router, over = params["router"], {}
+    else:
+        def weight(name):
+            return view.weight(f"blocks/{name}", params[name], dtype)
+
+        router, over = view.moe_router(params), view.moe_route(B, T)
+    logits = xf.float() @ router.float()
+    dispatch, combine, aux = route(
+        logits, cfg, expert_capacity(cfg, over.get("n_global", N)), **over)
+    if view is not None:
+        dispatch, combine, xf = view.moe_local(dispatch, combine, xf)
 
     expert_in = torch.einsum("nec,nd->ecd", dispatch.to(dtype), xf.to(dtype))
+    if view is not None:
+        expert_in = copy_to_group(expert_in, view.g_tp)
     # the dense MLP's names, so the named remat policies ("mlp",
     # "attn+mlp") save the expert activations as they save the MLP's;
     # ``project`` lets their replay skip the products that made them
     gate = checkpoint_name(project(
-        expert_in, params["moe_gate"].to(dtype), "moe_gate"), "mlp_gate")
+        expert_in, weight("moe_gate"), "moe_gate"), "mlp_gate")
     up = checkpoint_name(project(
-        expert_in, params["moe_up"].to(dtype), "moe_up"), "mlp_up")
+        expert_in, weight("moe_up"), "moe_up"), "mlp_up")
     h = F.silu(gate) * up
-    expert_out = torch.einsum("ecf,efd->ecd", h,
-                              params["moe_down"].to(dtype))
+    expert_out = torch.einsum("ecf,efd->ecd", h, weight("moe_down"))
+    if view is not None:
+        expert_out = all_reduce(expert_out, view.g_tp)
     out = torch.einsum("nec,ecd->nd", combine.to(dtype), expert_out)
+    if view is not None:
+        out = all_reduce(out, view.g_ep)
     return out.reshape(B, T, D), aux

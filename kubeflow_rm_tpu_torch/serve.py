@@ -30,8 +30,16 @@ same 400 rules as the JAX example, without werkzeug.
   text decodes in fewer model calls); ``app.stats`` counts them. Every
   other request keeps the batched path.
 
-This is the single-device server: the mesh flags come with a later
-slice of the port (ROADMAP.md).
+- **Mesh** (``--tp``, ``--fsdp``; ``make_app(..., mesh=)``): under
+  torchrun every rank holds its shards (``shard_params``); rank 0
+  serves HTTP and broadcasts each batch (``broadcast_object_list``),
+  every rank runs the sharded ``make_generate_step``, and rank 0
+  answers (the other ranks run ``follow``). Batches are padded to a
+  multiple of the mesh's dp·fsdp rows. ``--speculative`` is
+  single-device only: on a mesh it warns and the fused path serves.
+
+    torchrun --nproc-per-node 2 -m kubeflow_rm_tpu_torch.serve \
+        --preset llama2_7b --tp 2
 
     python -m kubeflow_rm_tpu_torch.serve --preset llama2_7b --port 8000
     python -m kubeflow_rm_tpu_torch.serve --preset tiny --device cpu --selftest
@@ -46,6 +54,7 @@ slice of the port (ROADMAP.md).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import io
 import json
 import queue
@@ -95,7 +104,8 @@ class Batcher:
     """
 
     def __init__(self, step_fn, *, pad_id: int = 0, window_ms: float = 5.0,
-                 max_batch: int = 8, exact_solo: bool = False):
+                 max_batch: int = 8, exact_solo: bool = False,
+                 rows_multiple: int = 1):
         # step_fn: (ids (B,T) int32, pad_counts (B,) int32, temperature,
         #           top_k) -> (B, T+new)
         self.step_fn = step_fn
@@ -103,6 +113,9 @@ class Batcher:
         self.window_ms = window_ms
         self.max_batch = max_batch
         self.exact_solo = exact_solo
+        # a sharded batch must divide the mesh's data axes: the batch is
+        # bucketed in units of this many rows (dummy rows fill it)
+        self.rows_multiple = rows_multiple
         self._exact_lens: set[int] = set()
         self.q: queue.Queue = queue.Queue()
         self.batches_run = 0
@@ -178,7 +191,8 @@ class Batcher:
                     T = lens[0]
                 else:
                     T = _bucket(max(lens))
-                B = _bucket(len(batch), lo=1)
+                units = -(-len(batch) // self.rows_multiple)
+                B = _bucket(units, lo=1) * self.rows_multiple
                 ids = np.full((B, T), self.pad_id, np.int32)
                 for i, b in enumerate(batch):
                     ids[i, T - lens[i]:] = b["prompt"]   # left-pad
@@ -245,10 +259,65 @@ def _parse_request(body: bytes, cfg, max_new_tokens: int, tokenizer=None):
     return prompt, temp, top_k
 
 
+def _mesh_generate(cfg, params, mesh, max_new_tokens: int, device):
+    """``run(ids, pad_counts, temperature, top_k, seed) -> tokens`` on a
+    mesh: the sharded generation every rank runs for one batch (the
+    sampler seeded alike on every rank)."""
+    from kubeflow_rm_tpu_torch.models.generate import make_generate_step
+
+    def run(ids, pad_counts, temperature, top_k, seed):
+        step = make_generate_step(
+            params, cfg, mesh, max_new_tokens=max_new_tokens,
+            total_len=ids.shape[1] + max_new_tokens,
+            temperature=temperature, top_k=top_k)
+        gen = None
+        if temperature > 0:
+            gen = torch.Generator(device=device).manual_seed(seed)
+        with (torch.cuda.device(device) if device.type == "cuda"
+              else contextlib.nullcontext()):
+            out = step(params, torch.from_numpy(ids).to(device), gen,
+                       torch.from_numpy(pad_counts).to(device))
+        return out.cpu().numpy()
+
+    return run
+
+
+def _local_device(device) -> torch.device:
+    """``device`` with the card's index made explicit (the batcher thread
+    does not inherit the main thread's current card)."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def follow(cfg, params, mesh, *, max_new_tokens: int = 64,
+           device: str | torch.device | None = None) -> int:
+    """A non-zero rank of a mesh server: run every batch rank 0
+    broadcasts, until it closes. ``params`` is the global tree or this
+    rank's (sliced here as ``make_app`` does; local leaves pass
+    through). Returns the number of batches run."""
+    import torch.distributed as dist
+
+    from kubeflow_rm_tpu_torch.device import default_device
+    from kubeflow_rm_tpu_torch.parallel.sharding import shard_params
+
+    device = _local_device(default_device(device))
+    run = _mesh_generate(cfg, shard_params(params, mesh), mesh,
+                         max_new_tokens, device)
+    n = 0
+    while True:
+        msg = [None]
+        dist.broadcast_object_list(msg, src=0)
+        if msg[0] is None:
+            return n
+        run(*msg[0])
+        n += 1
+
+
 def make_app(cfg, params, *, max_new_tokens: int = 64,
              window_ms: float = 5.0, max_batch: int = 8,
              speculative: bool = False, tokenizer=None,
-             device: str | torch.device | None = None):
+             device: str | torch.device | None = None, mesh=None):
     """WSGI app + its Batcher (``app.batcher``) and counters
     (``app.stats``), serving ``params`` on ``device`` (the card unless
     told otherwise). ``speculative`` routes solo, greedy, unpadded
@@ -257,7 +326,13 @@ def make_app(cfg, params, *, max_new_tokens: int = 64,
     lets clients send text. Packed-int4 weights are unpacked once, here
     (the app serves the unpacked tree). Sampled requests draw from one
     ``torch.Generator`` with a non-deterministic seed; only the batcher
-    thread uses it."""
+    thread uses it.
+
+    ``mesh``: rank 0's app over the global ``params`` or rank 0's slices
+    (``shard_params``: local leaves pass through); each batch is
+    broadcast to the other ranks, which run ``follow``.
+    Packed int4 stays packed on a mesh (each step dequantizes it).
+    ``app.close()`` stops the batcher and releases the followers."""
     from kubeflow_rm_tpu_torch.device import default_device
     from kubeflow_rm_tpu_torch.models.generate import (
         generate_fused, generate_speculative_fused,
@@ -265,10 +340,36 @@ def make_app(cfg, params, *, max_new_tokens: int = 64,
     from kubeflow_rm_tpu_torch.models.quantize import unpack_int4_params
 
     device = default_device(device)
-    params = unpack_int4_params(params)
+    if mesh is not None:
+        device = _local_device(device)
     sampler = torch.Generator(device=device)
     sampler.seed()
     app_stats = {"speculative_requests": 0}
+    rows = 1
+    if mesh is None:
+        params = unpack_int4_params(params)
+    else:
+        import torch.distributed as dist
+
+        from kubeflow_rm_tpu_torch.parallel.mesh import axis_size
+        from kubeflow_rm_tpu_torch.parallel.sharding import shard_params
+
+        if speculative:
+            print("warning: --speculative is single-device only "
+                  "(batch-1 lookup decoding); sharded requests take "
+                  "the fused path", flush=True)
+            speculative = False
+        rows = axis_size(mesh, ("dp", "fsdp"))
+        run = _mesh_generate(cfg, shard_params(params, mesh), mesh,
+                             max_new_tokens, device)
+
+        def mesh_step(ids, pad_counts, temperature, top_k):
+            # every rank runs this batch, its sampler seeded alike
+            seed = int(torch.randint(0, 2**62, (), generator=sampler,
+                                     device=device))
+            msg = [(ids, pad_counts, temperature, top_k, seed)]
+            dist.broadcast_object_list(msg, src=0)
+            return run(*msg[0])
 
     def step_fn(ids, pad_counts, temperature, top_k):
         B, T = ids.shape
@@ -287,8 +388,14 @@ def make_app(cfg, params, *, max_new_tokens: int = 64,
             pad_counts=torch.from_numpy(pad_counts).to(device))
         return out.cpu().numpy()
 
-    batcher = Batcher(step_fn, window_ms=window_ms, max_batch=max_batch,
-                      exact_solo=speculative)
+    batcher = Batcher(mesh_step if mesh is not None else step_fn,
+                      window_ms=window_ms, max_batch=max_batch,
+                      exact_solo=speculative, rows_multiple=rows)
+
+    def close():
+        batcher.close()
+        if mesh is not None:
+            dist.broadcast_object_list([None], src=0)
 
     def respond(start_response, status: int, payload: dict):
         data = json.dumps(payload).encode()
@@ -331,6 +438,7 @@ def make_app(cfg, params, *, max_new_tokens: int = 64,
 
     app.batcher = batcher
     app.stats = app_stats
+    app.close = close
     return app
 
 
@@ -364,10 +472,11 @@ class _ThreadingWSGIServer(socketserver.ThreadingMixIn, WSGIServer):
 def main(argv=None) -> int:
     from kubeflow_rm_tpu_torch.device import default_device
     from kubeflow_rm_tpu_torch.models.convert import load_hf_dir
-    from kubeflow_rm_tpu_torch.models.llama import (
-        PRESETS, LlamaConfig, init_params,
+    from kubeflow_rm_tpu_torch.models import init_params
+    from kubeflow_rm_tpu_torch.models.llama import PRESETS, LlamaConfig
+    from kubeflow_rm_tpu_torch.models.quantize import (
+        init_params_quantized, quantize_params,
     )
-    from kubeflow_rm_tpu_torch.models.quantize import quantize_params
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--preset", default="tiny", choices=PRESETS)
@@ -390,6 +499,10 @@ def main(argv=None) -> int:
     ap.add_argument("--speculative", action="store_true",
                     help="route solo greedy requests through the "
                          "prompt-lookup speculative decoder")
+    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--fsdp", type=int, default=0,
+                    help="0 = world // tp (one process: no mesh unless "
+                         "--tp/--fsdp ask for one)")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' to run on "
@@ -398,20 +511,41 @@ def main(argv=None) -> int:
                     help="serve in-process, run one round trip, exit")
     args = ap.parse_args(argv)
 
+    from kubeflow_rm_tpu_torch.parallel import distributed
+    from kubeflow_rm_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from kubeflow_rm_tpu_torch.parallel.sharding import shard_params
+
+    distributed.initialize(device=args.device)
     device = default_device(args.device)
+    world = distributed.world_size()
+    mesh = None
+    if world > 1 or args.tp > 1 or args.fsdp > 1:
+        fsdp = args.fsdp or max(1, world // args.tp)
+        mesh = make_mesh(MeshConfig(fsdp=fsdp, tp=args.tp), device)
     # weights are stored in the compute dtype: serving never trains, and
-    # an fp32 copy would re-cast every weight on every decode step
+    # an fp32 copy would re-cast every weight on every decode step. On a
+    # mesh every rank holds only its slices: drawn weights are cut as
+    # they are drawn, a checkpoint is read into host memory and each
+    # rank takes its slices to the card
+    bits = 4 if args.int4 else 8 if args.int8 else None
     if args.hf_model:
-        cfg, params = load_hf_dir(args.hf_model, device=device,
-                                  param_dtype=LlamaConfig.dtype)
+        cfg, params = load_hf_dir(
+            args.hf_model, device=device if mesh is None else "cpu",
+            param_dtype=LlamaConfig.dtype)
     else:
         cfg, params = getattr(LlamaConfig, args.preset)(), None
     cfg = replace(cfg, param_dtype=cfg.dtype)
-    if params is None:
-        gen = torch.Generator(device=device).manual_seed(0)
-        params = init_params(cfg, gen, device)
-    if args.int8 or args.int4:
-        params = quantize_params(params, bits=4 if args.int4 else 8)
+    gen = torch.Generator(device=device).manual_seed(0)
+    if params is None and bits:
+        params = init_params_quantized(cfg, gen, device, bits=bits,
+                                       mesh=mesh)
+    else:
+        if params is None:
+            params = init_params(cfg, gen, device, mesh=mesh)
+        if bits:
+            params = quantize_params(params, bits=bits)
+        if mesh is not None:
+            params = shard_params(params, mesh, device)
 
     tokenizer = None
     if args.hf_tokenizer:
@@ -423,16 +557,21 @@ def main(argv=None) -> int:
                   "producing out-of-range ids will be rejected",
                   flush=True)
 
+    if distributed.rank() != 0:
+        n = follow(cfg, params, mesh, max_new_tokens=args.max_new_tokens,
+                   device=device)
+        print(f"rank {distributed.rank()}: {n} batch(es) run", flush=True)
+        return 0
     app = make_app(cfg, params, max_new_tokens=args.max_new_tokens,
                    max_batch=args.max_batch,
                    speculative=args.speculative, tokenizer=tokenizer,
-                   device=device)
-    del params      # the app holds its own tree (int4 unpacked)
+                   device=device, mesh=mesh)
+    del params      # the app holds its own tree (int4 unpacked, or shards)
 
     if args.selftest:
         status, out = request(app, "POST", "/generate",
                               {"prompt": [1, 2, 3]})
-        app.batcher.close()
+        app.close()
         if status != 200 or len(out["tokens"]) != 3 + args.max_new_tokens:
             print(f"selftest failed: {status} {out}", file=sys.stderr)
             return 1
@@ -447,7 +586,7 @@ def main(argv=None) -> int:
         httpd.serve_forever()
     finally:
         httpd.server_close()
-        app.batcher.close()
+        app.close()
     return 0
 
 

@@ -12,7 +12,14 @@ and ``close`` exist for the JAX package's API.
 The call shapes are JAX's: ``save(state, *, force=False)`` takes a
 ``TrainState`` or any dict with a ``"step"`` entry, and
 ``restore(cfg=None, mesh=None, step=None)`` gives back the tree as it
-was saved, or with a ``cfg`` a ``TrainState`` checked against it. Trees
+was saved, or with a ``cfg`` a ``TrainState`` checked against it.
+
+On a mesh every rank calls both. ``save(state, mesh=mesh)`` gathers the
+rank-local state to rank 0 (``train.gather_state``), which writes the
+same one-file format; ``restore(cfg, mesh)`` reads the file on every
+rank and keeps each rank's slices (``train.state_shardings``), so a
+checkpoint written at any mesh, or on one device, restores at any
+other, as orbax's does. Trees
 with quantized leaves (dicts of int8 and float32 tensors) round trip
 unchanged. The format is the port's own: it is NOT orbax-compatible, and
 a JAX checkpoint cannot be restored here (nor the other way round).
@@ -101,10 +108,14 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def save(self, state, *, force: bool = False) -> bool:
+    def save(self, state, *, force: bool = False, mesh=None) -> bool:
         """Write ``state`` — a ``TrainState``, or any dict with a
         ``"step"`` entry — at its step. Returns False, writing nothing,
-        if that step exists, unless ``force``, which replaces it."""
+        if that step exists, unless ``force``, which replaces it. With
+        ``mesh`` the state is this rank's ``TrainState``: every rank
+        calls, rank 0 writes the gathered state."""
+        if mesh is not None:
+            return self._save_sharded(state, force, mesh)
         if isinstance(state, TrainState):
             kind = _TRAIN_STATE
             tree = {"step": int(state.step), "params": _cpu(state.params),
@@ -135,6 +146,25 @@ class Checkpointer:
             shutil.rmtree(self.directory / str(stale), ignore_errors=True)
         return True
 
+    def _save_sharded(self, state, force: bool, mesh) -> bool:
+        import torch.distributed as dist
+
+        from kubeflow_rm_tpu_torch.training.train import gather_state
+
+        if not isinstance(state, TrainState):
+            raise TypeError("a sharded save takes a TrainState, got "
+                            f"{type(state).__name__}")
+        skip = [(self.directory / str(int(state.step))).exists()
+                and not force]
+        dist.broadcast_object_list(skip, src=0)
+        if skip[0]:
+            return False
+        full = gather_state(state, mesh)
+        if dist.get_rank() == 0:
+            self.save(full, force=force)
+        dist.barrier()
+        return True
+
     def restore(self, cfg=None, mesh=None, step: int | None = None, *,
                 device: str | torch.device | None = None):
         """The latest (or given) step on ``device`` (the card unless the
@@ -144,27 +174,33 @@ class Checkpointer:
         Without ``cfg`` the tree comes back as it was saved: a
         ``TrainState`` if one was saved, else the dict. With a
         ``TrainConfig`` it is a ``TrainState`` whose parameters are
-        checked against ``cfg.model``. ``mesh`` must be None: the port
-        runs on one card.
+        checked against ``cfg.model``. With ``mesh`` (and a saved
+        ``TrainState``) it is this rank's slices of it.
         """
         from kubeflow_rm_tpu_torch.device import default_device
         from kubeflow_rm_tpu_torch.models.params import check_params
 
-        if mesh is not None:
-            raise ValueError("the port restores onto one device: mesh must "
-                             "be None (sharded restore is not ported)")
         device = default_device(device)
         if step is None:
             step = self.latest_step()
         if step is None:
             return None
         # loaded on the host; the parameters then go to ``device`` and a
-        # host-offload optimizer state stays in host memory
+        # host-offload optimizer state stays in host memory. On a mesh
+        # the file is mapped, not read: each rank copies out its slices
         saved = torch.load(self.directory / str(step) / _FILE,
-                           map_location="cpu", weights_only=True)
+                           map_location="cpu", weights_only=True,
+                           mmap=mesh is not None)
         if "kind" not in saved:        # written before bare trees were kept
             saved = {"kind": _TRAIN_STATE, "tree": saved}
         tree = saved["tree"]
+        if mesh is not None:
+            if saved["kind"] != _TRAIN_STATE:
+                raise ValueError(f"step {step} holds no train state; a "
+                                 "sharded restore needs one")
+            if cfg is not None:
+                check_params(tree["params"], cfg.model)
+            return self._shard(_as_train_state(tree, None), mesh, device)
         if saved["kind"] == _TRAIN_STATE:
             tree = dict(tree, params=_map(tree["params"],
                                           lambda t: t.to(device)))
@@ -178,6 +214,27 @@ class Checkpointer:
                              f"{sorted(tree)}); restore it without cfg")
         check_params(tree["params"], cfg.model)
         return _as_train_state(tree, device)
+
+    @staticmethod
+    def _shard(state: TrainState, mesh, device) -> TrainState:
+        """This rank's slices of a host-memory ``state``, on ``device``."""
+        from kubeflow_rm_tpu_torch.parallel.sharding import SPEC_ATTR
+        from kubeflow_rm_tpu_torch.training.train import shard_state
+
+        local = shard_state(state, mesh)
+
+        def put(t):
+            out = t.to(device)
+            if hasattr(t, SPEC_ATTR):
+                setattr(out, SPEC_ATTR, getattr(t, SPEC_ATTR))
+            return out
+
+        opt = local.opt_state
+        return TrainState(step=local.step, params=_map(local.params, put),
+                          opt_state=type(opt)(count=opt.count, **{
+                              f: _map(getattr(opt, f), put)
+                              for f in opt.__dataclass_fields__
+                              if f != "count"}))
 
     def wait(self) -> None:
         """Saves are synchronous: nothing is pending."""

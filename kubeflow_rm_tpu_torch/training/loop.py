@@ -12,6 +12,11 @@
   the latest step when the directory has one, fast-forwards the data
   past the batches those steps consumed, saves every
   ``checkpoint_every`` steps and at the end.
+- **Mesh** (``fit(..., mesh=)``): every rank draws the same global
+  batches and trains on its share (``shard_batch``) of its shards
+  (``shard_state``); the metrics are global, logged and handed to the
+  callbacks on rank 0; MFU divides by the world's peak, as JAX's
+  ``n_dev`` does.
 """
 
 from __future__ import annotations
@@ -22,11 +27,13 @@ from dataclasses import dataclass
 from typing import Any, Callable, Iterable
 
 import torch
+import torch.distributed as dist
 
 from kubeflow_rm_tpu_torch.training.checkpoint import Checkpointer
 from kubeflow_rm_tpu_torch.training.data import to_device
 from kubeflow_rm_tpu_torch.training.train import (
     TrainConfig, TrainState, init_train_state, make_train_step,
+    shard_batch, shard_state,
 )
 from kubeflow_rm_tpu_torch.utils.flops import (
     device_peak_flops, train_flops_per_token,
@@ -72,7 +79,7 @@ def _device_of(state: TrainState) -> torch.device:
 def fit(cfg: TrainConfig, data: Iterable[dict], loop: LoopConfig = LoopConfig(),
         *, state: TrainState | None = None, batch_keys: tuple | None = None,
         callbacks: tuple[Callable[[LoopMetrics], Any], ...] = (),
-        device: str | torch.device | None = None,
+        device: str | torch.device | None = None, mesh=None,
         ) -> tuple[TrainState, list[LoopMetrics]]:
     """Train for ``loop.total_steps`` total steps (counting restored
     progress); returns the final state and the per-interval metrics.
@@ -84,6 +91,13 @@ def fit(cfg: TrainConfig, data: Iterable[dict], loop: LoopConfig = LoopConfig(),
     card). On resume the iterator skips the batches the restored steps
     consumed, so a deterministic stream replays exactly what an
     uninterrupted run would have seen.
+
+    ``mesh``: every rank calls with the same arguments; ``state`` (if
+    given) is the global state or this rank's, and the returned state is
+    this rank's (``gather_state`` makes it whole). Without ``state``
+    each rank restores or draws only its slices, so no rank holds the
+    global state: pass a rank's own state (``init_train_state(...,
+    mesh=)``) rather than a global one to keep it so.
     """
     from kubeflow_rm_tpu_torch.device import default_device
 
@@ -91,16 +105,20 @@ def fit(cfg: TrainConfig, data: Iterable[dict], loop: LoopConfig = LoopConfig(),
         raise ValueError(f"log_every must be >= 1, got {loop.log_every}")
     ckpt = (Checkpointer(loop.checkpoint_dir, max_to_keep=loop.max_to_keep)
             if loop.checkpoint_dir else None)
+    lead = mesh is None or dist.get_rank() == 0
     resumed = False
     if state is None:
         dev = default_device(device)
-        state = ckpt.restore(cfg, device=dev) if ckpt else None
+        state = ckpt.restore(cfg, mesh, device=dev) if ckpt else None
         if state is not None:
             resumed = True
-            log.info("resumed from step %d", state.step)
+            if lead:
+                log.info("resumed from step %d", state.step)
         else:
             gen = torch.Generator(device=dev).manual_seed(loop.seed)
-            state = init_train_state(cfg, gen, device=dev)
+            state = init_train_state(cfg, gen, device=dev, mesh=mesh)
+    if mesh is not None:
+        state = shard_state(state, mesh)
     dev = _device_of(state)
 
     data = iter(data)
@@ -121,8 +139,9 @@ def fit(cfg: TrainConfig, data: Iterable[dict], loop: LoopConfig = LoopConfig(),
     if batch_keys is None:
         batch_keys = tuple(first.keys())
     step_fn = make_train_step(cfg, state, grad_accum=loop.grad_accum,
-                              offload=loop.offload)
+                              offload=loop.offload, mesh=mesh)
     peak = device_peak_flops(dev)
+    world = 1 if mesh is None else mesh.size()
 
     history: list[LoopMetrics] = []
     start = state.step
@@ -132,7 +151,11 @@ def fit(cfg: TrainConfig, data: Iterable[dict], loop: LoopConfig = LoopConfig(),
     batch = first
     try:
         for i in range(start, total):
-            dev_batch = to_device({k: batch[k] for k in batch_keys}, dev)
+            host = {k: batch[k] for k in batch_keys}
+            rows, batch_len = tuple(host["tokens"].shape)
+            if mesh is not None:
+                host = shard_batch(host, mesh)
+            dev_batch = to_device(host, dev)
             state, metrics = step_fn(state, dev_batch)
             now = i + 1
             if now == start + 1:
@@ -152,32 +175,34 @@ def fit(cfg: TrainConfig, data: Iterable[dict], loop: LoopConfig = LoopConfig(),
                 m = {k: float(v) for k, v in metrics.items()}  # syncs
                 dt = time.perf_counter() - t0
                 steps_done = now - interval_start
-                tokens = steps_done * dev_batch["tokens"].numel()
+                tokens = steps_done * rows * batch_len
                 tps = tokens / dt if dt > 0 and steps_done else 0.0
                 flops = tps * train_flops_per_token(
-                    cfg.model, dev_batch["tokens"].shape[-1],
+                    cfg.model, batch_len,
                     frozen_base=cfg.optim.train_only is not None)
                 rec = LoopMetrics(
                     step=now, loss=m["loss"], grad_norm=m["grad_norm"],
                     tokens_per_sec=tps,
-                    mfu_pct=100.0 * flops / peak if peak else 0.0,
+                    mfu_pct=100.0 * flops / (world * peak) if peak else 0.0,
                     step_time_ms=1e3 * dt / max(steps_done, 1),
                     offload_transfer_ms=m.get("offload_transfer_ms", 0.0),
                     offload_overlap_frac=m.get("offload_overlap_frac", 0.0))
                 history.append(rec)
-                log.info("step %d loss %.4f %.0f tok/s mfu %.1f%%",
-                         rec.step, rec.loss, rec.tokens_per_sec, rec.mfu_pct)
-                for cb in callbacks:
-                    cb(rec)
+                if lead:
+                    log.info("step %d loss %.4f %.0f tok/s mfu %.1f%%",
+                             rec.step, rec.loss, rec.tokens_per_sec,
+                             rec.mfu_pct)
+                    for cb in callbacks:
+                        cb(rec)
                 t0 = time.perf_counter()
                 interval_start = now
             if (ckpt and loop.checkpoint_every
                     and now % loop.checkpoint_every == 0):
-                ckpt.save(state)
+                ckpt.save(state, mesh=mesh)
             if now >= total:
                 break
     finally:
         if ckpt:
-            ckpt.save(state)
+            ckpt.save(state, mesh=mesh)
             ckpt.close()
     return state, history

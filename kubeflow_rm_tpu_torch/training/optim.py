@@ -260,9 +260,13 @@ class Optimizer:
                                p_rms)
 
     @torch.no_grad()
-    def update(self, grads: dict, state, params: dict) -> None:
-        """One step: ``params`` and ``state`` are updated in place."""
-        gnorm = global_norm(grads)
+    def update(self, grads: dict, state, params: dict,
+               gnorm: torch.Tensor | None = None) -> None:
+        """One step: ``params`` and ``state`` are updated in place.
+        ``gnorm``: the global norm, where the caller computed it (on a
+        mesh, over every rank's shards); default ``global_norm(grads)``."""
+        if gnorm is None:
+            gnorm = global_norm(grads)
         for k, g in grads.items():
             self.update_leaf(k, {s: getattr(state, s)[k]
                                  for s in self.slots},

@@ -1,7 +1,6 @@
 """The training step (counterpart of ``kubeflow_rm_tpu/training/train.py``).
 
-Single device: no mesh and no pipeline stages (later slices of the
-port). ``make_train_step`` returns ``step(state, batch) -> (state,
+``make_train_step`` returns ``step(state, batch) -> (state,
 metrics)``, which differentiates the loss with ``torch.autograd.grad``,
 accumulates over ``grad_accum`` interleaved microbatches, and applies
 ``training.optim``'s chain in place — the port's counterpart of buffer
@@ -18,21 +17,40 @@ With ``OptimConfig(train_only="lora")`` the frozen leaves are set to
 and the optimizer keeps no moments for them. That includes the int8 and
 float32 arrays of a quantized base (QLoRA); full fine-tuning of a
 quantized base raises, since int8 weights take no gradient.
+
+On a mesh (``make_train_step(..., mesh=)``) every rank runs the step on
+its shards (``shard_state``) and its (dp, fsdp) rows and sp columns of
+the global batch (``shard_batch``). The loss is the global token mean:
+the masked sums and the count are all-reduced over the data axes (dp,
+fsdp, sp). Gradients of a leaf replicated over a data axis are then
+all-reduced over it (an fsdp-sharded leaf's came through its gather's
+reduce-scatter), and the clip norm counts each shard once. Pipeline
+stages (pp > 1), the host-offload arm and adafactor's factored moments
+across ranks are not ported to a mesh yet and raise.
 """
 
 from __future__ import annotations
 
+import math
 import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from kubeflow_rm_tpu_torch.models import forward_with_aux, init_params
 from kubeflow_rm_tpu_torch.models.llama import LlamaConfig
 from kubeflow_rm_tpu_torch.models.lora import is_lora_name
 from kubeflow_rm_tpu_torch.ops.losses import softmax_cross_entropy
+from kubeflow_rm_tpu_torch.parallel.collectives import all_reduce
+from kubeflow_rm_tpu_torch.parallel.mesh import axis_group, axis_size
+from kubeflow_rm_tpu_torch.parallel.sharded import DATA_AXES
+from kubeflow_rm_tpu_torch.parallel.sharding import (
+    SPEC_ATTR, batch_pspec, gather_params, gather_tensor, leaf_spec,
+    local_slices, param_shardings, shard_params, shard_tensor,
+)
 from kubeflow_rm_tpu_torch.training.optim import (
     AdamState, FactoredState, OptimConfig, global_norm, leaf_paths,
     make_offload_optimizer, make_optimizer,
@@ -82,14 +100,22 @@ def trainable_paths(cfg: TrainConfig, params: dict) -> list[str]:
 
 def init_train_state(cfg: TrainConfig, generator: torch.Generator | None = None,
                      params: dict | None = None,
-                     device: str | torch.device | None = None) -> TrainState:
+                     device: str | torch.device | None = None, *,
+                     mesh=None) -> TrainState:
     """Fresh state; pass ``params`` to start from existing weights (an
     ``add_lora`` output for adapter training), else they are drawn from
     ``generator`` on ``device``. Under ``offload="optimizer"`` the
     optimizer state is built leaf by leaf in host memory
-    (``OffloadOptimizer.init``); it never touches the card."""
+    (``OffloadOptimizer.init``); it never touches the card.
+
+    ``mesh``: the state is this rank's. Drawn parameters are cut to the
+    rank's slices as they are drawn (``models.init_params(mesh=)``),
+    given ones are sliced (``shard_params``; local ones pass through),
+    and the moments are built on the slices."""
     if params is None:
-        params = init_params(cfg.model, generator, device)
+        params = init_params(cfg.model, generator, device, mesh=mesh)
+    elif mesh is not None:
+        params = shard_params(params, mesh)
     flat = leaf_paths(params)
     train = {p: flat[p] for p in trainable_paths(cfg, params)}
     if cfg.optim.offload == "optimizer":
@@ -99,26 +125,74 @@ def init_train_state(cfg: TrainConfig, generator: torch.Generator | None = None,
     return TrainState(step=0, params=params, opt_state=opt_state)
 
 
-def loss_fn(params: dict, batch: dict, cfg: TrainConfig):
+def loss_fn(params: dict, batch: dict, cfg: TrainConfig, mesh=None):
     """Masked-mean cross-entropy (+ z-loss) of the model on ``batch``:
     "tokens" and "labels", plus "positions" and "segments" for packed
     documents (then ``packed=True``: the ``pack_documents`` layout keeps
-    attention on the flash kernel)."""
+    attention on the flash kernel). On a mesh ``params`` and ``batch``
+    are this rank's shares and the mean is over the global batch."""
     segments = batch.get("segments")
+    kwargs = {} if mesh is None else {"mesh": mesh}
     logits, router_aux = forward_with_aux(
         params, batch["tokens"], cfg.model, positions=batch.get("positions"),
-        segments=segments, packed=segments is not None)
+        segments=segments, packed=segments is not None, **kwargs)
+    total = None
+    if mesh is not None:
+        group = axis_group(mesh, DATA_AXES)
+
+        def total(t):
+            return all_reduce(t, group)
     loss, aux = softmax_cross_entropy(logits, batch["labels"],
-                                      z_loss=cfg.z_loss)
+                                      z_loss=cfg.z_loss, total=total)
     if router_aux is not None:
         aux = dict(aux, router_aux=router_aux)
         loss = loss + cfg.model.moe.router_aux_weight * router_aux
     return loss, aux
 
 
+def shard_batch(batch: dict, mesh) -> dict:
+    """This rank's (dp, fsdp) rows and sp columns (``batch_pspec``) of
+    a global batch of (B, T) arrays (numpy or tensors), every rank
+    holding the same global batch."""
+    spec = batch_pspec()
+    return {k: (shard_tensor(v, spec, mesh) if isinstance(v, torch.Tensor)
+                else v[local_slices(v.shape, spec, mesh)])
+            for k, v in batch.items()}
+
+
+def _state_specs(opt_state, param_specs: dict, shapes: dict):
+    """{slot: {path: spec}} of an optimizer state: a slot tensor shaped
+    like its leaf follows the leaf's spec, any other (adafactor's row
+    and column statistics, placeholders) is replicated."""
+    out = {}
+    for slot in opt_state.__dataclass_fields__:
+        if slot == "count":
+            continue
+        out[slot] = {p: (param_specs[p] if tuple(t.shape) == shapes[p]
+                         else (None,) * t.dim())
+                     for p, t in getattr(opt_state, slot).items()}
+    return out
+
+
+def state_shardings(cfg: TrainConfig, state: TrainState, mesh) -> TrainState:
+    """The spec tree of a global ``TrainState`` on ``mesh``: the params'
+    effective specs (``param_shardings``); moments follow their leaf,
+    adafactor's factored row and column vectors stay replicated, and the
+    scalars (``step``, ``count``) are replicated (``()``)."""
+    if isinstance(state.opt_state, dict):
+        raise NotImplementedError("the host-offload optimizer state is not "
+                                  "ported to a mesh yet")
+    pspecs = param_shardings(state.params, mesh)
+    specs = leaf_paths(pspecs)
+    shapes = {p: tuple(t.shape) for p, t in leaf_paths(state.params).items()}
+    opt = type(state.opt_state)(count=(), **_state_specs(
+        state.opt_state, specs, shapes))
+    return TrainState(step=(), params=pspecs, opt_state=opt)
+
+
 def make_train_step(cfg: TrainConfig, state: TrainState,
                     grad_accum: int = 1,
-                    offload: str | None = None) -> Callable:
+                    offload: str | None = None, *, mesh=None) -> Callable:
     """Return ``step(state, batch) -> (state, metrics)``.
 
     ``batch`` maps names to (B, T) integer tensors on the parameters'
@@ -131,12 +205,24 @@ def make_train_step(cfg: TrainConfig, state: TrainState,
     ``offload="optimizer"`` (default: ``cfg.optim.offload``) returns the
     streamed host-offload arm (``_build_offload_step``); it never falls
     back to the on-card arm.
+
+    ``mesh``: ``state`` is this rank's (``shard_state``) and each batch
+    its share of the global batch (``shard_batch``); the metrics are the
+    global ones, alike on every rank.
     """
     if offload is None:
         offload = cfg.optim.offload
     if offload not in ("none", "optimizer"):
         raise ValueError(f"unknown offload={offload!r} "
                          "(expected 'none' or 'optimizer')")
+    if mesh is not None:
+        if offload == "optimizer":
+            raise NotImplementedError("the host-offload arm is not ported "
+                                      "to a mesh yet")
+        if cfg.optim.factored and mesh.size() > 1:
+            raise NotImplementedError(
+                "adafactor's factored moments reduce over whole leaves: "
+                "not ported to a mesh of more than one rank yet")
     train_paths = trainable_paths(cfg, state.params)
     train_set = set(train_paths)
     for path, leaf in leaf_paths(state.params).items():
@@ -145,10 +231,13 @@ def make_train_step(cfg: TrainConfig, state: TrainState,
     def grads_of(params, batch):
         flat = leaf_paths(params)
         leaves = [flat[p] for p in train_paths]
-        (loss, aux) = loss_fn(params, batch, cfg)
+        (loss, aux) = (loss_fn(params, batch, cfg) if mesh is None
+                       else loss_fn(params, batch, cfg, mesh))
         grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), {k: a.detach() for k, a in aux.items()}, \
-            dict(zip(train_paths, grads))
+        grads = dict(zip(train_paths, grads))
+        if mesh is not None:
+            grads = reduce_grads(grads, flat, mesh)
+        return loss.detach(), {k: a.detach() for k, a in aux.items()}, grads
 
     def compute_grads(params, batch):
         if grad_accum == 1:
@@ -183,13 +272,86 @@ def make_train_step(cfg: TrainConfig, state: TrainState,
     def step(state: TrainState, batch: dict):
         loss, aux, grads = compute_grads(state.params, batch)
         flat = leaf_paths(state.params)
+        gnorm = (global_norm(grads) if mesh is None
+                 else mesh_global_norm(grads, flat, mesh))
         opt.update(grads, state.opt_state,
-                   {p: flat[p] for p in train_paths})
-        metrics = {"loss": loss, "grad_norm": global_norm(grads), **aux}
+                   {p: flat[p] for p in train_paths}, gnorm)
+        metrics = {"loss": loss, "grad_norm": gnorm, **aux}
         state.step += 1
         return state, metrics
 
     return step
+
+
+def reduce_grads(grads: dict, params: dict, mesh) -> dict:
+    """Sum each local gradient over the data axes its leaf is
+    replicated on: every rank's loss covered only its own tokens. (An
+    fsdp-sharded leaf's gradient was reduce-scattered over fsdp by its
+    gather's backward.)"""
+    out = {}
+    for p, g in grads.items():
+        spec = leaf_spec(p, params[p])
+        axes = tuple(a for a in DATA_AXES if a not in spec)
+        # a low-precision gradient sums in float32, rounded once after
+        out[p] = (all_reduce(g.float(), axis_group(mesh, axes)).to(g.dtype)
+                  if axes else g)
+    return out
+
+
+def mesh_global_norm(grads: dict, params: dict, mesh) -> torch.Tensor:
+    """``global_norm`` of the global gradients from every rank's shards:
+    each leaf's sum of squares divided by the number of ranks that hold
+    the same shard, summed over the world, so each shard counts once."""
+    world = mesh.size()
+    total = 0
+    for p, g in grads.items():
+        shards = math.prod(axis_size(mesh, a)
+                           for a in leaf_spec(p, params[p]) if a is not None)
+        total = total + (g * g).sum() / (world // shards)
+    return torch.sqrt(all_reduce(total, dist.group.WORLD))
+
+
+def shard_state(state: TrainState, mesh) -> TrainState:
+    """A global ``TrainState`` -> this rank's: the parameters by
+    ``shard_params``, each moment by its leaf's spec, adafactor's
+    statistics whole (``state_shardings``). A state whose parameters are
+    already this rank's (they carry their spec) is returned as is."""
+    if all(hasattr(t, SPEC_ATTR) for t in leaf_paths(state.params).values()):
+        return state
+    specs = state_shardings(None, state, mesh).opt_state
+    opt = state.opt_state
+    slots = {slot: {p: shard_tensor(t, getattr(specs, slot)[p], mesh)
+                    for p, t in getattr(opt, slot).items()}
+             for slot in opt.__dataclass_fields__ if slot != "count"}
+    return TrainState(step=state.step,
+                      params=shard_params(state.params, mesh),
+                      opt_state=type(opt)(count=opt.count, **slots))
+
+
+def gather_state(state: TrainState, mesh):
+    """This rank's ``TrainState`` -> the global one in host memory on
+    rank 0 (None on the others); every rank calls."""
+    opt = state.opt_state
+    if isinstance(opt, dict):
+        raise NotImplementedError("the host-offload optimizer state is not "
+                                  "ported to a mesh yet")
+    flat = leaf_paths(state.params)
+    params = gather_params(state.params, mesh)
+    lead = dist.get_rank() == 0
+    slots = {}
+    for slot in opt.__dataclass_fields__:
+        if slot == "count":
+            continue
+        slots[slot] = {}
+        for p, t in getattr(opt, slot).items():
+            spec = (leaf_spec(p, flat[p]) if t.shape == flat[p].shape
+                    else (None,) * t.dim())
+            full = gather_tensor(t, spec, mesh)
+            slots[slot][p] = full.cpu() if lead else None
+    if not lead:
+        return None
+    return TrainState(step=state.step, params=params,
+                      opt_state=type(opt)(count=opt.count, **slots))
 
 
 #: transfer chunks dispatched beyond the one being consumed: chunk k's

@@ -732,8 +732,8 @@ def test_finetune_entry_point_runs_on_cpu():
 def test_checkpointer_takes_jax_call_shapes(tmp_path):
     """``save(state, *, force=False)`` takes a TrainState or any dict
     with a "step" entry; ``restore(cfg=None, mesh=None, step=None)``
-    gives the tree back as saved, or a TrainState with a cfg; a mesh is
-    refused (one card)."""
+    gives the tree back as saved, or a TrainState with a cfg; with a mesh
+    only a TrainState restores (its shards: ``test_torch_mesh_train``)."""
     ck = Checkpointer(tmp_path)
     tree = {"step": 4, "notebook": {"x": torch.arange(3.0)}, "phase": "up"}
     assert ck.save(tree)
@@ -754,8 +754,8 @@ def test_checkpointer_takes_jax_call_shapes(tmp_path):
     got = ck.restore(tcfg, None, 5, device="cpu")
     assert isinstance(got, ttrain.TrainState) and got.step == 5
     assert isinstance(ck.restore(step=4, device="cpu"), dict)
-    with pytest.raises(ValueError, match="mesh"):
-        ck.restore(tcfg, object(), device="cpu")
+    with pytest.raises(ValueError, match="sharded restore needs one"):
+        ck.restore(tcfg, object(), 4, device="cpu")
     with pytest.raises(TypeError, match="step"):
         ck.save({"no_step": 1})
 
