@@ -89,12 +89,22 @@ prints one JSON line per phase:
    with one ``flash_fwd`` a call and one of each backward kernel; ring
    and zigzag at sp=1 in float32 within ``RING_ATOL`` of dense; and what
    a one-rank NCCL collective (which the port skips) would cost.
-15. mesh_multi — only on a machine with two or more cards:
+15. offload_mesh1 — the host-offload arm on a one-rank NCCL mesh
+   (adafactor, 7B width, 2 layers, the offload phase's seed and batch):
+   step-1 loss bit-equal to that phase's non-mesh streamed arm, the
+   kernels as counted; ``pipeline_forward`` at pp=1 bit-equal to
+   ``forward``.
+16. mesh_multi — only on a machine with two or more cards:
    ``min(count, 4)`` NCCL ranks, one per card: a 7B-width 4-layer LoRA
    step at fsdp=2 (fsdp=2 × tp=2 at world 4) against the one-rank loss,
    Ulysses and ring at sp=world against the one-card flash op, and the
-   step's collective times. A one-card machine prints ``{"phase":
-   "mesh_multi", "skipped": "1 card"}``.
+   step's collective times; the GPipe schedule at pp=2 (pp=2 × fsdp=2
+   at world 4) on the same LoRA recipe with a batch of 8 × 2048 in 4
+   microbatches against one rank (losses, grad norms, launches, step
+   time, the measured bubble beside GPipe's 0.2); adafactor full
+   fine-tuning at fsdp=2 × tp=2 against one rank; and the host-offload
+   arm on that mesh against the on-card arm. A one-card machine prints
+   ``{"phase": "mesh_multi", "skipped": "1 card"}``.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
 line, and last ``{"ok": true, "device": {...}}``. A failed check ends
@@ -162,6 +172,9 @@ RING_ATOL = 1e-5
 # is near 0 (0.13-0.36 measured on four H100s, a few % of the elements
 # flipped), while an unrelated update differs by sqrt(2).
 MESH_STEPS = 3
+# mesh_multi's GPipe: microbatches of the 8-row batch (one row each on
+# pp=2 × fsdp=2); GPipe's bubble is then (pp-1)/(M+pp-1) = 0.2
+PIPE_MICROBATCHES = 4
 MESH_LOSS_RTOL = 1.5e-4
 MESH_GNORM_RTOL = 1e-2
 MESH_GRAD_RTOL = 5e-2
@@ -176,6 +189,17 @@ MESH_UPDATE_RTOL = 0.7
 # then rounds w + u once more: 2k + 1 steps with k ≤ 3
 OFFLOAD_LR = 1e-2
 OFFLOAD_MAX_STEPS = 7.0
+# mesh_multi's adafactor (full fine-tuning at OFFLOAD_LR): its first
+# step drops the loss 80-fold (11.2 to ~0.14 on four H100s), so the
+# later steps' losses are held to MESH_LOSS_RTOL of the step-1 loss (the
+# problem's scale), not of themselves: weights one bf16 step apart here
+# and there move a loss near 0 by ~3e-4 (measured between the on-card
+# and offload arms on one mesh too). Its step-1 weights are reported in
+# bf16 steps (``bf16_steps``) but not gated: the ranks' gradients differ
+# from one card's in their last bits, so where a gradient is ~0 its sign
+# (and a factored update's) may flip, which on a weight near 0 reads as
+# ~2^9 steps; OFFLOAD_MAX_STEPS bounds only a reordered update of equal
+# gradients
 
 
 def emit(phase: str, **kw) -> None:
@@ -1895,11 +1919,256 @@ def _mesh_multi_rank(rank: int, world: int, init: str, result: str,
             full = all_gather(o.contiguous(), sp, 1)
             errs[name] = (full.float() - ref_o.float()).abs().max().item()
         out["sp_max_abs_err"] = errs
+        del q, k, v, ref_o
+        if cuda:
+            torch.cuda.empty_cache()
+
+        out["pipeline"] = _multi_pipeline(world, dev, cfg, T)
+        if cuda:
+            torch.cuda.empty_cache()
+        out["adafactor"], out["offload"] = _multi_optimizers(world, dev,
+                                                             cfg, T)
     finally:
         dist.destroy_process_group()
     if rank == 0:
         with open(result, "w") as f:
             json.dump(out, f)
+
+
+def _mesh_steps(tcfg, params, batch, mesh, steps: int,
+                n_microbatches=None, snapshot: dict | None = None):
+    """``steps`` steps of ``make_train_step`` on ``mesh`` (None: one
+    rank) from ``params`` and ``batch`` (this rank's share on a mesh):
+    the state, the step, each step's loss, grad norm, wall ms and the
+    offload metrics, and the card's peak GB over the steps. ``snapshot``
+    (a dict) receives the whole weights after step 1."""
+    import torch
+
+    from kubeflow_rm_tpu_torch.training.train import (
+        init_train_state, make_train_step,
+    )
+
+    state = init_train_state(tcfg, params=params, mesh=mesh)
+    step = make_train_step(tcfg, state, mesh=mesh,
+                           n_microbatches=n_microbatches)
+    cuda = batch["tokens"].device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    rec = {"losses": [], "grad_norms": [], "step_ms": [], "offload": []}
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        rec["losses"].append(float(m["loss"]))
+        if cuda:
+            torch.cuda.synchronize()
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["grad_norms"].append(float(m["grad_norm"]))
+        rec["offload"].append({k: float(v) for k, v in m.items()
+                               if k.startswith("offload_")})
+        if i == 0 and snapshot is not None:
+            snapshot.update(_whole(state.params, mesh))
+    rec["peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9 if cuda
+                      else None)
+    return state, step, rec
+
+
+def _whole(params, mesh) -> dict:
+    """``{path: whole leaf}`` of a rank's tree (gathered on a mesh;
+    copies)."""
+    from kubeflow_rm_tpu_torch.parallel.sharding import (
+        gather_tensor, leaf_spec,
+    )
+    from kubeflow_rm_tpu_torch.training.optim import leaf_paths
+
+    return {p: (t.detach().clone() if mesh is None
+                else gather_tensor(t, leaf_spec(p, t), mesh))
+            for p, t in leaf_paths(params).items()}
+
+
+def _pipeline_bubble(params, tokens, cfg, mesh, M: int) -> dict:
+    """One no-grad ``pipeline_forward`` with each block's device time
+    taken by CUDA events (the CPU: host clock): the share of the
+    forward's wall that is not this stage's own microbatches (ticks t
+    with 0 <= t - stage < M), beside GPipe's (pp-1)/(M+pp-1). Bubble
+    ticks compute on a clamped microbatch, so the share counts them with
+    the waits."""
+    import torch
+
+    from kubeflow_rm_tpu_torch.models import llama
+    from kubeflow_rm_tpu_torch.parallel.mesh import axis_index, axis_size
+    from kubeflow_rm_tpu_torch.parallel.pipeline import pipeline_forward
+
+    pp, stage = axis_size(mesh, "pp"), axis_index(mesh, "pp")
+    cuda = tokens.device.type == "cuda"
+    real, spans = llama._block, []
+
+    def timed(*a, **kw):
+        if not cuda:
+            t0 = time.perf_counter()
+            out = real(*a, **kw)
+            spans.append((time.perf_counter() - t0) * 1e3)
+            return out
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = real(*a, **kw)
+        ev[1].record()
+        spans.append(ev)
+        return out
+
+    llama._block = timed
+    try:
+        with torch.no_grad():
+            pipeline_forward(params, tokens, cfg, mesh, n_microbatches=M)
+            if cuda:
+                torch.cuda.synchronize()
+            spans.clear()
+            t0 = time.perf_counter()
+            pipeline_forward(params, tokens, cfg, mesh, n_microbatches=M)
+            if cuda:
+                torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        llama._block = real
+    ms = [e[0].elapsed_time(e[1]) if cuda else e for e in spans]
+    per = len(ms) // (M + pp - 1)
+    ticks = [sum(ms[t * per:(t + 1) * per]) for t in range(M + pp - 1)]
+    own = sum(x for t, x in enumerate(ticks) if 0 <= t - stage < M)
+    return {"stage": stage, "forward_ms": wall, "tick_ms": ticks,
+            "measured": 1 - own / wall, "gpipe": (pp - 1) / (M + pp - 1)}
+
+
+def _multi_pipeline(world: int, dev, cfg, T: int) -> dict:
+    """GPipe on the cards: pp=2 (pp=2 × fsdp=2 at world 4), the 4-layer
+    7B-width rank-16 LoRA recipe (2 layers a stage), a global batch of 8
+    × T, ``PIPE_MICROBATCHES`` microbatches, ``MESH_STEPS`` steps
+    against the same steps on one rank; the ranks' own draws against the
+    one-rank draw's slices; the flash launches; the bubble."""
+    import torch
+    import torch.distributed as dist
+
+    from kubeflow_rm_tpu_torch.models import init_params
+    from kubeflow_rm_tpu_torch.models.lora import add_lora
+    from kubeflow_rm_tpu_torch.parallel.mesh import (
+        MeshConfig, make_mesh, mesh_shape,
+    )
+    from kubeflow_rm_tpu_torch.parallel.sharding import shard_params
+    from kubeflow_rm_tpu_torch.training.data import to_device
+    from kubeflow_rm_tpu_torch.training.optim import OptimConfig, leaf_paths
+    from kubeflow_rm_tpu_torch.training.train import (
+        TrainConfig, shard_batch,
+    )
+
+    cuda = dev.type == "cuda"
+    mesh = make_mesh(MeshConfig(pp=2, fsdp=world // 2), dev)
+    M = PIPE_MICROBATCHES
+
+    def draw(m):
+        p = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                        dev, mesh=m)
+        return add_lora(p, 16, generator=torch.Generator(device=dev)
+                        .manual_seed(2), targets=("wq", "wv"), mesh=m)
+
+    local, whole = draw(mesh), draw(None)
+    want = leaf_paths(shard_params(whole, mesh))
+    out = {"mesh": mesh_shape(mesh), "microbatches": M,
+           "sharded_init_equal": all(
+               torch.equal(t, want[p]) for p, t in leaf_paths(local).items()),
+           "local_wq": list(local["blocks"]["wq"].shape)}
+    del want
+    tcfg = TrainConfig(model=cfg, optim=OptimConfig(
+        train_only="lora", learning_rate=TRAIN_LR, warmup_steps=1))
+    batch = to_device(packed_rows(8, T, cfg.vocab_size, seed=3), dev)
+    local_batch = shard_batch(batch, mesh)
+    reset_launches()
+    state, step, rec = _mesh_steps(tcfg, local, local_batch, mesh,
+                                   MESH_STEPS, M)
+    out["launches"] = read_launches()
+    out.update(rec)
+    del state, step
+    if cuda:
+        torch.cuda.empty_cache()
+    bubbles = [None] * world
+    dist.all_gather_object(bubbles, _pipeline_bubble(
+        local, local_batch["tokens"], cfg, mesh, M))
+    out["bubble"] = bubbles
+    del local
+    _, _, ref = _mesh_steps(tcfg, whole, batch, None, MESH_STEPS)
+    out["one_rank"] = ref
+    return out
+
+
+def _multi_optimizers(world: int, dev, cfg, T: int):
+    """Full fine-tuning with adafactor at fsdp=2 × tp=2 (fsdp=2 at world
+    2) of the 4-layer 7B-width model against one rank, ``MESH_STEPS``
+    steps of B=2 × T at ``OFFLOAD_LR``; then the host-offload arm on the
+    same mesh against the on-card arm, 2 steps each."""
+    import torch
+
+    from kubeflow_rm_tpu_torch.models import init_params
+    from kubeflow_rm_tpu_torch.parallel.mesh import (
+        MeshConfig, make_mesh, mesh_shape,
+    )
+    from kubeflow_rm_tpu_torch.training.data import to_device
+    from kubeflow_rm_tpu_torch.training.optim import OptimConfig
+    from kubeflow_rm_tpu_torch.training.train import (
+        TrainConfig, shard_batch,
+    )
+
+    cuda = dev.type == "cuda"
+    mesh = make_mesh(MeshConfig(fsdp=2, tp=2) if world == 4
+                     else MeshConfig(fsdp=world), dev)
+    batch = to_device(packed_rows(2, T, cfg.vocab_size, seed=5), dev)
+    local_batch = shard_batch(batch, mesh)
+
+    def tcfg(offload):
+        return TrainConfig(model=cfg, optim=OptimConfig(
+            factored=True, offload=offload, learning_rate=OFFLOAD_LR,
+            warmup_steps=0, total_steps=100))
+
+    def draw(m):
+        return init_params(cfg, torch.Generator(device=dev).manual_seed(4),
+                           dev, mesh=m)
+
+    def free():
+        if cuda:
+            torch.cuda.empty_cache()
+
+    w_mesh, w_one = {}, {}
+    _, _, ada = _mesh_steps(tcfg("none"), draw(mesh), local_batch, mesh,
+                            MESH_STEPS, snapshot=w_mesh)
+    free()
+    _, _, ada_one = _mesh_steps(tcfg("none"), draw(None), batch, None,
+                                MESH_STEPS, snapshot=w_one)
+    free()
+    # step-1 weights against one rank's, in bf16 steps (``bf16_steps``)
+    worst, differ, total = 0.0, 0, 0
+    for p, w0 in _whole(draw(None), None).items():
+        worst = max(worst, float(bf16_steps(w_mesh[p], w_one[p], w0).max()))
+        differ += int((w_mesh[p] != w_one[p]).sum())
+        total += w0.numel()
+    del w_mesh, w_one
+    free()
+    ada.update(mesh=mesh_shape(mesh), one_rank=ada_one,
+               step1_max_bf16_steps=worst,
+               step1_differing_fraction=differ / total)
+    arms = {}
+    for arm in ("none", "optimizer"):
+        reset_launches()
+        state, _, arms[arm] = _mesh_steps(tcfg(arm), draw(mesh), local_batch,
+                                          mesh, 2)
+        arms[arm]["launches"] = read_launches()
+        if arm == "optimizer":
+            tensors = [t for s in state.opt_state.values()
+                       for f in s.__dataclass_fields__ if f != "count"
+                       for t in getattr(s, f).values()]
+            arms[arm]["host_state_pinned"] = all(
+                t.device.type == "cpu" and (t.is_pinned() or not cuda)
+                for t in tensors)
+        del state
+        free()
+    return ada, {"mesh": mesh_shape(mesh), "on_card": arms["none"],
+                 "streamed": arms["optimizer"]}
 
 
 def phase_mesh_multi(backend: str = "nccl", preset: str = "llama2_7b",
@@ -1911,7 +2180,9 @@ def phase_mesh_multi(backend: str = "nccl", preset: str = "llama2_7b",
     fsdp=2 (fsdp=2 × tp=2 at world 4) against the same steps on one
     rank: every step's loss and grad norm, and the adapters' update;
     Ulysses and ring at sp=world against the one-card attention; the
-    step's collective times."""
+    step's collective times; then the GPipe schedule
+    (``_multi_pipeline``), adafactor and the host-offload arm
+    (``_multi_optimizers``), each against one rank or the on-card arm."""
     import tempfile
 
     import torch
@@ -1949,6 +2220,45 @@ def phase_mesh_multi(backend: str = "nccl", preset: str = "llama2_7b",
     errs = out["sp_max_abs_err"]
     check(errs["ulysses"] == 0.0, f"ulysses at sp={world}: {errs}")
     check(errs["ring"] <= O_TOL["atol"] * 2, f"ring at sp={world}: {errs}")
+    pipe, ada, off = out["pipeline"], out["adafactor"], out["offload"]
+    check(pipe["sharded_init_equal"],
+          "mesh_multi pipeline: the stages' own draws differ from the "
+          "one-rank draw's slices")
+    for name, got, ref in (("pipeline", pipe, pipe["one_rank"]),
+                           ("adafactor", ada, ada["one_rank"])):
+        for i in range(MESH_STEPS):
+            for what, tol in (("losses", MESH_LOSS_RTOL),
+                              ("grad_norms", MESH_GNORM_RTOL)):
+                a, b = got[what][i], ref[what][i]
+                # adafactor's later losses: against the step-1 loss's
+                # scale (see the note under OFFLOAD_MAX_STEPS)
+                scale = (ref[what][0] if name == "adafactor"
+                         and what == "losses" else b)
+                check(abs(a - b) <= tol * abs(scale),
+                      f"mesh_multi {name} step {i + 1} {what}: {a} vs one "
+                      f"rank {b} (rtol {tol} of {scale})")
+    if backend == "nccl":
+        ticks = PIPE_MICROBATCHES + 1            # M + pp - 1
+        per_step = {"flash_fwd": 2 * 2 * ticks, "flash_bwd_dq": 2 * ticks,
+                    "flash_bwd_dkv": 2 * ticks}  # 2 layers a stage
+        want = {k: v * MESH_STEPS for k, v in per_step.items()}
+        check(pipe["launches"] == want,
+              f"mesh_multi pipeline launches {pipe['launches']}, expected "
+              f"{want}")
+    on, st = off["on_card"], off["streamed"]
+    check(st["losses"][0] == on["losses"][0]
+          and st["grad_norms"][0] == on["grad_norms"][0],
+          f"mesh_multi offload step 1: {st['losses'][0]} / "
+          f"{st['grad_norms'][0]} vs on-card {on['losses'][0]} / "
+          f"{on['grad_norms'][0]}")
+    check(abs(st["losses"][1] - on["losses"][1])
+          <= MESH_LOSS_RTOL * abs(on["losses"][0]),
+          f"mesh_multi offload step 2 loss {st['losses'][1]} vs on-card "
+          f"{on['losses'][1]} (rtol {MESH_LOSS_RTOL} of the step-1 loss)")
+    check(st["host_state_pinned"], "mesh_multi offload state not pinned")
+    check(st["launches"] == on["launches"],
+          f"mesh_multi offload launches {st['launches']} vs on-card "
+          f"{on['launches']}")
     return out
 
 
@@ -2331,7 +2641,8 @@ def phase_offload(card):
     host memory (``offload="optimizer"``, chunks of 4 layers): 2 steps of
     the streamed arm against 2 of the on-card arm from the same weights
     and batch; then both scalers at 7B width and 2 layers. Returns the
-    streamed arm's launches."""
+    streamed arm's launches and the 2-layer adafactor arms
+    (``phase_offload_mesh1`` holds the mesh's arm to them)."""
     import gc
 
     import numpy as np
@@ -2478,7 +2789,75 @@ def phase_offload(card):
           f"offload launches {stream['launches']} / on-card "
           f"{full['none']['launches']}, expected per step flash_fwd {2 * L} "
           f"and {L} of each backward kernel")
-    return stream["launches"]
+    return stream["launches"], small["adafactor"]
+
+
+def phase_offload_mesh1(card, two_layer):
+    """The host-offload arm on the one-rank NCCL mesh: adafactor at 7B
+    width and 2 layers from the offload phase's seed and batch, 2 steps
+    of ``make_train_step(..., mesh=)`` against that phase's non-mesh
+    streamed arm (``two_layer``: step-1 losses bit-equal, the same
+    gradient phase); then ``pipeline_forward`` at pp=1 against
+    ``forward`` on the trained weights (bit-equal: the schedule falls
+    back to the family's forward). Returns the launches."""
+    import torch
+    import torch.distributed as dist
+
+    from kubeflow_rm_tpu_torch.models.llama import (
+        LlamaConfig, forward, init_params,
+    )
+    from kubeflow_rm_tpu_torch.parallel.mesh import (
+        MeshConfig, make_mesh, mesh_shape,
+    )
+    from kubeflow_rm_tpu_torch.parallel.pipeline import pipeline_forward
+    from kubeflow_rm_tpu_torch.training.data import to_device
+    from kubeflow_rm_tpu_torch.training.optim import OptimConfig
+    from kubeflow_rm_tpu_torch.training.train import (
+        TrainConfig, shard_batch,
+    )
+
+    check(two_layer is not None, "the offload phase gave no 2-layer arm")
+    cfg = replace(LlamaConfig.llama2_7b(param_dtype=torch.bfloat16),
+                  n_layers=2)
+    tcfg = TrainConfig(model=cfg, optim=OptimConfig(
+        factored=True, offload="optimizer", offload_chunk_layers=4,
+        learning_rate=OFFLOAD_LR, warmup_steps=0, total_steps=100))
+    batch = to_device(packed_rows(1, 2048, 32000, seed=13), "cuda")
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(MeshConfig(dp=1, fsdp=1, tp=1))
+        params = init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(15), "cuda")
+        reset_launches()
+        state, _, rec = _mesh_steps(tcfg, params, shard_batch(batch, mesh),
+                                    mesh, 2)
+        launches = read_launches()
+        with torch.no_grad():
+            piped = pipeline_forward(state.params, batch["tokens"], cfg,
+                                     mesh)
+            plain = forward(state.params, batch["tokens"], cfg)
+        pp1_equal = bool(torch.equal(piped, plain))
+        out = {"mesh": mesh_shape(mesh)}
+    finally:
+        dist.destroy_process_group()
+    ref = two_layer["optimizer"]
+    emit("offload_mesh1", card=card, preset="llama2_7b", layers=2,
+         optimizer="adafactor", offload="optimizer", **out,
+         streamed=rec, non_mesh_streamed={k: ref[k] for k in (
+             "losses", "step_ms", "metrics")},
+         launches=launches, pipeline_pp1_bit_equal=pp1_equal)
+    check(rec["losses"][0] == ref["losses"][0],
+          f"offload on the one-rank mesh: step-1 loss {rec['losses'][0]!r}"
+          f" != the non-mesh arm's {ref['losses'][0]!r}")
+    check(all(0.0 <= m["offload_overlap_frac"] <= 1.0
+              for m in rec["offload"]), "offload_mesh1 overlap fraction")
+    check(launches == {"flash_fwd": 8, "flash_bwd_dq": 4,
+                       "flash_bwd_dkv": 4},
+          f"offload_mesh1 launches {launches}, expected per step "
+          "flash_fwd 4 and 2 of each backward kernel")
+    check(pp1_equal, "pipeline_forward at pp=1 differs from forward")
+    return launches
 
 
 def main() -> int:
@@ -2534,9 +2913,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["moe_int8"] = run("moe_int8", phase_moe_int8, smi)
     torch.cuda.empty_cache()
-    paths["offload"] = run("offload", phase_offload, smi)
+    paths["offload"], two_layer = (run("offload", phase_offload, smi)
+                                   or (None, None))
     torch.cuda.empty_cache()
-    run("mesh_multi", phase_mesh_multi)
+    paths["offload_mesh1"] = run("offload_mesh1", phase_offload_mesh1, smi,
+                                 two_layer)
+    torch.cuda.empty_cache()
+    multi = run("mesh_multi", phase_mesh_multi)
+    if multi is not None:
+        paths["mesh_multi_pipeline"] = multi["pipeline"]["launches"]
     if failures:
         print("chip_smoke: FAILED\n  " + "\n  ".join(failures),
               file=sys.stderr)

@@ -48,7 +48,9 @@ def init_params(cfg: LlamaConfig, generator, device=None, *, mesh=None,
     ``mesh`` every rank draws the same values and keeps only its slices
     of each draw (``sharding.Sharder``): the result is
     ``shard_params(init_params(...), mesh)``, but no rank ever holds the
-    global tree, only its shards and one layer of one leaf whole."""
+    global tree, only its shards and one layer of one leaf whole (on a
+    pp mesh the other stages' layers are drawn, so that every rank's
+    generator stays in step, and dropped at once)."""
     family = _mixtral if isinstance(cfg, MixtralConfig) else _llama
     if mesh is None:
         return family.init_params(cfg, generator, device,
@@ -61,7 +63,8 @@ def init_params(cfg: LlamaConfig, generator, device=None, *, mesh=None,
         return sharder(path, t if transform is None else transform(path, t))
 
     return sharder.mark(family.init_params(cfg, generator, device,
-                                           transform=cut))
+                                           transform=cut,
+                                           layers=sharder.layers))
 
 
 def forward_with_aux(params, tokens, cfg: LlamaConfig, **kwargs):

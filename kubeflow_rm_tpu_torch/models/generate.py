@@ -41,7 +41,8 @@ from dataclasses import dataclass
 import torch
 
 from kubeflow_rm_tpu_torch.models.llama import (
-    LlamaConfig, _mlp, _projector, embed, layer_params, logits_head,
+    LlamaConfig, _epilogue, _mlp, _projector, embed, layer_params,
+    stacked_layers,
 )
 from kubeflow_rm_tpu_torch.models.mixtral import MixtralConfig
 from kubeflow_rm_tpu_torch.models.params import check_params
@@ -70,13 +71,21 @@ class KVCache:
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
                device: str | torch.device | None = None, *,
-               kv_heads: int | None = None) -> KVCache:
-    """An empty cache; ``kv_heads`` (default ``cfg.n_kv_heads``) is a
-    tp rank's share on a mesh."""
+               mesh=None) -> KVCache:
+    """An empty cache. ``mesh``: a rank's cache of ``batch`` rows
+    (``cache_shardings``), its K/V heads those of
+    ``MeshView.local_heads`` (repeated up to a multiple of tp where tp
+    does not divide them) and its layers those of its pp stage."""
     from kubeflow_rm_tpu_torch.device import default_device
 
     device = default_device(device)
-    L, KVH, hd = cfg.n_layers, kv_heads or cfg.n_kv_heads, cfg.head_dim
+    L, KVH, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    if mesh is not None:
+        from kubeflow_rm_tpu_torch.parallel.mesh import axis_size
+        from kubeflow_rm_tpu_torch.parallel.sharded import kv_heads_local
+
+        L //= axis_size(mesh, "pp")
+        KVH = kv_heads_local(cfg, axis_size(mesh, "tp"))
     shape = (L, batch, max_len, KVH, hd)
     return KVCache(
         k=torch.zeros(shape, dtype=cfg.dtype, device=device),
@@ -90,6 +99,7 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
 def decode_chunk(params: dict, cfg: LlamaConfig, cache: KVCache,
                  tokens: torch.Tensor,
                  pad_counts: torch.Tensor | None = None, *, view=None,
+                 local_vocab: bool = False,
                  ) -> tuple[torch.Tensor, KVCache]:
     """Run ``tokens`` (B, Tc) through the model at the cache offset.
 
@@ -97,7 +107,8 @@ def decode_chunk(params: dict, cfg: LlamaConfig, cache: KVCache,
     (logits (B, Tc, V) float32, cache advanced by Tc); ``cache``'s
     tensors are written in place. Raises if the chunk does not fit.
     ``view`` (a ``parallel.sharded.MeshView``): ``params``, ``cache``
-    and the rows are this rank's (``make_decode_step``).
+    and the rows are this rank's (``make_decode_step``), and with
+    ``local_vocab`` the logits its tp share of the vocabulary.
     """
     B, Tc = tokens.shape
     off = cache.offset
@@ -117,13 +128,13 @@ def decode_chunk(params: dict, cfg: LlamaConfig, cache: KVCache,
         return cache.k[i], cache.v[i]
 
     logits = _run_blocks(params, cfg, tokens, positions, cache.positions,
-                         write_kv, view)
+                         write_kv, view, local_vocab)
     return logits, KVCache(k=cache.k, v=cache.v, positions=cache.positions,
                            offset=off + Tc)
 
 
 def _run_blocks(params, cfg, tokens, positions, kv_positions, write_kv,
-                view=None):
+                view=None, local_vocab: bool = False):
     """Transformer trunk against the KV cache: embed, per layer
     attention over the whole cache (dense, position-masked) + FFN,
     final norm, lm head. ``write_kv(i, k, v)`` lands this chunk's K/V in
@@ -133,7 +144,9 @@ def _run_blocks(params, cfg, tokens, positions, kv_positions, write_kv,
     training quantity). MoE capacity is per call (N = B·Tc tokens), so a
     decode step can drop a token that a full forward keeps, as in JAX.
     On a mesh (``view``) the heads are this rank's and the projections,
-    the FFN, the embedding and the head are ``view``'s."""
+    the FFN, the embedding and the head are ``view``'s; on a pp mesh
+    each stage runs its layers in turn (the others wait) and hands the
+    activation on (``MeshView.stage_handoff``)."""
     B, Tc = tokens.shape
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     if view is not None:
@@ -156,20 +169,31 @@ def _run_blocks(params, cfg, tokens, positions, kv_positions, write_kv,
         def ffn(layer, h):
             return _mlp(cfg, layer, h, view)
     blocks = params["blocks"]
-    for i in range(cfg.n_layers):
-        layer = layer_params(blocks, i)
-        proj = _projector(cfg, layer, view)
-        h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-        q = apply_rope(proj("wq", h).reshape(B, Tc, H, hd), cos, sin)
-        k = apply_rope(proj("wk", h).reshape(B, Tc, KVH, hd), cos, sin)
-        v = proj("wv", h).reshape(B, Tc, KVH, hd)
-        ck, cv = write_kv(i, k, v)
-        attn = dot_product_attention(
-            q, ck, cv, causal=True,
-            positions_q=positions, positions_kv=kv_positions)
-        x = x + proj("wo", attn.reshape(B, Tc, H * hd))
-        x = x + ffn(layer, rms_norm(x, layer["mlp_norm"], cfg.norm_eps))
-    return logits_head(params, x, cfg, view)
+
+    def stage(x):
+        for i in range(stacked_layers(blocks)):
+            layer = layer_params(blocks, i)
+            proj = _projector(cfg, layer, view)
+            h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+            q = apply_rope(proj("wq", h).reshape(B, Tc, H, hd), cos, sin)
+            k = apply_rope(proj("wk", h).reshape(B, Tc, KVH, hd), cos, sin)
+            v = proj("wv", h).reshape(B, Tc, KVH, hd)
+            ck, cv = write_kv(i, k, v)
+            attn = dot_product_attention(
+                q, ck, cv, causal=True,
+                positions_q=positions, positions_kv=kv_positions)
+            x = x + proj("wo", attn.reshape(B, Tc, H * hd))
+            x = x + ffn(layer, rms_norm(x, layer["mlp_norm"], cfg.norm_eps))
+        return x
+
+    if view is None or view.pp == 1:
+        x = stage(x)
+    else:
+        for s in range(view.pp):
+            if s == view.stage:
+                x = stage(x)
+            x = view.stage_handoff(x, s)
+    return _epilogue(params, x, cfg, view, local_vocab=local_vocab)
 
 
 def _pick(last: torch.Tensor, generator: torch.Generator | None, *,
@@ -210,24 +234,30 @@ def _decode_loop(params, cfg, prompt, generator, *, max_new_tokens,
     cache are this rank's."""
     B, Tp = prompt.shape
     cache = init_cache(cfg, B, total_len, prompt.device,
-                       kv_heads=None if view is None
-                       else view.local_heads(cfg)[1])
+                       mesh=None if view is None else view.mesh)
+    local = view is not None
     logits, cache = decode_chunk(params, cfg, cache, prompt, pad_counts,
-                                 view=view)
+                                 view=view, local_vocab=local)
     last = logits[:, -1, :]
     out = torch.empty((B, Tp + max_new_tokens), dtype=torch.int32,
                       device=prompt.device)
     out[:, :Tp] = prompt
     done = torch.zeros((B,), dtype=torch.bool, device=prompt.device)
     for i in range(max_new_tokens):
-        nxt = _pick(last, generator, temperature=temperature, top_k=top_k)
+        if view is None:
+            nxt = _pick(last, generator, temperature=temperature,
+                        top_k=top_k)
+        else:
+            nxt = view.pick(last, generator, temperature=temperature,
+                            top_k=top_k, sampler=_pick)
         if eos_id is not None:
             nxt = torch.where(done, eos_id, nxt)
             done = done | (nxt == eos_id)
         out[:, Tp + i] = nxt
         if i + 1 < max_new_tokens:
             logits, cache = decode_chunk(params, cfg, cache, nxt[:, None],
-                                         pad_counts, view=view)
+                                         pad_counts, view=view,
+                                         local_vocab=local)
             last = logits[:, -1, :]
     return out
 
@@ -290,10 +320,13 @@ _ROW_AXES = ("dp", "fsdp")
 
 
 def cache_shardings(cfg: LlamaConfig, mesh) -> KVCache:
-    """The spec tree of a ``KVCache`` on ``mesh``: batch over (dp, fsdp),
-    KV heads over tp — the decode-time analogue of
-    ``parallel.sharding`` (weights keep their training specs)."""
-    kv = (None, _ROW_AXES, None, "tp", None)
+    """The spec tree of a ``KVCache`` on ``mesh``: layers over pp (each
+    stage caches its own), batch over (dp, fsdp), KV heads over tp — the
+    decode-time analogue of ``parallel.sharding`` (weights keep their
+    training specs). Where tp does not divide the KV heads the global
+    head axis is the repeated one, ``KVH·kv_rep``
+    (``init_cache(..., mesh=)``)."""
+    kv = ("pp", _ROW_AXES, None, "tp", None)
     return KVCache(k=kv, v=kv, positions=(_ROW_AXES, None), offset=())
 
 
@@ -310,16 +343,18 @@ def _decode_view(mesh, cfg, params):
 def make_decode_step(example_params: dict, cfg: LlamaConfig, mesh):
     """``step(params, cache, tokens, pad_counts=None) -> (logits,
     cache)`` on ``mesh``: ``decode_chunk`` on this rank's shards
-    (``shard_params``), its cache (``cache_shardings``: its (dp, fsdp)
-    rows and tp heads, ``init_cache(..., kv_heads=)``) and its rows of
-    ``tokens``; the logits are its rows over the whole vocabulary.
-    ``example_params`` is only inspected for its specs."""
+    (``shard_params``), its cache (``cache_shardings``: its stage's
+    layers, (dp, fsdp) rows and tp heads, ``init_cache(..., mesh=)``)
+    and its rows of ``tokens``; the logits are its rows and its tp share
+    of the vocabulary, (rows, Tc, V/tp), as JAX's come back
+    vocabulary-sharded. ``example_params`` is only inspected for its
+    specs."""
     view = _decode_view(mesh, cfg, example_params)
 
     def step(params, cache, tokens, pad_counts=None):
         with torch.inference_mode():
             return decode_chunk(params, cfg, cache, tokens, pad_counts,
-                                view=view)
+                                view=view, local_vocab=True)
 
     return step
 
@@ -335,9 +370,11 @@ def make_generate_step(example_params: dict, cfg: LlamaConfig, mesh, *,
     global ``prompt`` (B, T) and ``pad_counts``; each decodes its
     (dp, fsdp) rows on its tp heads with a cache that never leaves the
     card, and every rank gets the global (B, T + max_new_tokens)
-    tokens back. Greedy output equals ``generate_fused`` on one device.
-    Sampling draws from each rank's ``generator``: seed it alike on
-    every rank (the tp ranks of a row must draw the same token).
+    tokens back. Greedy output equals ``generate_fused`` on one device:
+    the logits stay split over tp and the argmax is taken across the
+    ranks (``MeshView.pick``). Sampling gathers each row's logits and
+    draws from each rank's ``generator``: seed it alike on every rank
+    (the tp ranks of a row must draw the same token).
     ``example_params`` is only inspected for its specs.
     """
     from kubeflow_rm_tpu_torch.parallel.collectives import all_gather

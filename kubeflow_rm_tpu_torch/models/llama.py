@@ -21,7 +21,9 @@ saves (``llama.py:162-180``).
 On a mesh (``forward(..., mesh=)``) each rank runs the same blocks on its
 local shards through ``parallel.sharded.MeshView``: weights gathered over
 fsdp, heads split over tp, the sequence over sp (ring or Ulysses
-attention by ``cfg.attention_backend``). ``mesh=None`` is the one-device
+attention by ``cfg.attention_backend``), the layer stack over pp (the
+GPipe schedule of ``parallel.pipeline``, whose stage body is this
+module's block and whose ends are ``_prologue`` and ``_epilogue``). ``mesh=None`` is the one-device
 path, untouched: no collective, no process group.
 """
 
@@ -184,44 +186,55 @@ def init_leaf(cfg: LlamaConfig, name: str, shape, generator: torch.Generator,
     return w.mul_(scale).to(cfg.param_dtype)
 
 
-def _by_layer(n_layers: int, make):
-    """Stack ``make(i)`` (a tensor or a dict of tensors) over ``i`` into
-    preallocated ``(L, ...)`` tensors, one layer's result alive at a
-    time."""
+def _by_layer(n_layers: int, make, layers: range | None = None):
+    """Stack ``make(i, keep)`` (a tensor or a dict of tensors) over the
+    ``layers`` (default all) into preallocated ``(len(layers), ...)``
+    tensors, one layer's result alive at a time. ``make`` runs for every
+    layer (``keep`` False outside ``layers``: it draws, so the generator
+    advances as for the whole stack, and returns nothing)."""
+    layers = range(n_layers) if layers is None else layers
     out, is_dict = None, False
     for i in range(n_layers):
-        part = make(i)
+        part = make(i, i in layers)
+        if i not in layers:
+            continue
         is_dict = isinstance(part, dict)
         parts = part if is_dict else {"": part}
         if out is None:
-            out = {k: t.new_empty((n_layers, *t.shape))
+            out = {k: t.new_empty((len(layers), *t.shape))
                    for k, t in parts.items()}
         for k, t in parts.items():
-            out[k][i] = t
+            out[k][i - layers.start] = t
         del part, parts
     return out if is_dict else out[""]
 
 
 def init_tree(cfg: LlamaConfig, shapes: dict, generator: torch.Generator,
-              device: torch.device, transform=None) -> dict:
+              device: torch.device, transform=None,
+              layers: range | None = None) -> dict:
     """Random leaves for the shape tree ``shapes`` by ``init_leaf``'s
     rules, drawn leaf by leaf from ``generator`` and every ``blocks``
     leaf one layer at a time. ``transform(path, tensor)``, if given,
     maps each draw (one layer of a stacked leaf, or a whole top-level
     leaf; ``path`` as ``"blocks/wq"``, ``"embed/tokens"``) before the
     next is drawn: the quantizer of ``quantize.init_params_quantized``,
-    the per-rank slicer of ``sharding.Sharder``."""
+    the per-rank slicer of ``sharding.Sharder``. ``layers`` (default
+    all) keeps only those layers of every stacked leaf, a pp stage's:
+    the others are drawn, to keep the generator in step, and dropped at
+    once."""
     fn = transform or (lambda path, t: t)
 
-    def leaf(path, shape):
+    def leaf(path, shape, keep=True):
         name = path.rsplit("/", 1)[-1]
-        return fn(path, init_leaf(cfg, name, shape, generator, device))
+        t = init_leaf(cfg, name, shape, generator, device)
+        return fn(path, t) if keep else None
 
     out = {}
     for name, s in shapes.items():
         if name == "blocks":
-            out[name] = {k: _by_layer(shp[0], lambda i, k=k, shp=shp:
-                                      leaf(f"blocks/{k}", shp[1:]))
+            out[name] = {k: _by_layer(shp[0], lambda i, keep, k=k, shp=shp:
+                                      leaf(f"blocks/{k}", shp[1:], keep),
+                                      layers)
                          for k, shp in s.items()}
         elif isinstance(s, dict):
             out[name] = {k: leaf(f"{name}/{k}", shp) for k, shp in s.items()}
@@ -232,16 +245,17 @@ def init_tree(cfg: LlamaConfig, shapes: dict, generator: torch.Generator,
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
                 device: str | torch.device | None = None, *,
-                transform=None) -> dict:
+                transform=None, layers: range | None = None) -> dict:
     """Random parameters matching ``param_spec_shapes``, drawn from
     ``generator`` (which must live on ``device``) by ``init_tree``: one
     layer of a stacked leaf at a time, each draw passed through
-    ``transform``. The draws are not JAX's: parity tests carry JAX's
-    weights over with ``params.from_numpy_params`` instead."""
+    ``transform``, the stacked leaves keeping ``layers``. The draws are
+    not JAX's: parity tests carry JAX's weights over with
+    ``params.from_numpy_params`` instead."""
     from kubeflow_rm_tpu_torch.device import default_device
 
     return init_tree(cfg, param_spec_shapes(cfg), generator,
-                     default_device(device), transform)
+                     default_device(device), transform, layers)
 
 
 def layer_params(blocks: dict, i: int) -> dict:
@@ -316,13 +330,24 @@ def embed(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, view=None):
     return params["embed"]["tokens"][tokens.long()].to(cfg.dtype)
 
 
-def logits_head(params: dict, x: torch.Tensor, cfg: LlamaConfig, view=None):
+def _epilogue(params: dict, x: torch.Tensor, cfg: LlamaConfig, view=None,
+              *, local_vocab: bool = False):
     """Final norm, lm head (dequantized if quantized) in the compute
-    dtype, float32 logits."""
+    dtype, float32 logits: the end of ``forward`` and of the pipeline
+    (JAX's ``_epilogue``). On a mesh ``local_vocab`` keeps this rank's
+    tp columns of the vocabulary."""
     if view is not None:
-        return view.head(params, x, cfg)
+        return view.head(params, x, cfg, local_vocab=local_vocab)
     x = rms_norm(x, params["out_norm"], cfg.norm_eps)
     return (x @ maybe_dequant(params["lm_head"], cfg.dtype)).float()
+
+
+def stacked_layers(blocks: dict) -> int:
+    """The layers of the stacked tree ``blocks`` (a pp rank's share)."""
+    leaf = next(iter(blocks.values()))
+    if isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    return leaf.shape[0]
 
 
 def forward(
@@ -335,6 +360,7 @@ def forward(
     packed: bool = False,
     impl: str = "auto",
     mesh=None,
+    local_vocab: bool = False,
 ) -> torch.Tensor:
     """Causal LM forward pass: (B, T) token ids -> (B, T, vocab) float32
     logits.
@@ -354,17 +380,26 @@ def forward(
     rank's shards (``parallel.sharding.shard_params``) and ``tokens``,
     ``positions``, ``segments`` its (dp, fsdp) rows and sp columns
     (``training.train.shard_batch``); the logits are this rank's rows and
-    columns over the whole vocabulary.
+    columns over the whole vocabulary, or with ``local_vocab`` its tp
+    share of the vocabulary. A mesh with pp > 1 runs the GPipe schedule
+    (``parallel.pipeline.pipeline_forward``, pp microbatches).
     """
     view = _mesh_view(mesh, cfg, params)
+    if view is not None and view.pp > 1:
+        from kubeflow_rm_tpu_torch.parallel.pipeline import pipeline_forward
+
+        return pipeline_forward(params, tokens, cfg, mesh,
+                                positions=positions, segments=segments,
+                                packed=packed, impl=impl,
+                                local_vocab=local_vocab)
     x, cos, sin, attn_positions = _prologue(params, tokens, cfg, positions,
                                             packed, view)
     blocks = params["blocks"]
     block = remat_block(partial(_block, cfg, view=view), cfg)
-    for i in range(cfg.n_layers):
+    for i in range(stacked_layers(blocks)):
         x = block(x, layer_params(blocks, i), cos, sin, attn_positions,
                   segments, impl)
-    return logits_head(params, x, cfg, view)
+    return _epilogue(params, x, cfg, view, local_vocab=local_vocab)
 
 
 def _mesh_view(mesh, cfg, params):

@@ -24,8 +24,8 @@ from functools import partial
 import torch
 
 from kubeflow_rm_tpu_torch.models.llama import (
-    LlamaConfig, _attention_half, _mesh_view, _prologue, init_tree,
-    layer_params, logits_head, remat_block,
+    LlamaConfig, _attention_half, _epilogue, _mesh_view, _prologue,
+    init_tree, layer_params, remat_block, stacked_layers,
 )
 from kubeflow_rm_tpu_torch.models.llama import (
     param_spec_shapes as _llama_shapes,
@@ -78,15 +78,16 @@ def param_spec_shapes(cfg: MixtralConfig) -> dict:
 
 def init_params(cfg: MixtralConfig, generator: torch.Generator,
                 device: str | torch.device | None = None, *,
-                transform=None) -> dict:
+                transform=None, layers: range | None = None) -> dict:
     """Random parameters matching ``param_spec_shapes``, by
     ``llama.init_tree``: leaf by leaf from ``generator``, every
     ``blocks`` leaf one layer at a time, each draw passed through
-    ``transform(path, tensor)``."""
+    ``transform(path, tensor)``, the stacked leaves keeping
+    ``layers``."""
     from kubeflow_rm_tpu_torch.device import default_device
 
     return init_tree(cfg, param_spec_shapes(cfg), generator,
-                     default_device(device), transform)
+                     default_device(device), transform, layers)
 
 
 def _moe_block(cfg: MixtralConfig, x, layer, cos, sin, positions, segments,
@@ -110,19 +111,31 @@ def forward(
     packed: bool = False,
     impl: str = "auto",
     mesh=None,
+    local_vocab: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Causal LM forward: ((B, T, vocab) float32 logits, the router aux
     loss averaged over layers). The arguments are ``llama.forward``'s
-    (``mesh`` too); each block runs under the same remat wrapper and
+    (``mesh`` and ``local_vocab`` too; a pp mesh runs the GPipe
+    schedule); each block runs under the same remat wrapper and
     policy."""
     view = _mesh_view(mesh, cfg, params)
+    if view is not None and view.pp > 1:
+        from kubeflow_rm_tpu_torch.parallel.pipeline import (
+            pipeline_forward_with_aux,
+        )
+
+        return pipeline_forward_with_aux(
+            params, tokens, cfg, mesh, positions=positions,
+            segments=segments, packed=packed, impl=impl,
+            local_vocab=local_vocab)
     x, cos, sin, attn_positions = _prologue(params, tokens, cfg, positions,
                                             packed, view)
     blocks = params["blocks"]
     block = remat_block(partial(_moe_block, cfg, view=view), cfg)
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
+    for i in range(stacked_layers(blocks)):
         x, aux = block(x, layer_params(blocks, i), cos, sin, attn_positions,
                        segments, impl)
         aux_sum = aux_sum + aux
-    return logits_head(params, x, cfg, view), aux_sum / cfg.n_layers
+    return (_epilogue(params, x, cfg, view, local_vocab=local_vocab),
+            aux_sum / cfg.n_layers)

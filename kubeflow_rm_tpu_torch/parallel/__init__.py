@@ -3,12 +3,14 @@
 (``distributed``), the six-axis mesh (``mesh``), the sharding rules
 (``sharding``), the autograd collectives (``collectives``), the model's
 view of a mesh (``sharded``), the sequence-parallel attention schedules
-(``ring_attention``, ``zigzag_ring``, ``ulysses``) and the dense-dispatch
-MoE layer (``moe``). The GPipe schedule (``pipeline``) is not ported
-yet."""
+(``ring_attention``, ``zigzag_ring``, ``ulysses``), the GPipe schedule
+over ``pp`` (``pipeline``) and the dense-dispatch MoE layer (``moe``)."""
 
 from kubeflow_rm_tpu_torch.parallel.mesh import (
     MeshConfig, make_hybrid_mesh, make_mesh,
+)
+from kubeflow_rm_tpu_torch.parallel.pipeline import (
+    pipeline_forward, pipeline_forward_with_aux,
 )
 from kubeflow_rm_tpu_torch.parallel.ring_attention import (
     ring_attention, ring_self_attention,
@@ -31,6 +33,8 @@ __all__ = [
     "make_mesh",
     "param_pspecs",
     "param_shardings",
+    "pipeline_forward",
+    "pipeline_forward_with_aux",
     "ring_attention",
     "ring_self_attention",
     "ulysses_attention",

@@ -26,6 +26,10 @@ whose backward is the collective that carries the gradient back:
   what arrives along ``concat_dim`` in rank order (JAX's tiled
   ``all_to_all``) / backward the inverse exchange.
 
+``all_reduce_max`` (``pmax``) and ``broadcast`` take no gradient: the
+vocabulary-parallel cross-entropy shifts by a detached maximum, and a
+decode step on a ``pp`` mesh hands its activation from stage to stage.
+
 Over a group of one rank each returns its input and makes no call and
 no autograd node, as XLA emits no collective for an axis of size 1: a
 one-rank NCCL call costs the host a fraction of a millisecond, and a
@@ -265,3 +269,24 @@ def all_to_all(x: torch.Tensor, group, split_dim: int,
                concat_dim: int) -> torch.Tensor:
     """Scatter ``split_dim`` over the ranks, gather ``concat_dim``."""
     return _call(_AllToAll, x, group, split_dim, concat_dim)
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """Elementwise maximum over the ranks (no gradient)."""
+    if _alone(group):
+        return x
+    x = x.detach().contiguous().clone()
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+    return x
+
+
+def broadcast(x: torch.Tensor, group, src: int) -> torch.Tensor:
+    """The ``x`` of the group's rank ``src`` on every rank (no
+    gradient)."""
+    if _alone(group):
+        return x
+    x = x.detach().contiguous()
+    if dist.get_rank(group) != src:
+        x = torch.empty_like(x)
+    dist.broadcast(x, src=dist.get_global_rank(group, src), group=group)
+    return x

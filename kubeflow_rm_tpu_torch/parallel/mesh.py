@@ -4,8 +4,7 @@
 Axis convention, outermost to innermost, as in the JAX package:
 
 - ``dp``   pure data parallelism (params replicated);
-- ``pp``   pipeline stages (the GPipe schedule is not ported yet: a
-           mesh with pp > 1 is refused by the model and the trainer);
+- ``pp``   pipeline stages (the GPipe schedule of ``pipeline``);
 - ``fsdp`` data parallelism with parameter sharding (ZeRO-3 style);
 - ``ep``   expert parallelism (MoE expert dim sharded);
 - ``sp``   sequence parallelism (ring / zigzag / Ulysses attention);
@@ -154,3 +153,11 @@ def axis_group(mesh: DeviceMesh, axes) -> dist.ProcessGroup:
         group, _ = dist.new_subgroups_by_enumeration(grid.tolist())
         cache[axes] = group
     return cache[axes]
+
+
+def comm_device(mesh: DeviceMesh) -> torch.device:
+    """The device this rank's collectives on ``mesh`` take tensors on:
+    its card under NCCL, the CPU under gloo."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)

@@ -17,12 +17,24 @@ the collectives of ``parallel.collectives`` at the points GSPMD would:
   split to the local rows (``split_to_group``) and its ``b``, whose
   output columns the rules put on ``tp``, is gathered
   (``all_gather``: each rank's product is a partial sum, so the
-  backward reduce-scatters).
+  backward reduce-scatters). Where tp does not divide the KV heads
+  (Llama-3-8B's 8 at tp = 16), the K/V heads are repeated by the least
+  ``kv_rep`` that makes them divide (as Ulysses does over ``sp``): the
+  rules still put a fraction of a head's wk/wv columns on a rank, so
+  those two weights (and their LoRA ``b``) are gathered over tp in the
+  block, as fsdp gathers, and each rank keeps the whole repeated heads
+  its query heads read. tp must divide the query heads: a split query
+  head is no whole-head plan.
 - **embedding and head**: the vocabulary is on ``tp``. The embedding is
-  a masked local lookup plus an ``all_reduce``; the head gathers the
-  logits over ``tp`` (``gather_from_group``) before the loss — the
-  simplest exact choice (a vocabulary-parallel cross-entropy would move
-  less).
+  a masked local lookup plus an ``all_reduce``; the head computes this
+  rank's vocabulary columns, which the training loss reduces in place
+  (``ops.losses.softmax_cross_entropy(..., vocab_group=)``) and decode
+  returns as JAX's ``make_decode_step`` does; ``forward``'s public
+  logits gather them over ``tp`` (``gather_from_group``).
+- **pp**: each rank holds its stage's ``L/pp`` layers of every stacked
+  leaf; ``forward`` on such a mesh runs the GPipe schedule
+  (``parallel.pipeline``), and a decode step passes its activation from
+  stage to stage (``stage_handoff``).
 - **ep** (Mixtral): each ``ep`` rank holds ``E/ep`` experts. The tokens
   are replicated over ``ep``; the router's expert columns are gathered,
   so every rank routes alike on the full float32 logits, dispatches to
@@ -44,6 +56,8 @@ columns or rows where its stored sharding fell back
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from kubeflow_rm_tpu_torch.models.lora import LORA_A, LORA_B
@@ -51,7 +65,7 @@ from kubeflow_rm_tpu_torch.models.quantize import is_quantized, maybe_dequant
 from kubeflow_rm_tpu_torch.models.remat import project
 from kubeflow_rm_tpu_torch.ops.attention import dot_product_attention
 from kubeflow_rm_tpu_torch.parallel.collectives import (
-    all_gather, all_reduce, copy_to_group, gather_from_group,
+    all_gather, all_reduce, broadcast, copy_to_group, gather_from_group,
     split_to_group,
 )
 from kubeflow_rm_tpu_torch.parallel.mesh import (
@@ -68,36 +82,47 @@ DATA_AXES = ("dp", "fsdp", "sp")
 ROW_AXES = ("dp", "fsdp")
 
 
+def kv_repeat(cfg, tp: int) -> int:
+    """The least factor r that makes tp divide ``n_kv_heads · r`` (1
+    where tp divides the K/V heads); H divides KVH·r = lcm(KVH, tp)
+    whenever tp divides H."""
+    return tp // math.gcd(cfg.n_kv_heads, tp)
+
+
+def kv_heads_local(cfg, tp: int) -> int:
+    """A tp rank's K/V heads: the repeated ones split over tp."""
+    return cfg.n_kv_heads * kv_repeat(cfg, tp) // tp
+
+
 class MeshView:
     """One rank's plan for a forward on ``mesh`` of the local tree
     ``params`` (built per call; the groups are cached on the mesh)."""
 
     def __init__(self, mesh, cfg, params: dict):
         sizes = {a: axis_size(mesh, a) for a in AXES}
-        if sizes["pp"] > 1:
-            raise NotImplementedError(
-                "a mesh with pp > 1 needs the GPipe schedule, which the "
-                "port does not have yet")
         tp = sizes["tp"]
-        H, KVH = cfg.n_heads, cfg.n_kv_heads
+        H = cfg.n_heads
         if H % tp:
-            raise ValueError(f"tp ({tp}) must divide n_heads ({H})")
-        if KVH % tp:
             raise ValueError(
-                f"tp ({tp}) must divide n_kv_heads ({KVH}): the K/V "
-                "projections' local columns would not be whole heads "
-                "(repeating K/V heads up to a multiple of tp is not "
-                "ported)")
+                f"tp ({tp}) must divide n_heads ({H}): each rank computes "
+                "whole query heads")
+        if cfg.n_layers % sizes["pp"]:
+            raise ValueError(f"n_layers={cfg.n_layers} not divisible by "
+                             f"pp={sizes['pp']}")
         moe = getattr(cfg, "moe", None)
         if moe is not None and moe.n_experts % sizes["ep"]:
             raise ValueError(f"ep ({sizes['ep']}) must divide n_experts "
                              f"({moe.n_experts})")
         self.mesh, self.sizes = mesh, sizes
-        self.tp, self.sp = tp, sizes["sp"]
+        self.tp, self.sp, self.pp = tp, sizes["sp"], sizes["pp"]
+        #: K/V heads repeated this many times so that tp divides them
+        self.kv_rep = kv_repeat(cfg, tp)
+        self.stage = axis_index(mesh, "pp")
         self.g_fsdp = axis_group(mesh, "fsdp")
         self.g_tp = axis_group(mesh, "tp")
         self.g_ep = axis_group(mesh, "ep")
         self.g_sp = axis_group(mesh, "sp")
+        self.g_pp = axis_group(mesh, "pp")
         self.g_data = axis_group(mesh, DATA_AXES)
         self.specs = flat_specs(params)
 
@@ -183,18 +208,36 @@ class MeshView:
                     out = out + (t @ a.to(dt)) @ b.to(dt) * (
                         cfg.lora_alpha / a.shape[-1])
                 return all_reduce(out, self.g_tp) if split else out
+            whole = name in ("wk", "wv") and self.kv_rep > 1
+            if whole:
+                # a fraction of a head's columns per rank: gather them
+                w = all_gather(w, self.g_tp, -1)
             out = project(enter(t), w, name)
             if a is not None:
                 a = self.weight(f"blocks/{name}{LORA_A}", a, a.dtype)
                 u = copy_to_group(t @ a.to(dt), self.g_tp)
-                out = out + u @ layer[name + LORA_B].to(dt) * (
-                    cfg.lora_alpha / a.shape[-1])
-            return out
+                b = layer[name + LORA_B]
+                if whole:
+                    b = all_gather(b, self.g_tp, -1)
+                out = out + u @ b.to(dt) * (cfg.lora_alpha / a.shape[-1])
+            return self._own_kv_heads(cfg, out) if whole else out
 
         return proj
 
     def local_heads(self, cfg) -> tuple[int, int]:
-        return cfg.n_heads // self.tp, cfg.n_kv_heads // self.tp
+        """This rank's query heads and (repeated) K/V heads."""
+        return cfg.n_heads // self.tp, kv_heads_local(cfg, self.tp)
+
+    def _own_kv_heads(self, cfg, out: torch.Tensor) -> torch.Tensor:
+        """This rank's repeated K/V heads from the (..., KVH·hd) output
+        of the whole K or V projection: virtual head j of the rank's
+        ``n`` is real head ``(i·n + j) // kv_rep``."""
+        KVH, hd = cfg.n_kv_heads, cfg.head_dim
+        n = KVH * self.kv_rep // self.tp
+        first = axis_index(self.mesh, "tp") * n
+        own = torch.arange(first, first + n, device=out.device) // self.kv_rep
+        heads = out.reshape(*out.shape[:-1], KVH, hd).index_select(-2, own)
+        return heads.reshape(*out.shape[:-1], n * hd)
 
     # ---- embedding and head ---------------------------------------------
 
@@ -209,15 +252,48 @@ class MeshView:
         x = torch.where(inside[..., None], rows, rows.new_zeros(()))
         return all_reduce(x, self.g_tp)
 
-    def head(self, params: dict, x: torch.Tensor, cfg):
-        """Final norm, the local vocabulary columns, logits gathered
-        over tp (float32)."""
+    def head(self, params: dict, x: torch.Tensor, cfg, *,
+             local_vocab: bool = False):
+        """Final norm and the local vocabulary columns (float32 logits):
+        this rank's ``V/tp`` columns with ``local_vocab``, else gathered
+        over tp."""
         from kubeflow_rm_tpu_torch.ops.norms import rms_norm
 
         x = rms_norm(x, params["out_norm"], cfg.norm_eps)
         w = self.weight("lm_head", params["lm_head"], cfg.dtype, layer=False)
         logits = (copy_to_group(x, self.g_tp) @ w).float()
+        if local_vocab:
+            return logits
         return gather_from_group(logits, self.g_tp, -1)
+
+    def pick(self, last: torch.Tensor, generator, *, temperature: float,
+             top_k: int | None, sampler) -> torch.Tensor:
+        """The next token of each row from this rank's vocabulary
+        columns ``last`` (B, V/tp). Greedy: each rank's (maximum, first
+        index) pair, all-gathered, and the largest maximum's lowest
+        index (``jnp.argmax``'s tie rule: ranks hold ascending columns).
+        Sampling gathers the row of logits (every tp rank must draw the
+        same token) and runs ``sampler``, the one-device pick."""
+        if self.tp == 1:
+            return sampler(last, generator, temperature=temperature,
+                           top_k=top_k)
+        if temperature > 0:
+            return sampler(gather_from_group(last, self.g_tp, -1),
+                           generator, temperature=temperature, top_k=top_k)
+        idx = last.argmax(dim=-1)
+        val = last.gather(-1, idx[:, None])[:, 0]
+        idx = idx + axis_index(self.mesh, "tp") * last.shape[-1]
+        vals = all_gather(val[None], self.g_tp, 0)            # (tp, B)
+        idxs = all_gather(idx[None], self.g_tp, 0)
+        first = (vals == vals.max(dim=0).values).int().argmax(dim=0)
+        return idxs.gather(0, first[None])[0].to(torch.int32)
+
+    # ---- pipeline stages --------------------------------------------------
+
+    def stage_handoff(self, x: torch.Tensor, src: int) -> torch.Tensor:
+        """Stage ``src``'s activation on every pp rank (a decode step's
+        hand-off; no gradient)."""
+        return broadcast(x, self.g_pp, src)
 
     # ---- attention --------------------------------------------------------
 

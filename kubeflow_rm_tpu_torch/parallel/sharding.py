@@ -216,10 +216,14 @@ def shard_params(params: dict, mesh, device=None) -> dict:
                       lambda key, t: shard_leaf(key, t, mesh, device))
 
 
+def global_shape_of(shape, spec, mesh) -> tuple:
+    """The global shape of a local ``shape`` under ``spec``."""
+    return tuple(d * _size(mesh, ax) for d, ax in zip(shape, spec))
+
+
 def global_shape(t: torch.Tensor, mesh) -> tuple:
     """The global shape of a local leaf that records its spec."""
-    return tuple(d * _size(mesh, ax)
-                 for d, ax in zip(t.shape, getattr(t, SPEC_ATTR)))
+    return global_shape_of(t.shape, getattr(t, SPEC_ATTR), mesh)
 
 
 class Sharder:
@@ -227,11 +231,21 @@ class Sharder:
     mesh=)``): cuts each draw (a top-level leaf, or one layer of a
     stacked ``blocks`` leaf, plain or quantized) to this rank's slice as
     it is drawn. Every rank draws the same values, and none holds more
-    than its shards and one draw whole. ``mark`` then records each
-    leaf's effective spec on it, as ``shard_params`` does."""
+    than its shards and one draw whole. On a pp mesh the stacked leaves
+    keep only the rank's stage, ``layers`` (``init_tree`` drops the other
+    stages' draws as they are made). ``mark`` then records each leaf's
+    effective spec on it, as ``shard_params`` does."""
 
     def __init__(self, mesh, n_layers: int):
+        pp = axis_size(mesh, "pp")
+        if n_layers % pp:
+            raise ValueError(f"n_layers={n_layers} not divisible by "
+                             f"pp={pp}")
+        per = n_layers // pp
+        first = axis_index(mesh, "pp") * per
         self.mesh, self.n_layers, self.specs = mesh, n_layers, {}
+        #: the stacked leaves' layers this rank keeps (its pp stage)
+        self.layers = range(first, first + per)
 
     def __call__(self, path: str, t):
         if isinstance(t, dict):
@@ -240,13 +254,8 @@ class Sharder:
         spec = effective_spec(
             path, (self.n_layers, *t.shape) if layer else t.shape, self.mesh)
         self.specs[path] = spec
-        if layer:
-            if _size(self.mesh, spec[0]) > 1:
-                raise NotImplementedError(
-                    "layers split over pp need the GPipe schedule, which "
-                    "the port does not have yet")
-            spec = spec[1:]
-        return shard_tensor(t, spec, self.mesh)
+        # one layer's draw: the layer axis (pp) was chosen by ``layers``
+        return shard_tensor(t, spec[1:] if layer else spec, self.mesh)
 
     def mark(self, params: dict) -> dict:
         def one(key, t):

@@ -30,7 +30,9 @@ layout ``{leaf key: per-leaf state}`` (``OptimConfig(offload=
 "optimizer")``). A host-offload state is saved from host memory and
 restored into it (pinned where a CUDA device exists), never onto the
 card, whatever ``device`` the parameters go to (JAX's
-``abstract_state``), so a resumed run continues bit for bit.
+``abstract_state``), so a resumed run continues bit for bit. On a mesh
+each rank's host state is its slices (``train.shard_state``), saved
+gathered like the rest.
 """
 
 from __future__ import annotations
@@ -74,20 +76,21 @@ def _opt_tree(opt) -> dict:
                                    if f != "count"}}
 
 
-def _opt_state(tree: dict, device):
-    """The inverse of ``_opt_tree``: the offload layout in host memory,
-    the on-card states on ``device``."""
+def _opt_state(tree: dict, device, pin: bool = True):
+    """The inverse of ``_opt_tree``: the offload layout in host memory
+    (pinned, unless ``pin`` is False: a sharded restore pins only the
+    rank's slices), the on-card states on ``device``."""
     if set(tree) == {_OFFLOAD}:
-        return {k: _opt_state(_map(v, host_put), None)
+        return {k: _opt_state(_map(v, host_put) if pin else v, None)
                 for k, v in tree[_OFFLOAD].items()}
     if device is not None:
         tree = _map(tree, lambda t: t.to(device))
     return _STATES[frozenset(tree)](**tree)
 
 
-def _as_train_state(tree: dict, device) -> TrainState:
+def _as_train_state(tree: dict, device, pin: bool = True) -> TrainState:
     return TrainState(step=int(tree["step"]), params=tree["params"],
-                      opt_state=_opt_state(tree["opt_state"], device))
+                      opt_state=_opt_state(tree["opt_state"], device, pin))
 
 
 class Checkpointer:
@@ -200,7 +203,8 @@ class Checkpointer:
                                  "sharded restore needs one")
             if cfg is not None:
                 check_params(tree["params"], cfg.model)
-            return self._shard(_as_train_state(tree, None), mesh, device)
+            return self._shard(_as_train_state(tree, None, pin=False),
+                               mesh, device)
         if saved["kind"] == _TRAIN_STATE:
             tree = dict(tree, params=_map(tree["params"],
                                           lambda t: t.to(device)))
@@ -230,11 +234,12 @@ class Checkpointer:
             return out
 
         opt = local.opt_state
+        if not isinstance(opt, dict):      # the offload layout stays put
+            opt = type(opt)(count=opt.count, **{
+                f: _map(getattr(opt, f), put)
+                for f in opt.__dataclass_fields__ if f != "count"})
         return TrainState(step=local.step, params=_map(local.params, put),
-                          opt_state=type(opt)(count=opt.count, **{
-                              f: _map(getattr(opt, f), put)
-                              for f in opt.__dataclass_fields__
-                              if f != "count"}))
+                          opt_state=opt)
 
     def wait(self) -> None:
         """Saves are synchronous: nothing is pending."""

@@ -30,11 +30,21 @@ term after the global-norm clip is leaf-local, so one function,
 ``Optimizer.update_leaf``, updates a leaf given the global norm; the
 on-card chain and the host-offload policy (``OffloadOptimizer``, below)
 both run it, which keeps the two arms' arithmetic identical.
+
+On a mesh (``make_optimizer(cfg, mesh=)``) each rank updates its shards
+with the arithmetic of the whole leaf, as optax does on JAX's global
+arrays. Adam is elementwise. Adafactor reads the leaf's global shape and
+spec (``LeafLayout``): ``factored_dims`` come from the global shape, the
+row and column means are float32 partial sums summed over the ranks that
+hold the leaf's shards and kept whole on every rank (JAX's state keeps
+them replicated), and the block-RMS clips sum the leaf's squares over
+the axes of its spec only, so a leaf replicated on an axis counts once.
 """
 
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -130,6 +140,82 @@ def factored_dims(shape, min_dim: int):
     return int(order[-2]), int(order[-1])
 
 
+class LeafLayout:
+    """Where one leaf's shards lie on a mesh: its global ``shape``, its
+    ``spec`` (``sharding.leaf_spec``) and the ranks that hold its other
+    shards (the group over the spec's axes). ``allsum`` is adafactor's
+    one collective. It runs on the mesh's device: a host tensor (the
+    offload arm's) goes to the card and back, since NCCL reduces no CPU
+    tensor; ``clock`` (a one-element list, if given) adds the seconds
+    that took."""
+
+    def __init__(self, mesh, spec, shape, clock: list | None = None):
+        from kubeflow_rm_tpu_torch.parallel.mesh import (
+            AXES, axis_size, comm_device,
+        )
+
+        self.mesh, self.spec, self.shape = mesh, tuple(spec), tuple(shape)
+        named = set()
+        for ax in self.spec:
+            if ax is not None:
+                named.update((ax,) if isinstance(ax, str) else ax)
+        #: the axes that split the leaf, in mesh order (one-rank axes
+        #: left out); none: this rank holds the whole leaf
+        self.axes = tuple(a for a in AXES
+                          if a in named and axis_size(mesh, a) > 1)
+        self.device = comm_device(mesh)
+        self.clock = clock
+
+    def allsum(self, t: torch.Tensor, spec: tuple = ()) -> torch.Tensor:
+        """The sum over the ranks holding this leaf's shards of ``t``,
+        this rank's part (under ``spec``) of a global float32 tensor, each
+        part placed at its slice: the global tensor, alike on those
+        ranks, on ``t``'s device. A partial sum over a split dim and a
+        gather of the kept dims in one all-reduce."""
+        import torch.distributed as dist
+
+        from kubeflow_rm_tpu_torch.parallel.mesh import axis_group
+        from kubeflow_rm_tpu_torch.parallel.sharding import (
+            global_shape_of, local_slices,
+        )
+
+        if not self.axes:
+            return t
+        t0 = time.perf_counter()
+        full = global_shape_of(t.shape, spec, self.mesh)
+        buf = torch.zeros(full, dtype=t.dtype, device=self.device)
+        buf[local_slices(full, spec, self.mesh)] = t.to(self.device)
+        dist.all_reduce(buf, group=axis_group(self.mesh, self.axes))
+        out = buf.to(t.device)
+        if self.clock is not None:
+            self.clock[0] += time.perf_counter() - t0
+        return out
+
+    def local(self, t: torch.Tensor, spec: tuple) -> torch.Tensor:
+        """This rank's slice of the global ``t`` under ``spec``."""
+        from kubeflow_rm_tpu_torch.parallel.sharding import local_slices
+
+        return t[local_slices(t.shape, spec, self.mesh)]
+
+
+def leaf_layouts(params: dict, mesh, clock: list | None = None) -> dict:
+    """``{path: LeafLayout}`` of a rank's local tree on ``mesh``."""
+    from kubeflow_rm_tpu_torch.parallel.sharding import (
+        global_shape_of, leaf_spec,
+    )
+
+    out = {}
+    for path, t in leaf_paths(params).items():
+        spec = leaf_spec(path, t)
+        out[path] = LeafLayout(mesh, spec,
+                               global_shape_of(t.shape, spec, mesh), clock)
+    return out
+
+
+def _drop(spec: tuple, d: int) -> tuple:
+    return spec[:d] + spec[d + 1:]
+
+
 @dataclass
 class AdamState:
     count: int       # updates applied so far (optax's step count)
@@ -151,54 +237,70 @@ class FactoredState:
 
 class Optimizer:
     """The chain of ``make_optimizer`` over a flat ``{path: tensor}``
-    dict of trainable leaves."""
+    dict of trainable leaves (on a mesh, a rank's shards)."""
 
-    def __init__(self, cfg: OptimConfig):
-        self.cfg = cfg
+    def __init__(self, cfg: OptimConfig, mesh=None):
+        self.cfg, self.mesh = cfg, mesh
         self.mu_dtype = getattr(torch, cfg.mu_dtype)
         self.state_type = FactoredState if cfg.factored else AdamState
+        self._layouts: dict = {}
 
     @property
     def slots(self) -> tuple[str, ...]:
         """The per-leaf tensors of the state."""
         return ("v_row", "v_col", "v") if self.cfg.factored else ("mu", "nu")
 
-    def init_leaf(self, p: torch.Tensor) -> dict:
-        """One leaf's state tensors (``slots``), zeros beside ``p``."""
+    def layout(self, path: str, p: torch.Tensor) -> LeafLayout | None:
+        """The leaf's ``LeafLayout`` where adafactor needs one (a mesh),
+        else None; made once per path."""
+        if self.mesh is None or not self.cfg.factored:
+            return None
+        if path not in self._layouts:
+            self._layouts.update(leaf_layouts({path: p}, self.mesh))
+        return self._layouts[path]
+
+    def init_leaf(self, p: torch.Tensor,
+                  layout: LeafLayout | None = None) -> dict:
+        """One leaf's state tensors (``slots``), zeros beside ``p``; the
+        factored statistics are the whole leaf's (``layout``'s global
+        shape), the rest follow ``p``."""
         if not self.cfg.factored:
             return {"mu": torch.zeros_like(p, dtype=self.mu_dtype),
                     "nu": torch.zeros_like(p)}
         one = p.new_zeros((1,))
-        dims = factored_dims(tuple(p.shape), self.cfg.factored_min_dim)
+        shape = list(p.shape if layout is None else layout.shape)
+        dims = factored_dims(tuple(shape), self.cfg.factored_min_dim)
         if dims is None:
             return {"v_row": one, "v_col": one.clone(),
                     "v": torch.zeros_like(p)}
         d1, d0 = dims
-        shape = list(p.shape)
         row = shape[:d0] + shape[d0 + 1:]
         col = shape[:d1] + shape[d1 + 1:]
         return {"v_row": p.new_zeros(row), "v_col": p.new_zeros(col),
                 "v": one}
 
     def init(self, params: dict):
-        per = {k: self.init_leaf(p) for k, p in params.items()}
+        per = {k: self.init_leaf(p, self.layout(k, p))
+               for k, p in params.items()}
         return self.state_type(0, **{s: {k: d[s] for k, d in per.items()}
                                      for s in self.slots})
 
     @torch.no_grad()
     def update_leaf(self, path: str, slots: dict, g: torch.Tensor,
                     p: torch.Tensor, gnorm: torch.Tensor,
-                    count: int) -> None:
+                    count: int, layout: LeafLayout | None = None) -> None:
         """The whole chain on one leaf, in place: ``p`` and its state
         tensors ``slots`` are updated. ``gnorm`` is the global norm of
         all the gradients (a 0-dim tensor on ``g``'s device) and
-        ``count`` the updates applied so far."""
+        ``count`` the updates applied so far. ``layout``: where ``p`` is
+        one rank's shard, the leaf's (adafactor's whole-leaf
+        statistics)."""
         cfg = self.cfg
         # clip_by_global_norm: select(trigger, g, g / ‖g‖ · max_norm)
         g = torch.where(gnorm < cfg.grad_clip, g,
                         g / gnorm.to(g.dtype) * _weak(cfg.grad_clip, g))
         if cfg.factored:
-            u = self._adafactor(slots, g, p, count)
+            u = self._adafactor(slots, g, p, count, layout)
         else:
             u = self._adam(slots, g, count)
         # add_decayed_weights (masked)
@@ -224,26 +326,47 @@ class Optimizer:
         nu_prev.copy_(nu)
         return u
 
-    def _adafactor(self, slots, g, p, count):
+    def _adafactor(self, slots, g, p, count, layout=None):
         cfg = self.cfg
         dtype = p.dtype
+        split = layout is not None and bool(layout.axes)
         # scale_by_factored_rms: optax's decay_rate is an exponent,
         # beta2_t = 1 - (t + 1)^-decay_rate, a float32 array
         t = torch.tensor(count + 1, dtype=torch.float32, device=g.device)
         decay = 1.0 - t ** -cfg.b2
         keep = 1.0 - decay
         g2 = g * g + _weak(1e-30, g)
-        dims = factored_dims(tuple(p.shape), cfg.factored_min_dim)
+        shape = tuple(p.shape) if layout is None else layout.shape
+
+        def mean(x, d):
+            # jnp.mean over dim d of the whole leaf, rounded to x's dtype
+            if not split:
+                return _mean(x, d)
+            part = x.sum(dim=d, dtype=torch.float32)
+            whole = layout.allsum(part, _drop(layout.spec, d))
+            return (whole / shape[d]).to(x.dtype)
+
+        def mean_all(x):
+            if not split:
+                return _mean(x)
+            whole = layout.allsum(x.sum(dtype=torch.float32))
+            return (whole / math.prod(shape)).to(x.dtype)
+
+        dims = factored_dims(shape, cfg.factored_min_dim)
         if dims is not None:
             d1, d0 = dims
             v_row = (decay * slots["v_row"].float()
-                     + keep * _mean(g2, d0).float()).to(dtype)
+                     + keep * mean(g2, d0).float()).to(dtype)
             v_col = (decay * slots["v_col"].float()
-                     + keep * _mean(g2, d1).float()).to(dtype)
+                     + keep * mean(g2, d1).float()).to(dtype)
             reduced_d1 = d1 - 1 if d1 > d0 else d1
             row_col_mean = _mean(v_row, reduced_d1, keepdim=True)
             row_factor = (v_row / row_col_mean) ** -0.5
             col_factor = v_col ** -0.5
+            if split:
+                # the statistics are whole: this shard's rows and columns
+                row_factor = layout.local(row_factor, _drop(layout.spec, d0))
+                col_factor = layout.local(col_factor, _drop(layout.spec, d1))
             u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
             slots["v_row"].copy_(v_row)
             slots["v_col"].copy_(v_col)
@@ -252,10 +375,10 @@ class Optimizer:
             u = g * v ** -0.5
             slots["v"].copy_(v)
         # clip_by_block_rms(1.0)
-        rms = torch.sqrt(_mean(u * u)) / _weak(1.0, u)
+        rms = torch.sqrt(mean_all(u * u)) / _weak(1.0, u)
         u = u / torch.maximum(torch.ones_like(rms), rms)
         # scale_by_param_block_rms(min_scale=1e-3)
-        p_rms = torch.sqrt(_mean(p * p))
+        p_rms = torch.sqrt(mean_all(p * p))
         return u * torch.where(p_rms <= _weak(1e-3, p), _weak(1e-3, p),
                                p_rms)
 
@@ -270,7 +393,8 @@ class Optimizer:
         for k, g in grads.items():
             self.update_leaf(k, {s: getattr(state, s)[k]
                                  for s in self.slots},
-                             g, params[k], gnorm, state.count)
+                             g, params[k], gnorm, state.count,
+                             self.layout(k, params[k]))
         state.count += 1
 
 
@@ -281,8 +405,10 @@ def global_norm(tensors: dict) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def make_optimizer(cfg: OptimConfig) -> Optimizer:
-    return Optimizer(cfg)
+def make_optimizer(cfg: OptimConfig, *, mesh=None) -> Optimizer:
+    """The chain; ``mesh``: it updates a rank's shards of each leaf
+    (``LeafLayout``)."""
+    return Optimizer(cfg, mesh)
 
 
 # ---------------------------------------------------------------------
@@ -325,9 +451,14 @@ class OffloadOptimizer:
     clip's one cross-leaf input, the global norm, is computed on the
     card and threaded through ``update_leaf``, which runs
     ``Optimizer.update_leaf`` — the on-card chain's arithmetic exactly.
+
+    On a mesh each rank keeps the state of its shards (adafactor's row
+    and column statistics whole, as on the card) and updates them on its
+    host; adafactor's cross-rank sums go through the card
+    (``LeafLayout.allsum``), their seconds in ``clock[0]``.
     """
 
-    def __init__(self, cfg: OptimConfig, params: dict):
+    def __init__(self, cfg: OptimConfig, params: dict, mesh=None):
         self.cfg = cfg
         self.opt = Optimizer(cfg)
         self.paths = tuple(leaf_paths(params))
@@ -335,6 +466,11 @@ class OffloadOptimizer:
         if len(set(self.keys)) != len(self.keys):
             raise ValueError("param leaf paths do not join uniquely")
         self._path = dict(zip(self.keys, self.paths))
+        self.clock = [0.0]
+        # from the parameters on the card, which record their specs (the
+        # host buffers the update runs on do not)
+        self.layouts = (leaf_layouts(params, mesh, self.clock)
+                        if mesh is not None and cfg.factored else {})
 
     def init(self, params: dict) -> dict:
         """Host-resident state: ``{key: per-leaf chain state}`` in
@@ -348,7 +484,8 @@ class OffloadOptimizer:
                                device="meta")
             out[key] = self.opt.state_type(0, **{
                 s: {"leaf": host_zeros(t.shape, t.dtype)}
-                for s, t in self.opt.init_leaf(meta).items()})
+                for s, t in self.opt.init_leaf(
+                    meta, self.layouts.get(path)).items()})
         return out
 
     def update_leaf(self, key: str, leaf_state, grad: torch.Tensor,
@@ -356,14 +493,16 @@ class OffloadOptimizer:
         """One leaf's whole update, in place on ``param`` and
         ``leaf_state``: the global-norm clip against the precomputed
         ``gnorm``, the leaf's chain, then the update applied."""
+        path = self._path[key]
         self.opt.update_leaf(
-            self._path[key], {s: getattr(leaf_state, s)["leaf"]
-                              for s in self.opt.slots},
-            grad, param, gnorm, leaf_state.count)
+            path, {s: getattr(leaf_state, s)["leaf"]
+                   for s in self.opt.slots},
+            grad, param, gnorm, leaf_state.count, self.layouts.get(path))
         leaf_state.count += 1
 
 
-def make_offload_optimizer(cfg: OptimConfig, params: dict) -> OffloadOptimizer:
+def make_offload_optimizer(cfg: OptimConfig, params: dict, *,
+                           mesh=None) -> OffloadOptimizer:
     if cfg.offload != "optimizer":
         raise ValueError(f"offload policy is {cfg.offload!r}, expected "
                          "'optimizer'")
@@ -371,4 +510,4 @@ def make_offload_optimizer(cfg: OptimConfig, params: dict) -> OffloadOptimizer:
         raise ValueError("offload='optimizer' does not compose with "
                          "train_only (LoRA states are small enough to "
                          "stay on the card)")
-    return OffloadOptimizer(cfg, params)
+    return OffloadOptimizer(cfg, params, mesh)

@@ -24,9 +24,16 @@ the global batch (``shard_batch``). The loss is the global token mean:
 the masked sums and the count are all-reduced over the data axes (dp,
 fsdp, sp). Gradients of a leaf replicated over a data axis are then
 all-reduced over it (an fsdp-sharded leaf's came through its gather's
-reduce-scatter), and the clip norm counts each shard once. Pipeline
-stages (pp > 1), the host-offload arm and adafactor's factored moments
-across ranks are not ported to a mesh yet and raise.
+reduce-scatter), and the clip norm counts each shard once. The logits
+stay split over ``tp`` into the loss (``softmax_cross_entropy(...,
+vocab_group=)``). On a mesh with pp > 1 the forward runs the GPipe
+schedule (``parallel.pipeline``, ``n_microbatches`` default pp): a
+stage's leaves take their gradients from its own layers, and the
+pp-replicated leaves (embedding, final norm, head) hold the same
+gradient on every stage, so nothing is summed over pp. Adafactor updates
+a rank's shards with the whole leaf's statistics (``optim.LeafLayout``),
+and the host-offload arm runs on each rank's shards, its host state
+pinned on every rank; it refuses pp > 1, as JAX's does.
 """
 
 from __future__ import annotations
@@ -45,15 +52,17 @@ from kubeflow_rm_tpu_torch.models.llama import LlamaConfig
 from kubeflow_rm_tpu_torch.models.lora import is_lora_name
 from kubeflow_rm_tpu_torch.ops.losses import softmax_cross_entropy
 from kubeflow_rm_tpu_torch.parallel.collectives import all_reduce
-from kubeflow_rm_tpu_torch.parallel.mesh import axis_group, axis_size
+from kubeflow_rm_tpu_torch.parallel.mesh import (
+    axis_group, axis_size, comm_device,
+)
 from kubeflow_rm_tpu_torch.parallel.sharded import DATA_AXES
 from kubeflow_rm_tpu_torch.parallel.sharding import (
     SPEC_ATTR, batch_pspec, gather_params, gather_tensor, leaf_spec,
     local_slices, param_shardings, shard_params, shard_tensor,
 )
 from kubeflow_rm_tpu_torch.training.optim import (
-    AdamState, FactoredState, OptimConfig, global_norm, leaf_paths,
-    make_offload_optimizer, make_optimizer,
+    AdamState, FactoredState, OptimConfig, global_norm, host_put, leaf_key,
+    leaf_paths, make_offload_optimizer, make_optimizer,
 )
 
 
@@ -119,31 +128,50 @@ def init_train_state(cfg: TrainConfig, generator: torch.Generator | None = None,
     flat = leaf_paths(params)
     train = {p: flat[p] for p in trainable_paths(cfg, params)}
     if cfg.optim.offload == "optimizer":
-        opt_state = make_offload_optimizer(cfg.optim, params).init(params)
+        opt_state = make_offload_optimizer(cfg.optim, params,
+                                           mesh=mesh).init(params)
     else:
-        opt_state = make_optimizer(cfg.optim).init(train)
+        opt_state = make_optimizer(cfg.optim, mesh=mesh).init(train)
     return TrainState(step=0, params=params, opt_state=opt_state)
 
 
-def loss_fn(params: dict, batch: dict, cfg: TrainConfig, mesh=None):
+def loss_fn(params: dict, batch: dict, cfg: TrainConfig, mesh=None,
+            n_microbatches: int | None = None):
     """Masked-mean cross-entropy (+ z-loss) of the model on ``batch``:
     "tokens" and "labels", plus "positions" and "segments" for packed
     documents (then ``packed=True``: the ``pack_documents`` layout keeps
     attention on the flash kernel). On a mesh ``params`` and ``batch``
-    are this rank's shares and the mean is over the global batch."""
+    are this rank's shares, the mean is over the global batch and the
+    logits stay split over tp; with pp > 1 the forward is the GPipe
+    schedule over ``n_microbatches`` (default pp)."""
     segments = batch.get("segments")
-    kwargs = {} if mesh is None else {"mesh": mesh}
-    logits, router_aux = forward_with_aux(
-        params, batch["tokens"], cfg.model, positions=batch.get("positions"),
-        segments=segments, packed=segments is not None, **kwargs)
-    total = None
-    if mesh is not None:
+    kwargs = dict(positions=batch.get("positions"), segments=segments,
+                  packed=segments is not None)
+    total = vocab = None
+    if mesh is None:
+        logits, router_aux = forward_with_aux(params, batch["tokens"],
+                                              cfg.model, **kwargs)
+    else:
+        if axis_size(mesh, "pp") > 1:
+            from kubeflow_rm_tpu_torch.parallel.pipeline import (
+                pipeline_forward_with_aux,
+            )
+
+            logits, router_aux = pipeline_forward_with_aux(
+                params, batch["tokens"], cfg.model, mesh,
+                n_microbatches=n_microbatches, local_vocab=True, **kwargs)
+        else:
+            logits, router_aux = forward_with_aux(
+                params, batch["tokens"], cfg.model, mesh=mesh,
+                local_vocab=True, **kwargs)
         group = axis_group(mesh, DATA_AXES)
+        vocab = axis_group(mesh, "tp")
 
         def total(t):
             return all_reduce(t, group)
     loss, aux = softmax_cross_entropy(logits, batch["labels"],
-                                      z_loss=cfg.z_loss, total=total)
+                                      z_loss=cfg.z_loss, total=total,
+                                      vocab_group=vocab)
     if router_aux is not None:
         aux = dict(aux, router_aux=router_aux)
         loss = loss + cfg.model.moe.router_aux_weight * router_aux
@@ -160,39 +188,51 @@ def shard_batch(batch: dict, mesh) -> dict:
             for k, v in batch.items()}
 
 
+def _slot_spec(t, spec: tuple, shape: tuple) -> tuple:
+    """A state tensor shaped like its (global) leaf follows the leaf's
+    spec; any other (adafactor's row and column statistics,
+    placeholders) is replicated."""
+    return spec if tuple(t.shape) == shape else (None,) * t.dim()
+
+
 def _state_specs(opt_state, param_specs: dict, shapes: dict):
-    """{slot: {path: spec}} of an optimizer state: a slot tensor shaped
-    like its leaf follows the leaf's spec, any other (adafactor's row
-    and column statistics, placeholders) is replicated."""
+    """The spec tree of an optimizer state: {slot: {path: spec}} of an
+    on-card state, or for the host-offload layout {key: state of
+    {slot: {"leaf": spec}}} (``count`` ``()``)."""
+    if isinstance(opt_state, dict):
+        path = {leaf_key(p): p for p in param_specs}
+        return {key: type(s)(count=(), **{
+            slot: {"leaf": _slot_spec(getattr(s, slot)["leaf"],
+                                      param_specs[path[key]],
+                                      shapes[path[key]])}
+            for slot in s.__dataclass_fields__ if slot != "count"})
+            for key, s in opt_state.items()}
     out = {}
     for slot in opt_state.__dataclass_fields__:
         if slot == "count":
             continue
-        out[slot] = {p: (param_specs[p] if tuple(t.shape) == shapes[p]
-                         else (None,) * t.dim())
+        out[slot] = {p: _slot_spec(t, param_specs[p], shapes[p])
                      for p, t in getattr(opt_state, slot).items()}
-    return out
+    return type(opt_state)(count=(), **out)
 
 
 def state_shardings(cfg: TrainConfig, state: TrainState, mesh) -> TrainState:
     """The spec tree of a global ``TrainState`` on ``mesh``: the params'
     effective specs (``param_shardings``); moments follow their leaf,
     adafactor's factored row and column vectors stay replicated, and the
-    scalars (``step``, ``count``) are replicated (``()``)."""
-    if isinstance(state.opt_state, dict):
-        raise NotImplementedError("the host-offload optimizer state is not "
-                                  "ported to a mesh yet")
+    scalars (``step``, ``count``) are replicated (``()``). The
+    host-offload layout keeps its shape, each slot specified alike."""
     pspecs = param_shardings(state.params, mesh)
     specs = leaf_paths(pspecs)
     shapes = {p: tuple(t.shape) for p, t in leaf_paths(state.params).items()}
-    opt = type(state.opt_state)(count=(), **_state_specs(
-        state.opt_state, specs, shapes))
-    return TrainState(step=(), params=pspecs, opt_state=opt)
+    return TrainState(step=(), params=pspecs,
+                      opt_state=_state_specs(state.opt_state, specs, shapes))
 
 
 def make_train_step(cfg: TrainConfig, state: TrainState,
                     grad_accum: int = 1,
-                    offload: str | None = None, *, mesh=None) -> Callable:
+                    offload: str | None = None, *, mesh=None,
+                    n_microbatches: int | None = None) -> Callable:
     """Return ``step(state, batch) -> (state, metrics)``.
 
     ``batch`` maps names to (B, T) integer tensors on the parameters'
@@ -208,21 +248,21 @@ def make_train_step(cfg: TrainConfig, state: TrainState,
 
     ``mesh``: ``state`` is this rank's (``shard_state``) and each batch
     its share of the global batch (``shard_batch``); the metrics are the
-    global ones, alike on every rank.
+    global ones, alike on every rank. On a mesh with pp > 1 the forward
+    runs the GPipe schedule; ``n_microbatches`` (default: pp) sets the
+    bubble fraction (pp-1)/(n_microbatches+pp-1), and ``grad_accum``
+    microbatches each run the whole schedule.
     """
     if offload is None:
         offload = cfg.optim.offload
     if offload not in ("none", "optimizer"):
         raise ValueError(f"unknown offload={offload!r} "
                          "(expected 'none' or 'optimizer')")
-    if mesh is not None:
-        if offload == "optimizer":
-            raise NotImplementedError("the host-offload arm is not ported "
-                                      "to a mesh yet")
-        if cfg.optim.factored and mesh.size() > 1:
-            raise NotImplementedError(
-                "adafactor's factored moments reduce over whole leaves: "
-                "not ported to a mesh of more than one rank yet")
+    if (offload == "optimizer" and mesh is not None
+            and axis_size(mesh, "pp") > 1):
+        raise ValueError("offload='optimizer' targets the single-chip "
+                         "memory wall; pp meshes keep the update "
+                         "on-chip (state is already sharded)")
     train_paths = trainable_paths(cfg, state.params)
     train_set = set(train_paths)
     for path, leaf in leaf_paths(state.params).items():
@@ -232,7 +272,8 @@ def make_train_step(cfg: TrainConfig, state: TrainState,
         flat = leaf_paths(params)
         leaves = [flat[p] for p in train_paths]
         (loss, aux) = (loss_fn(params, batch, cfg) if mesh is None
-                       else loss_fn(params, batch, cfg, mesh))
+                       else loss_fn(params, batch, cfg, mesh,
+                                    n_microbatches))
         grads = torch.autograd.grad(loss, leaves)
         grads = dict(zip(train_paths, grads))
         if mesh is not None:
@@ -261,19 +302,22 @@ def make_train_step(cfg: TrainConfig, state: TrainState,
                for k in auxes[0]}
         return loss, aux, grads
 
+    def norm_of(grads, params):
+        return (global_norm(grads) if mesh is None
+                else mesh_global_norm(grads, params, mesh))
+
     if offload == "optimizer":
-        return _build_offload_step(cfg, state, compute_grads)
+        return _build_offload_step(cfg, state, compute_grads, norm_of, mesh)
 
     if isinstance(state.opt_state, dict):
         raise ValueError("state.opt_state is the host-offload layout; the "
                          "on-card arm needs make_optimizer's state")
-    opt = make_optimizer(cfg.optim)
+    opt = make_optimizer(cfg.optim, mesh=mesh)
 
     def step(state: TrainState, batch: dict):
         loss, aux, grads = compute_grads(state.params, batch)
         flat = leaf_paths(state.params)
-        gnorm = (global_norm(grads) if mesh is None
-                 else mesh_global_norm(grads, flat, mesh))
+        gnorm = norm_of(grads, flat)
         opt.update(grads, state.opt_state,
                    {p: flat[p] for p in train_paths}, gnorm)
         metrics = {"loss": loss, "grad_norm": gnorm, **aux}
@@ -314,44 +358,58 @@ def mesh_global_norm(grads: dict, params: dict, mesh) -> torch.Tensor:
 def shard_state(state: TrainState, mesh) -> TrainState:
     """A global ``TrainState`` -> this rank's: the parameters by
     ``shard_params``, each moment by its leaf's spec, adafactor's
-    statistics whole (``state_shardings``). A state whose parameters are
-    already this rank's (they carry their spec) is returned as is."""
+    statistics whole (``state_shardings``); a host-offload state stays
+    in host memory. A state whose parameters are already this rank's
+    (they carry their spec) is returned as is."""
     if all(hasattr(t, SPEC_ATTR) for t in leaf_paths(state.params).values()):
         return state
     specs = state_shardings(None, state, mesh).opt_state
     opt = state.opt_state
-    slots = {slot: {p: shard_tensor(t, getattr(specs, slot)[p], mesh)
-                    for p, t in getattr(opt, slot).items()}
-             for slot in opt.__dataclass_fields__ if slot != "count"}
+
+    def slots(s, spec, put=lambda t: t):
+        return type(s)(count=s.count, **{
+            f: {k: put(shard_tensor(t, getattr(spec, f)[k], mesh))
+                for k, t in getattr(s, f).items()}
+            for f in s.__dataclass_fields__ if f != "count"})
+
+    opt = ({key: slots(s, specs[key], host_put) for key, s in opt.items()}
+           if isinstance(opt, dict) else slots(opt, specs))
     return TrainState(step=state.step,
                       params=shard_params(state.params, mesh),
-                      opt_state=type(opt)(count=opt.count, **slots))
+                      opt_state=opt)
 
 
 def gather_state(state: TrainState, mesh):
     """This rank's ``TrainState`` -> the global one in host memory on
-    rank 0 (None on the others); every rank calls."""
+    rank 0 (None on the others); every rank calls. A host-offload
+    state's tensors go through the card one at a time (NCCL gathers no
+    host tensor)."""
     opt = state.opt_state
-    if isinstance(opt, dict):
-        raise NotImplementedError("the host-offload optimizer state is not "
-                                  "ported to a mesh yet")
     flat = leaf_paths(state.params)
     params = gather_params(state.params, mesh)
     lead = dist.get_rank() == 0
-    slots = {}
-    for slot in opt.__dataclass_fields__:
-        if slot == "count":
-            continue
-        slots[slot] = {}
-        for p, t in getattr(opt, slot).items():
-            spec = (leaf_spec(p, flat[p]) if t.shape == flat[p].shape
-                    else (None,) * t.dim())
-            full = gather_tensor(t, spec, mesh)
-            slots[slot][p] = full.cpu() if lead else None
+    dev = comm_device(mesh)
+
+    def whole(t, path):
+        spec = (leaf_spec(path, flat[path]) if t.shape == flat[path].shape
+                else (None,) * t.dim())
+        full = gather_tensor(t.to(dev), spec, mesh)
+        return full.cpu() if lead else None
+
+    def slots(s, path_of):
+        return type(s)(count=s.count, **{
+            f: {k: whole(t, path_of(k)) for k, t in getattr(s, f).items()}
+            for f in s.__dataclass_fields__ if f != "count"})
+
+    if isinstance(opt, dict):
+        path = {leaf_key(p): p for p in flat}
+        opt = {key: slots(s, lambda _, key=key: path[key])
+               for key, s in opt.items()}
+    else:
+        opt = slots(opt, lambda p: p)
     if not lead:
         return None
-    return TrainState(step=state.step, params=params,
-                      opt_state=type(opt)(count=opt.count, **slots))
+    return TrainState(step=state.step, params=params, opt_state=opt)
 
 
 #: transfer chunks dispatched beyond the one being consumed: chunk k's
@@ -393,11 +451,12 @@ class _HostStream:
 
 
 def _build_offload_step(cfg: TrainConfig, state: TrainState,
-                        compute_grads) -> Callable:
+                        compute_grads, norm_of, mesh=None) -> Callable:
     """The streamed host-offload arm of ``make_train_step``.
 
     1. **Grad phase (card).** The grad-accum fold and the global norm,
-       the on-card arm's code.
+       the on-card arm's code (on a mesh: the rank's shards, the
+       gradients summed by ``reduce_grads``, ``mesh_global_norm``).
     2. **Streaming phase (host).** Gradient and parameter leaves go
        host-ward on a side CUDA stream into pinned buffers, stacked
        ``(L, ...)`` leaves in slices of ``offload_chunk_layers`` layers,
@@ -409,12 +468,17 @@ def _build_offload_step(cfg: TrainConfig, state: TrainState,
        updates), and the leaf's device gradient is freed.
 
     The update is per leaf while the transfers are per chunk: adafactor's
-    block-RMS clips reduce over whole leaves. Metrics add
-    ``offload_transfer_ms`` (time the host spent blocked on transfers)
-    and ``offload_overlap_frac`` (the share of the streaming phase not
+    block-RMS clips reduce over whole leaves. On a mesh every rank
+    streams its own shards into its own pinned buffers; adafactor's
+    cross-rank sums (row and column means, the block RMS) take the small
+    host vectors to the card, all-reduce them there and bring them back
+    (``optim.LeafLayout``). Metrics add ``offload_transfer_ms`` (time the
+    host spent blocked on transfers, those sums included),
+    ``offload_collective_ms`` (the sums alone) and
+    ``offload_overlap_frac`` (the share of the streaming phase not
     blocked).
     """
-    opt = make_offload_optimizer(cfg.optim, state.params)
+    opt = make_offload_optimizer(cfg.optim, state.params, mesh=mesh)
     keys = opt.keys
     if not (isinstance(state.opt_state, dict)
             and set(state.opt_state) == set(keys)):
@@ -436,8 +500,8 @@ def _build_offload_step(cfg: TrainConfig, state: TrainState,
 
     def step(state: TrainState, batch: dict):
         loss, aux, grads = compute_grads(state.params, batch)
-        gnorm = global_norm(grads)
         params = leaf_paths(state.params)
+        gnorm = norm_of(grads, params)
         g_leaves = [grads.pop(p) for p in opt.paths]
         p_leaves = [params[p] for p in opt.paths]
         if not bufs:
@@ -448,6 +512,7 @@ def _build_offload_step(cfg: TrainConfig, state: TrainState,
         gh, ph = bufs["g"], bufs["p"]
         hs = _HostStream(p_leaves[0].device)
         blocked = 0.0
+        opt.clock[0] = 0.0
         t_stream = time.perf_counter()
         hs.start()
         inflight: deque = deque()
@@ -485,9 +550,11 @@ def _build_offload_step(cfg: TrainConfig, state: TrainState,
                 hs.copy(p_leaves[i].detach(), ph[i])
         hs.finish()
         stream_wall = time.perf_counter() - t_stream
+        blocked += opt.clock[0]
         metrics = {
             "loss": loss, "grad_norm": gnorm, **aux,
             "offload_transfer_ms": blocked * 1e3,
+            "offload_collective_ms": opt.clock[0] * 1e3,
             "offload_overlap_frac": (max(0.0, 1.0 - blocked / stream_wall)
                                      if stream_wall > 0 else 0.0),
         }

@@ -155,6 +155,7 @@ INIT_CASES = {
     "init_fsdp2_tp2_int8_lora": (4, dict(fsdp=2, tp=2), "dense", 8, True, 0),
     "init_fsdp2_int4_lora": (2, dict(fsdp=2), "dense", 4, True, 0),
     "init_ep2_moe": (2, dict(ep=2), "moe", None, False, 0),
+    "init_pp2_fsdp2_lora": (4, dict(pp=2, fsdp=2), "dense", None, True, 0),
 }
 
 
@@ -317,18 +318,23 @@ def test_generate_step_tokens_match_jax(worlds, devices8, name):
 
 
 def test_decode_step_prefill_is_the_rows_forward(worlds):
-    """``make_decode_step``'s prefill logits are each rank's rows of the
-    one-device forward (pads ignored: the prompt as given)."""
+    """``make_decode_step``'s prefill logits are each rank's rows and its
+    tp share of the vocabulary (JAX's come back vocabulary-sharded) of
+    the one-device forward (pads ignored: the prompt as given)."""
     params = _params("dense")
     prompt, _ = _prompt()
     want = np.asarray(jllama.forward(params, jnp.asarray(prompt),
                                      jllama.LlamaConfig.tiny()))
+    V = want.shape[-1]
     for n, name in ((2, "gen_tp2"), (4, "gen_fsdp2_tp2")):
         rows = 1 if n == 2 else 2
         for rank, r in enumerate(_ok(worlds.results()[n][name])):
             b = (rank // (n // rows)) * (4 // rows)
+            c = (rank % 2) * (V // 2)               # tp = 2
+            assert r["prefill_logits_local"].shape == (4 // rows, 12, V // 2)
             np.testing.assert_allclose(
-                r["prefill_logits_local"], want[b:b + 4 // rows], atol=1e-5)
+                r["prefill_logits_local"],
+                want[b:b + 4 // rows, :, c:c + V // 2], atol=1e-5)
 
 
 def test_checkpoint_saved_at_fsdp2_restores_at_tp2_and_world_1(worlds):

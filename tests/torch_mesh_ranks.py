@@ -1,5 +1,7 @@
 """Rank bodies of the port's multi-process tests (``test_torch_mesh.py``,
-``test_torch_sp.py``, ``test_torch_mesh_train.py``).
+``test_torch_sp.py``, ``test_torch_mesh_train.py``,
+``test_torch_pipeline.py``, ``test_torch_mesh_optim.py``,
+``test_torch_mesh_heads.py``).
 
 ``start_worlds`` spawns, for each world size, that many processes that join
 one gloo process group (a ``file://`` rendezvous in the caller's
@@ -33,7 +35,8 @@ class Worlds:
     them and returns at once, so the test process can compute its JAX
     references meanwhile; ``results()`` waits for them (once)."""
 
-    def __init__(self, worlds: dict, workdir, timeout: float):
+    def __init__(self, worlds: dict, workdir, timeout: float,
+                 collective_timeout: float = COLLECTIVE_TIMEOUT_S):
         import multiprocessing as mp
 
         ctx = mp.get_context("spawn")
@@ -49,7 +52,7 @@ class Worlds:
                 for r in range(n):
                     p = ctx.Process(target=_rank_main,
                                     args=(r, n, f"file://{d}/rendezvous",
-                                          cases, d))
+                                          cases, d, collective_timeout))
                     p.start()
                     self.procs.append(p)
         finally:
@@ -89,17 +92,22 @@ class Worlds:
         return out
 
 
-def start_worlds(worlds: dict, workdir, timeout: float = 600) -> Worlds:
+def start_worlds(worlds: dict, workdir, timeout: float = 600,
+                 collective_timeout: float = COLLECTIVE_TIMEOUT_S) -> Worlds:
     """Spawn ``{world size: cases}`` — each case ``(name, function name,
-    kwargs)`` — as gloo worlds of those sizes, all at once."""
-    return Worlds(worlds, workdir, timeout)
+    kwargs)`` — as gloo worlds of those sizes, all at once. A world
+    still running after ``timeout`` seconds is killed and fails its
+    tests; a collective that waits ``collective_timeout`` seconds fails
+    its case."""
+    return Worlds(worlds, workdir, timeout, collective_timeout)
 
 
-def _rank_main(rank, world, init, cases, workdir):
+def _rank_main(rank, world, init, cases, workdir,
+               collective_timeout=COLLECTIVE_TIMEOUT_S):
     torch.set_num_threads(1)
     dist.init_process_group(
         "gloo", init_method=init, world_size=world, rank=rank,
-        timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+        timeout=datetime.timedelta(seconds=collective_timeout))
     out = {}
     try:
         for name, fn, kwargs in cases:
@@ -413,8 +421,7 @@ def generate_tokens(axes: dict, params, prompt, pad_counts,
                               total_len=T + max_new_tokens)
     tokens = step(local, prompt, None, pads)
     rows = B // axis_size(mesh, ("dp", "fsdp"))
-    cache = init_cache(cfg, rows, T + 1, "cpu",
-                       kv_heads=cfg.n_kv_heads // axis_size(mesh, "tp"))
+    cache = init_cache(cfg, rows, T + 1, "cpu", mesh=mesh)
     decode = make_decode_step(local, cfg, mesh)
     spec = cache_shardings(cfg, mesh)
     logits, cache = decode(local, cache, shard_tensor(
@@ -522,3 +529,340 @@ def sharded_init(axes: dict, family: str = "dense", bits: int | None = None,
             p: tuple(t.shape) for p, t in state.opt_state.mu.items()}
         out["fit_losses"] = [h.loss for h in history]
     return out
+
+
+# ---------------------------------------------------------------------
+# the GPipe schedule
+# ---------------------------------------------------------------------
+
+def _local_tree(cfg, params, mesh):
+    from kubeflow_rm_tpu_torch.models.params import from_numpy_params
+    from kubeflow_rm_tpu_torch.parallel.sharding import shard_params
+
+    return shard_params(from_numpy_params(params, cfg, "cpu"), mesh)
+
+
+def pipeline_case(axes: dict, params, batch: dict, n_microbatches=None,
+                  family: str = "dense", overrides: dict | None = None,
+                  grads: bool = False, raw_params: bool = False) -> dict:
+    """``pipeline_forward_with_aux`` on a mesh of ``axes``: the logits
+    (rows gathered) and the router aux; with ``grads`` also the loss of
+    ``tests/test_pipeline.py`` (the global mean NLL of the labels) and
+    every leaf's gradient, gathered on every rank from its own stage's
+    shards. ``raw_params``: the global tree unsharded (the divisibility
+    refusals come before any slicing)."""
+    from kubeflow_rm_tpu_torch.models.params import from_numpy_params
+    from kubeflow_rm_tpu_torch.ops.losses import softmax_cross_entropy
+    from kubeflow_rm_tpu_torch.parallel.collectives import all_reduce
+    from kubeflow_rm_tpu_torch.parallel.mesh import axis_group
+    from kubeflow_rm_tpu_torch.parallel.pipeline import (
+        pipeline_forward_with_aux,
+    )
+    from kubeflow_rm_tpu_torch.parallel.sharded import DATA_AXES
+    from kubeflow_rm_tpu_torch.parallel.sharding import leaf_spec
+    from kubeflow_rm_tpu_torch.training.optim import leaf_paths
+    from kubeflow_rm_tpu_torch.training.train import (
+        reduce_grads, shard_batch,
+    )
+
+    cfg = _model_cfg(family, dict(overrides or {}))
+    mesh = _mesh(**axes)
+    b = {k: torch.from_numpy(v) for k, v in batch.items()}
+    if raw_params:
+        local = from_numpy_params(params, cfg, "cpu")
+    else:
+        local = _local_tree(cfg, params, mesh)
+        b = shard_batch(b, mesh)
+    flat = leaf_paths(local)
+    for t in flat.values():
+        t.requires_grad_(grads)
+    try:
+        with torch.set_grad_enabled(grads):
+            logits, aux = pipeline_forward_with_aux(
+                local, b["tokens"], cfg, mesh,
+                n_microbatches=n_microbatches,
+                positions=b.get("positions"), segments=b.get("segments"),
+                packed="segments" in b)
+    except ValueError as e:
+        return {"value_error": str(e)}
+    out = {"logits": _gather_global(logits, (("dp", "fsdp"), None, None),
+                                    mesh),
+           "aux": None if aux is None else float(aux)}
+    if grads:
+        group = axis_group(mesh, DATA_AXES)
+        loss, _ = softmax_cross_entropy(
+            logits, b["labels"], total=lambda t: all_reduce(t, group))
+        g = dict(zip(flat, torch.autograd.grad(loss, list(flat.values()))))
+        g = reduce_grads(g, flat, mesh)
+        out["loss"] = float(loss)
+        out["grads"] = {p: _gather_global(t, leaf_spec(p, flat[p]), mesh)
+                        for p, t in g.items()}
+    return out
+
+
+def train_step_metrics(axes: dict, params, batch: dict, optim: dict,
+                       n_microbatches=None, overrides: dict | None = None
+                       ) -> dict:
+    """One ``make_train_step`` step on a mesh of ``axes`` (the GPipe
+    schedule at pp > 1): its loss and grad norm."""
+    from kubeflow_rm_tpu_torch.models.params import from_numpy_params
+    from kubeflow_rm_tpu_torch.training.train import (
+        init_train_state, make_train_step, shard_batch,
+    )
+
+    tcfg = _train_cfg("dense", overrides or {}, optim)
+    mesh = _mesh(**axes)
+    state = init_train_state(
+        tcfg, params=from_numpy_params(params, tcfg.model, "cpu"),
+        mesh=mesh)
+    step = make_train_step(tcfg, state, mesh=mesh,
+                           n_microbatches=n_microbatches)
+    _, m = step(state, shard_batch(
+        {k: torch.from_numpy(v) for k, v in batch.items()}, mesh))
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+
+
+def pp_checkpoint(params, batches: list, optim: dict, directory: str,
+                  restore_axes: dict) -> dict:
+    """``fit`` on pp=2 × fsdp=2 (checkpointing at its end), then a
+    restore at ``restore_axes``: whether the restored shards, gathered,
+    equal the state the pp mesh saved, and the local shapes there."""
+    from kubeflow_rm_tpu_torch.models.params import from_numpy_params
+    from kubeflow_rm_tpu_torch.training.checkpoint import Checkpointer
+    from kubeflow_rm_tpu_torch.training.loop import LoopConfig, fit
+    from kubeflow_rm_tpu_torch.training.optim import leaf_paths
+    from kubeflow_rm_tpu_torch.training.train import (
+        gather_state, init_train_state,
+    )
+
+    tcfg = _train_cfg("dense", {"n_layers": 4}, optim)
+    pp = _mesh(pp=2, fsdp=2)
+    state = init_train_state(
+        tcfg, params=from_numpy_params(params, tcfg.model, "cpu"), mesh=pp)
+    pp_shapes = {p: tuple(t.shape)
+                 for p, t in leaf_paths(state.params).items()}
+    state, history = fit(tcfg, iter(batches),
+                         LoopConfig(total_steps=len(batches), log_every=1,
+                                    checkpoint_dir=directory),
+                         state=state, mesh=pp)
+    saved = gather_state(state, pp)
+    other = _mesh(**restore_axes)
+    back = Checkpointer(directory).restore(tcfg, other, device="cpu")
+    whole = gather_state(back, other)
+    out = {"losses": [h.loss for h in history], "step": back.step,
+           "pp_shapes": pp_shapes,
+           "local_shapes": {p: tuple(t.shape)
+                            for p, t in leaf_paths(back.params).items()}}
+    if whole is not None:
+        a, b = leaf_paths(saved.params), leaf_paths(whole.params)
+        out["params_equal"] = all(torch.equal(a[p], b[p]) for p in a)
+        out["moments_equal"] = all(
+            torch.equal(getattr(saved.opt_state, f)[p],
+                        getattr(whole.opt_state, f)[p])
+            for f in ("mu", "nu") for p in saved.opt_state.mu)
+        out["saved_params"] = {p: _np(t) for p, t in a.items()}
+    return out
+
+
+# ---------------------------------------------------------------------
+# adafactor and the host-offload arm on a mesh
+# ---------------------------------------------------------------------
+
+def optimizer_arms(axes: dict, params, batches: list, optim: dict,
+                   grad_accum: int = 1, arms=("none", "optimizer")) -> dict:
+    """``make_train_step`` on a mesh of ``axes`` for each arm (the
+    on-card one and the host-offload one), from the same global state:
+    per arm each step's loss and grad norm, the offload metrics, the
+    final parameters gathered, and whether the host state is in host
+    memory."""
+    from kubeflow_rm_tpu_torch.models.params import from_numpy_params
+    from kubeflow_rm_tpu_torch.parallel.sharding import gather_params
+    from kubeflow_rm_tpu_torch.training.optim import leaf_paths
+    from kubeflow_rm_tpu_torch.training.train import (
+        init_train_state, make_train_step, shard_batch,
+    )
+
+    mesh = _mesh(**axes)
+    out = {}
+    for arm in arms:
+        tcfg = _train_cfg("dense", {}, dict(optim, offload=arm))
+        state = init_train_state(
+            tcfg, params=from_numpy_params(params, tcfg.model, "cpu"),
+            mesh=mesh)
+        step = make_train_step(tcfg, state, grad_accum=grad_accum,
+                               mesh=mesh)
+        losses, norms, extra = [], [], []
+        for b in batches:
+            state, m = step(state, shard_batch(
+                {k: torch.from_numpy(v) for k, v in b.items()}, mesh))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            extra.append({k: float(m[k]) for k in m
+                          if k.startswith("offload_")})
+        full = gather_params(state.params, mesh)
+        res = {"losses": losses, "grad_norms": norms, "metrics": extra,
+               "params": None if full is None else {
+                   p: _np(t) for p, t in leaf_paths(full).items()}}
+        if arm == "optimizer":
+            res["host"] = all(
+                t.device.type == "cpu" for s in state.opt_state.values()
+                for f in s.__dataclass_fields__ if f != "count"
+                for t in getattr(s, f).values())
+        out[arm] = res
+    return out
+
+
+def offload_checkpoint(params, batch: dict, optim: dict, directory: str
+                       ) -> dict:
+    """One offload step at fsdp=2 × tp=2 and a sharded save; a restore
+    at fsdp=4: the host state's slices, gathered, equal the saved one's,
+    and it stays in host memory."""
+    from kubeflow_rm_tpu_torch.models.params import from_numpy_params
+    from kubeflow_rm_tpu_torch.training.checkpoint import Checkpointer
+    from kubeflow_rm_tpu_torch.training.train import (
+        gather_state, init_train_state, make_train_step, shard_batch,
+    )
+
+    tcfg = _train_cfg("dense", {}, dict(optim, offload="optimizer"))
+    mesh = _mesh(fsdp=2, tp=2)
+    state = init_train_state(
+        tcfg, params=from_numpy_params(params, tcfg.model, "cpu"),
+        mesh=mesh)
+    step = make_train_step(tcfg, state, mesh=mesh)
+    state, _ = step(state, shard_batch(
+        {k: torch.from_numpy(v) for k, v in batch.items()}, mesh))
+    ck = Checkpointer(directory)
+    ck.save(state, mesh=mesh)
+    saved = gather_state(state, mesh)
+    other = _mesh(fsdp=4)
+    back = Checkpointer(directory).restore(tcfg, other, device="cpu")
+    host = all(t.device.type == "cpu" for s in back.opt_state.values()
+               for f in s.__dataclass_fields__ if f != "count"
+               for t in getattr(s, f).values())
+    whole = gather_state(back, other)
+    out = {"host": host, "keys_equal": set(back.opt_state) ==
+           set(state.opt_state)}
+    if whole is not None:
+        out["opt_equal"] = all(
+            torch.equal(getattr(saved.opt_state[k], f)["leaf"],
+                        getattr(whole.opt_state[k], f)["leaf"])
+            and saved.opt_state[k].count == whole.opt_state[k].count
+            for k in saved.opt_state
+            for f in saved.opt_state[k].__dataclass_fields__
+            if f != "count")
+        out["saved_opt"] = {k: {f: _np(getattr(s, f)["leaf"])
+                                for f in s.__dataclass_fields__
+                                if f != "count"}
+                            for k, s in saved.opt_state.items()}
+    return out
+
+
+def offload_refusals(optim: dict) -> dict:
+    """The host-offload arm's refusals on a mesh: pp > 1 (JAX's words)
+    and ``train_only``."""
+    from kubeflow_rm_tpu_torch.training.train import (
+        init_train_state, make_train_step,
+    )
+
+    out = {}
+    tcfg = _train_cfg("dense", {"n_layers": 2},
+                      dict(optim, offload="optimizer"))
+    mesh = _mesh(pp=2, fsdp=dist.get_world_size() // 2)
+    state = init_train_state(tcfg, torch.Generator().manual_seed(0),
+                             device="cpu", mesh=mesh)
+    try:
+        make_train_step(tcfg, state, mesh=mesh)
+        out["pp"] = None
+    except ValueError as e:
+        out["pp"] = str(e)
+    lcfg = _train_cfg("dense", {}, dict(optim, offload="optimizer",
+                                       train_only="lora"))
+    try:
+        init_train_state(lcfg, torch.Generator().manual_seed(0),
+                         device="cpu", mesh=_mesh(fsdp=dist.get_world_size()))
+        out["train_only"] = None
+    except ValueError as e:
+        out["train_only"] = str(e)
+    return out
+
+
+def fit_offload_metrics(axes: dict, batches: list, optim: dict) -> dict:
+    """``fit`` with ``LoopConfig(offload="optimizer")`` on a mesh of
+    ``axes`` from a fresh draw: the records' steps, losses and offload
+    metrics."""
+    from kubeflow_rm_tpu_torch.training.loop import LoopConfig, fit
+
+    tcfg = _train_cfg("dense", {}, dict(optim, offload="optimizer"))
+    mesh = _mesh(**axes)
+    state, history = fit(tcfg, iter(batches),
+                         LoopConfig(total_steps=len(batches),
+                                    log_every=len(batches),
+                                    offload="optimizer"),
+                         mesh=mesh, device="cpu")
+    return {"step": state.step,
+            "records": [{"loss": h.loss, "transfer_ms":
+                         h.offload_transfer_ms,
+                         "overlap": h.offload_overlap_frac}
+                        for h in history]}
+
+
+# ---------------------------------------------------------------------
+# the vocabulary on tp
+# ---------------------------------------------------------------------
+
+def vocab_parallel_loss(logits, labels, z_loss: float) -> dict:
+    """``softmax_cross_entropy`` of this rank's vocabulary columns of the
+    global (B, T, V) ``logits`` over the world (``vocab_group``) against
+    the same loss of the whole logits: both losses and aux terms, and
+    each one's gradient in this rank's columns."""
+    from kubeflow_rm_tpu_torch.ops.losses import softmax_cross_entropy
+
+    n, r = dist.get_world_size(), dist.get_rank()
+    V = logits.shape[-1] // n
+    lab = torch.from_numpy(labels)
+    whole = torch.from_numpy(logits).requires_grad_(True)
+    local = torch.from_numpy(np.ascontiguousarray(
+        logits[..., r * V:(r + 1) * V])).requires_grad_(True)
+    out = {}
+    for name, x, kw in (("gathered", whole, {}),
+                        ("parallel", local,
+                         {"vocab_group": dist.group.WORLD})):
+        loss, aux = softmax_cross_entropy(x, lab, z_loss=z_loss, **kw)
+        (g,) = torch.autograd.grad(loss, [x])
+        if name == "gathered":
+            g = g[..., r * V:(r + 1) * V]
+        out[name] = {"loss": float(loss),
+                     "aux": {k: float(v) for k, v in aux.items()},
+                     "grad": _np(g)}
+    return out
+
+
+def loss_gathers(axes: dict, params, batch: dict) -> dict:
+    """How many times ``loss_fn`` on a mesh of ``axes`` gathers logits
+    over tp (``MeshView.head``'s ``gather_from_group``), and how many
+    times the public ``forward`` does."""
+    from kubeflow_rm_tpu_torch.models import forward_with_aux
+    from kubeflow_rm_tpu_torch.parallel import sharded
+    from kubeflow_rm_tpu_torch.training.train import loss_fn, shard_batch
+
+    tcfg = _train_cfg("dense", {}, {})
+    mesh = _mesh(**axes)
+    local = _local_tree(tcfg.model, params, mesh)
+    b = shard_batch({k: torch.from_numpy(v) for k, v in batch.items()},
+                    mesh)
+    calls = []
+    real = sharded.gather_from_group
+
+    def spy(x, group, dim):
+        calls.append(tuple(x.shape))
+        return real(x, group, dim)
+
+    sharded.gather_from_group = spy
+    try:
+        loss_fn(local, b, tcfg, mesh)
+        in_loss = len(calls)
+        with torch.no_grad():
+            forward_with_aux(local, b["tokens"], tcfg.model, mesh=mesh)
+    finally:
+        sharded.gather_from_group = real
+    return {"in_loss": in_loss, "in_forward": len(calls) - in_loss}
