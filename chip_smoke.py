@@ -105,6 +105,23 @@ prints one JSON line per phase:
    fine-tuning at fsdp=2 × tp=2 against one rank; and the host-offload
    arm on that mesh against the on-card arm. A one-card machine prints
    ``{"phase": "mesh_multi", "skipped": "1 card"}``.
+17. torchcheck — the program auditor (``analysis/torchcheck``) on the
+   card: the cost model's self-check; the planner's walk of four reduced
+   rungs (1.2B adamw mb2 dots, 2.7B and 7B adafactor mb1 full, each at
+   an accumulation of 2, and the train phase's 7B LoRA step) against
+   ``torch.cuda.max_memory_allocated()`` over one real step with the
+   state resident, each within ``PLAN_RTOL``; the 13B adamw rung, which
+   the planner rejects, in a subprocess of its own that must end in
+   ``torch.cuda.OutOfMemoryError`` before it completes a step (the one
+   expected failure); the pricer's verdicts on the 7B declarations for
+   1 and 4 cards and its advice for the 13B one; the engine phase's
+   requests through both cache arms with the host-sync probe and the
+   signature sentinel on (witnesses per region and site, every
+   signature limit held), and one engine step's syncs as the CUDA
+   runtime counts them (``set_sync_debug_mode("warn")``) beside the
+   probe's; and ``utils.profiling.trace`` of one 7B LoRA step, whose
+   trace must name the three kernels, their device times beside the
+   kernels phase's.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
 line, and last ``{"ok": true, "device": {...}}``. A failed check ends
@@ -2860,6 +2877,430 @@ def phase_offload_mesh1(card, two_layer):
     return launches
 
 
+# torchcheck: the reduced rungs the planner is held to on the card (name,
+# preset, optimizer, batch rows, accumulation, remat, LoRA rank or 0).
+# Each runs with its own microbatch and remat and an accumulation of 2
+# (the walk's own: from two microbatches on, the step's peak repeats);
+# the 7B LoRA rung is the train phase's step (one packed 2 × 2048 batch).
+PLAN_RUNGS = (
+    ("1.2B full-FT adamw mb2 dots seq2048", "bench_1b", "adamw", 4, 2,
+     "dots", 0),
+    ("2.7B full-FT adafactor mb1 full", "bench_2_7b", "adafactor", 2, 2,
+     "full", 0),
+    ("7B full-FT adafactor mb1 full seq2048", "llama2_7b", "adafactor", 2,
+     2, "full", 0),
+    ("7B LoRA r16 wq/wv dots (the train phase's step)", "llama2_7b",
+     "adamw", 2, 1, "dots", 16),
+)
+# the planner's peak against the allocator's, either way: the bound JAX
+# held its anchors to (tests/test_jaxcheck.py)
+PLAN_RTOL = 0.10
+# the rung the card must reject, run in a subprocess of its own
+OOM_RUNG = ("13B full-FT adamw mb1 full seq2048", "llama2_13b", "adamw", 2,
+            2, "full", 0)
+
+
+def _rung_cfg(rung):
+    """(TrainConfig, packed?) of a ``PLAN_RUNGS`` entry, at seq 2048."""
+    from kubeflow_rm_tpu_torch.analysis.torchcheck.memplan import (
+        model_config,
+    )
+    from kubeflow_rm_tpu_torch.training.optim import OptimConfig
+    from kubeflow_rm_tpu_torch.training.train import TrainConfig
+
+    _, preset, optim, _, _, remat, lora = rung
+    model = model_config(preset, remat, 2048)
+    optim_cfg = OptimConfig(factored=optim == "adafactor",
+                            train_only="lora" if lora else None)
+    return TrainConfig(model=model, optim=optim_cfg), bool(lora)
+
+
+def _rung_params(rung, cfg, gen, device):
+    """The rung's parameters on ``device`` (adapters for a LoRA rung),
+    or None for the model's own draw."""
+    from kubeflow_rm_tpu_torch.models import init_params
+    from kubeflow_rm_tpu_torch.models.lora import add_lora
+
+    lora = rung[-1]
+    if not lora:
+        return None
+    return add_lora(init_params(cfg, gen, device), lora, generator=gen,
+                    targets=("wq", "wv"))
+
+
+def _rung_batch(rung, cfg, packed: bool) -> dict:
+    import torch
+
+    rows = rung[3]
+    if packed:
+        host = packed_rows(rows, 2048, cfg.vocab_size, seed=3)
+    else:
+        import numpy as np
+
+        rng = np.random.default_rng(5)
+        host = {k: rng.integers(1, cfg.vocab_size, (rows, 2048))
+                .astype(np.int32) for k in ("tokens", "labels")}
+    return {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+
+
+def measure_rung(rung) -> dict:
+    """One real step of a reduced rung on the card, its state already
+    resident: ``max_memory_allocated`` after ``reset_peak_memory_stats``,
+    less what was allocated before the rung's state was built."""
+    import gc
+
+    import torch
+
+    from kubeflow_rm_tpu_torch.training.train import (
+        init_train_state, make_train_step,
+    )
+
+    tcfg, packed = _rung_cfg(rung)
+    gc.collect()
+    torch.cuda.empty_cache()
+    outside = torch.cuda.memory_allocated()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = init_train_state(tcfg, gen, device="cuda",
+                             params=_rung_params(rung, tcfg.model, gen,
+                                                 "cuda"))
+    step = make_train_step(tcfg, state, grad_accum=rung[4])
+    batch = _rung_batch(rung, tcfg.model, packed)
+    _, metrics = step(state, batch)          # builds kernels, cuBLAS
+    loss = float(metrics["loss"])
+    del metrics
+    gc.collect()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() - outside
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - outside
+    loss2 = float(metrics["loss"])
+    del state, step, batch, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(peak_bytes=peak, resident_bytes=resident, step_ms=ms,
+                losses=[loss, loss2])
+
+
+def oom_child() -> int:
+    """Run in a subprocess of its own (``phase_torchcheck``): build the
+    13B adamw rung's state on the card and take one step. Prints one
+    JSON line: where the card ran out of memory, or that the step
+    completed (the planner then was wrong)."""
+    import torch
+
+    from kubeflow_rm_tpu_torch.training.train import (
+        init_train_state, make_train_step,
+    )
+
+    tcfg, packed = _rung_cfg(OOM_RUNG)
+    where = "init"
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        state = init_train_state(tcfg, gen, device="cuda")
+        where = "step"
+        step = make_train_step(tcfg, state, grad_accum=OOM_RUNG[4])
+        _, metrics = step(state, _rung_batch(OOM_RUNG, tcfg.model, packed))
+        torch.cuda.synchronize()
+    except torch.cuda.OutOfMemoryError as e:
+        print(json.dumps({
+            "oom": True, "where": where, "error": str(e).splitlines()[0],
+            "allocated_gb": torch.cuda.memory_allocated() / 1e9,
+            "max_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}),
+            flush=True)
+        return 0
+    print(json.dumps({"oom": False, "loss": float(metrics["loss"])}),
+          flush=True)
+    return 0
+
+
+def trace_kernel_ms(path: str) -> dict:
+    """Device time of each flash kernel in a Chrome trace: per kernel
+    name, the launches and the mean ms a launch."""
+    with open(path, encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    out = {}
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        durs = [e["dur"] for e in events
+                if e.get("cat") == "kernel"
+                and name + "_kernel" in e.get("name", "")]
+        out[name] = dict(launches=len(durs),
+                         ms=(sum(durs) / len(durs) / 1e3) if durs else None)
+    return out
+
+
+def probe_engine(params, cfg) -> dict:
+    """The engine phase's requests through both arms with the host-sync
+    probe and the signature sentinel on; then one step's syncs as the
+    CUDA runtime counts them (``set_sync_debug_mode("warn")``) beside
+    the probe's count of the same step."""
+    import collections
+    import gc
+    import warnings
+
+    import torch
+
+    from kubeflow_rm_tpu_torch.analysis.torchcheck import (
+        hostsync, recompile,
+    )
+    from kubeflow_rm_tpu_torch.models.generate import ContinuousBatchingEngine
+
+    reqs, candidates, chain_prompt = engine_traffic(cfg.vocab_size)
+    spec_prompt, _ = speculative_prompt(params, cfg, candidates, SPEC_NEW)
+    reqs.append(dict(prompt=spec_prompt, new=SPEC_NEW, slo_class="batch",
+                     speculative=True))
+    kw = dict(slots=ENGINE_SLOTS, slot_len=ENGINE_SLOT_LEN,
+              block_size=ENGINE_BLOCK)
+
+    def site(w):
+        # the innermost frame in the port: where the sync was asked for
+        lines = [ln.strip() for ln in w["stack"].splitlines()
+                 if ln.strip().startswith('File "')]
+        ours = [ln for ln in lines if "kubeflow_rm_tpu_torch" in ln]
+        return (ours or lines or ["?"])[-1].split("kubeflow_rm_tpu_torch/")[
+            -1]
+
+    out = {}
+    hostsync.set_enabled(True)
+    recompile.set_enabled(True)
+    hostsync.install()
+    try:
+        for arm in ("paged", "contiguous"):
+            hostsync.reset()
+            recompile.reset()
+            paged = arm == "paged"
+            chain = None
+            if paged:
+                pf = ContinuousBatchingEngine(params, cfg, **dict(kw, slots=1))
+                chain = pf.prefill_chain(chain_prompt)
+                del pf
+                hostsync.reset()
+                recompile.reset()
+            eng = ContinuousBatchingEngine(params, cfg, paged=paged, **kw)
+            handles, _, wall, _, _ = run_engine(eng, reqs, chain)
+            steps = eng.decode_steps
+            prefills = eng.prefills
+            wit = hostsync.witnesses()
+            by_region = collections.defaultdict(collections.Counter)
+            for w in wit:
+                by_region[w["region"]][(w["kind"], site(w))] += 1
+            rep = recompile.report()
+            out[arm] = dict(
+                decode_steps=steps, prefills=prefills, wall_s=wall,
+                done=all(h.done for h in handles),
+                witnesses={r: dict(total=sum(c.values()),
+                                   per_decode_step=sum(c.values()) / steps,
+                                   sites=[dict(kind=k, site=s, count=n)
+                                          for (k, s), n in c.most_common()])
+                           for r, c in by_region.items()},
+                sentinel={e: dict(signatures=v["signatures"],
+                                  calls=v["calls"], limit=v["limit"])
+                          for e, v in rep.items()},
+                over_limit=recompile.over_limit())
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # one engine step of 8 live slots: the CUDA runtime's syncs and
+        # the probe's witnesses of the same step (a region around it
+        # catches the syncs outside the engine's own regions)
+        eng = ContinuousBatchingEngine(params, cfg, paged=True, **kw)
+        for r in reqs[:ENGINE_SLOTS]:
+            eng.submit(r["prompt"], max_new_tokens=r["new"],
+                       slo_class=r["slo_class"])
+        for _ in range(3):
+            eng.step()
+        torch.cuda.synchronize()
+        hostsync.reset()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with hostsync.region("engine.step"):
+                    eng.step()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        runtime = [w for w in caught
+                   if "called a synchronizing" in str(w.message)]
+        probe = hostsync.witnesses()
+        out["one_step"] = dict(
+            cuda_runtime_syncs=len(runtime),
+            # the Python line of each: warnings name the caller's frame
+            cuda_runtime_sites=dict(collections.Counter(
+                f"{w.filename.split('kubeflow_rm_tpu_torch/')[-1]}:"
+                f"{w.lineno}" for w in runtime)),
+            probe_witnesses=len(probe),
+            probe_sites=dict(collections.Counter(
+                f"{w['region']} {w['kind']} {site(w)}" for w in probe)))
+        del eng
+    finally:
+        hostsync.uninstall()
+        hostsync.set_enabled(False)
+        recompile.set_enabled(False)
+        hostsync.reset()
+        recompile.reset()
+    return out
+
+
+def phase_torchcheck(card, timing):
+    """The program auditor on the card: the planner against the
+    allocator on four reduced rungs, the 13B rung's OOM in a subprocess
+    of its own, the pricer's verdicts, the probe and the sentinel on the
+    7B engine, a profiler trace of one 7B LoRA step, and the cost
+    model's self-check. ``timing`` is the kernels phase's (for the
+    profiler's kernel times beside the smoke's own)."""
+    import gc
+    import os
+    import tempfile
+
+    import torch
+
+    from kubeflow_rm_tpu_torch.analysis.torchcheck import memplan, pricer
+    from kubeflow_rm_tpu_torch.analysis.torchcheck.costmodel import selfcheck
+    from kubeflow_rm_tpu_torch.models.llama import LlamaConfig, init_params
+    from kubeflow_rm_tpu_torch.models.lora import add_lora
+    from kubeflow_rm_tpu_torch.training.data import to_device
+    from kubeflow_rm_tpu_torch.training.optim import OptimConfig
+    from kubeflow_rm_tpu_torch.training.train import (
+        TrainConfig, init_train_state, make_train_step,
+    )
+    from kubeflow_rm_tpu_torch.utils import profiling
+
+    failures = selfcheck()
+    emit("torchcheck", part="selfcheck", card=card, failures=failures)
+    check(not failures, f"cost model selfcheck: {failures}")
+
+    dev = memplan.card()
+    rows = []
+    for rung in PLAN_RUNGS:
+        tcfg, packed = _rung_cfg(rung)
+        t0 = time.perf_counter()
+        w = memplan.walk_train_step(
+            tcfg, rung[3], rung[4], packed=packed,
+            params_fn=None if not rung[-1] else
+            (lambda g, r=rung, c=tcfg.model: _rung_params(r, c, g, "meta")))
+        walk_s = time.perf_counter() - t0
+        m = measure_rung(rung)
+        delta = (w["peak_bytes"] - m["peak_bytes"]) / m["peak_bytes"]
+        rows.append(dict(
+            rung=rung[0], batch=rung[3], grad_accum=rung[4],
+            microbatch=rung[3] // rung[4], remat=rung[5], seq=2048,
+            walk_s=walk_s, predicted_peak_gb=w["peak_bytes"] / 1e9,
+            measured_peak_gb=m["peak_bytes"] / 1e9,
+            delta_pct=100 * delta,
+            predicted_state_gb=(w["params_bytes"] + w["opt_state_bytes"])
+            / 1e9,
+            measured_resident_gb=m["resident_bytes"] / 1e9,
+            predicted_fit=memplan.fits(w["peak_bytes"],
+                                       dev["total_memory"]),
+            step_ms=m["step_ms"], losses=m["losses"]))
+        emit("torchcheck", part="plan_vs_allocator", card=card, **rows[-1])
+    for r in rows:
+        check(abs(r["delta_pct"]) <= 100 * PLAN_RTOL,
+              f"{r['rung']}: predicted {r['predicted_peak_gb']:.3f} GB, "
+              f"measured {r['measured_peak_gb']:.3f} GB "
+              f"({r['delta_pct']:+.1f}% > {PLAN_RTOL:.0%})")
+
+    # the rung the card must reject: its own process, which must end in
+    # torch.cuda.OutOfMemoryError before it completes a step
+    tcfg, packed = _rung_cfg(OOM_RUNG)
+    w = memplan.walk_train_step(tcfg, OOM_RUNG[3], OOM_RUNG[4])
+    gc.collect()
+    torch.cuda.empty_cache()
+    here = os.path.dirname(os.path.abspath(__file__))
+    child = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, chip_smoke; sys.exit(chip_smoke.oom_child())"],
+        cwd=here, capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in child.stdout.splitlines() if ln.startswith("{")]
+    result = json.loads(lines[-1]) if lines else None
+    emit("torchcheck", part="oom_rung", card=card, rung=OOM_RUNG[0],
+         batch=OOM_RUNG[3], grad_accum=OOM_RUNG[4],
+         predicted_peak_gb=w["peak_bytes"] / 1e9,
+         predicted_fit=memplan.fits(w["peak_bytes"], dev["total_memory"]),
+         total_memory_gb=dev["total_memory"] / 1e9, child_rc=child.returncode,
+         child=result, child_stderr=child.stderr[-800:] if result is None
+         else None)
+    check(not memplan.fits(w["peak_bytes"], dev["total_memory"]),
+          "the planner predicts the 13B adamw rung fits")
+    check(result is not None and result.get("oom") is True,
+          f"the 13B adamw rung did not end in OutOfMemoryError: {result}")
+
+    # the pricer with the card's budget
+    decls = {
+        "7B adafactor": {"preset": "llama2_7b", "optim": "adafactor",
+                         "batch": 32, "grad_accum": 32, "remat": "full",
+                         "seq": 2048},
+        "7B adamw": {"preset": "llama2_7b", "optim": "adamw", "batch": 32,
+                     "grad_accum": 32, "remat": "full", "seq": 2048},
+    }
+    verdicts = {}
+    for label, raw in decls.items():
+        decl = pricer.parse(raw)
+        for chips in (1, 4):
+            v = pricer.price(decl, chips=chips)
+            verdicts[f"{label} x{chips}"] = {
+                k: v[k] for k in ("verdict", "predicted_peak_gb",
+                                  "predicted_peak_per_chip_gb",
+                                  "budget_per_chip_gb", "binds",
+                                  "breakdown_gb", "flops_per_step")}
+    big = pricer.parse({"preset": "llama2_13b", "optim": "adamw",
+                        "batch": 32, "grad_accum": 32, "remat": "full",
+                        "seq": 2048})
+    advice = {chips: dict(verdict=pricer.price(big, chips=chips)["verdict"],
+                          advice=pricer.advise(big, chips=chips))
+              for chips in (1, 4)}
+    emit("torchcheck", part="pricer", card=card, card_gib=pricer.card_gib(),
+         verdicts=verdicts, advise_13b_adamw=advice)
+
+    # the probe and the sentinel on the 7B engine; a profiler trace of
+    # one 7B LoRA step
+    cfg = LlamaConfig.llama2_7b(param_dtype=torch.bfloat16)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    probes = probe_engine(params, cfg)
+    emit("torchcheck", part="hostsync_and_sentinel", card=card, **probes)
+    for arm in ("paged", "contiguous"):
+        p = probes[arm]
+        check(p["done"], f"{arm}: a request never ended")
+        check(p["over_limit"] == [],
+              f"{arm}: a signature limit broke: {p['over_limit']}")
+        check(p["sentinel"]["engine.prefill"]["limit"]
+              == ENGINE_SLOT_LEN.bit_length()
+              and p["sentinel"]["engine.decode_step"]["limit"] == 1,
+              f"{arm}: limits not declared: {p['sentinel']}")
+
+    lp = add_lora(params, 16, generator=torch.Generator(device="cuda")
+                  .manual_seed(2), targets=("wq", "wv"))
+    tcfg = TrainConfig(model=cfg, optim=OptimConfig(train_only="lora"))
+    state = init_train_state(tcfg, params=lp)
+    step = make_train_step(tcfg, state)
+    batch = to_device(packed_rows(2, 2048, cfg.vocab_size, seed=3), "cuda")
+    step(state, batch)
+    torch.cuda.synchronize()
+    reset_launches()
+    with tempfile.TemporaryDirectory(prefix="kfrm_trace_") as logdir:
+        with profiling.trace(logdir) as prof:
+            with profiling.annotate("train.step"):
+                step(state, batch)
+        launches = read_launches()
+        kernels = trace_kernel_ms(prof.trace_path)
+        trace_bytes = os.path.getsize(prof.trace_path)
+    emit("torchcheck", part="profiler", card=card, trace_bytes=trace_bytes,
+         launches=launches,
+         trace_kernels={k: dict(**v, smoke_ms=timing.get(k, {}).get("ms"))
+                        for k, v in kernels.items()})
+    for name, v in kernels.items():
+        check(v["launches"] > 0, f"the trace names no {name} kernel")
+    del state, step, lp, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2922,6 +3363,9 @@ def main() -> int:
     multi = run("mesh_multi", phase_mesh_multi)
     if multi is not None:
         paths["mesh_multi_pipeline"] = multi["pipeline"]["launches"]
+    torch.cuda.empty_cache()
+    paths["torchcheck_profile"] = run("torchcheck", phase_torchcheck, smi,
+                                      timing)
     if failures:
         print("chip_smoke: FAILED\n  " + "\n  ".join(failures),
               file=sys.stderr)

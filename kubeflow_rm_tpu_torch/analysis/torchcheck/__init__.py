@@ -1,0 +1,31 @@
+"""torchcheck: auditing what the port's programs do to the card
+(counterpart of ``kubeflow_rm_tpu/analysis/jaxcheck``).
+
+- :mod:`.costmodel` — a walker of eager programs on meta tensors with a
+  per-op FLOPs/bytes model and a live-range peak-memory estimator that
+  honours donation (the port's in-place updates), so "this config OOMs"
+  becomes a prediction instead of a burned card-hour;
+- :mod:`.memplan` — runs the cost model over the full-FT ladder for one
+  card (its ``total_memory`` read from the card or given);
+- :mod:`.pricer` — the memplan walker shaped for the control plane's
+  admission path: parses and bounds a declared-workload annotation,
+  prices it against the card's budget (memoized), and runs the
+  auto-config advisor ladder for rejected configs;
+- :mod:`.recompile` — an opt-in signature sentinel
+  (``KFRM_JIT_SENTINEL=1``, free when off) that records (shape, dtype,
+  static-arg) signatures per entry point and flags unbounded growth;
+- :mod:`.hostsync` — probes for implicit device→host transfers
+  (``bool()``, ``.item()``, ``np.asarray`` on tensors) inside decode and
+  train loops, reported with witness stacks.
+
+``python -m kubeflow_rm_tpu_torch.analysis.torchcheck`` runs the cost
+model's self-check. The JAX gate also runs lint rules KFRM006-008 over
+``jax.jit`` sites; their torch counterparts need a copy of
+``analysis/lint`` and are not here yet.
+"""
+
+from __future__ import annotations
+
+from .costmodel import CostEstimate, estimate, selfcheck, to_meta
+
+__all__ = ["CostEstimate", "estimate", "selfcheck", "to_meta"]

@@ -27,6 +27,10 @@ and the block-paged pool of ``models.paging``. Speculative decoding
 (``generate_speculative_fused``) is a host loop with one sync a round,
 where JAX runs one ``lax.while_loop`` program.
 
+The engine notes each prefill and decode call for the signature
+sentinel and runs it inside the host-sync probe's ``engine.prefill`` /
+``engine.decode`` region (``analysis.torchcheck``; free when off).
+
 Every entry point takes plain and quantized trees alike
 (``models.quantize``). ``generate_fused`` and the speculative decoder
 unpack packed int4 once per call, before the decode loop, and the
@@ -40,6 +44,10 @@ from dataclasses import dataclass
 
 import torch
 
+from kubeflow_rm_tpu_torch.analysis.torchcheck import hostsync as _hostsync
+from kubeflow_rm_tpu_torch.analysis.torchcheck import (
+    recompile as _jit_sentinel,
+)
 from kubeflow_rm_tpu_torch.models.llama import (
     LlamaConfig, _epilogue, _mlp, _projector, embed, layer_params,
     stacked_layers,
@@ -748,6 +756,13 @@ class ContinuousBatchingEngine:
         self.speculative_requests = 0
         self.speculative_model_calls = 0
         self._spec_finished: list[EngineRequest] = []
+        if _jit_sentinel.enabled():
+            # prompt lengths bucket to powers of two (_bucket_len), so a
+            # pow-2 slot_len admits at most log2(slot_len)+1 prefill
+            # shapes; decode always runs the full (slots,) batch — ONE
+            # shape, ever. The sentinel turns both into assertions.
+            _jit_sentinel.set_limit("engine.prefill", slot_len.bit_length())
+            _jit_sentinel.set_limit("engine.decode_step", 1)
 
     def _tensor(self, rows, dtype=torch.int32) -> torch.Tensor:
         return torch.tensor(rows, dtype=dtype, device=self.device)
@@ -977,7 +992,10 @@ class ContinuousBatchingEngine:
         padded = self._tensor([[0] * (Tb - Tp) + req.prompt])
         pads = self._tensor([Tb - Tp])
         tmp = init_cache(self.cfg, 1, self.slot_len, self.device)
-        logits, tmp = decode_chunk(self.params, self.cfg, tmp, padded, pads)
+        _jit_sentinel.note("engine.prefill", padded)
+        with _hostsync.region("engine.prefill"):
+            logits, tmp = decode_chunk(self.params, self.cfg, tmp, padded,
+                                       pads)
         _install_row(self.cache, tmp, i, Tp)
         return logits[0, -1, :]
 
@@ -1032,10 +1050,12 @@ class ContinuousBatchingEngine:
 
         suffix = prompt[plan["n_hit"]:]
         Tc = _bucket_len(len(suffix))
-        return paging.paged_prefill(
-            self.params, self.cfg, self.cache, plan["load_row"],
-            plan["n_hit"], self._tensor([suffix + [0] * (Tc - len(suffix))]),
-            len(suffix))
+        padded = self._tensor([suffix + [0] * (Tc - len(suffix))])
+        _jit_sentinel.note("engine.prefill", padded)
+        with _hostsync.region("engine.prefill"):
+            return paging.paged_prefill(
+                self.params, self.cfg, self.cache, plan["load_row"],
+                plan["n_hit"], padded, len(suffix))
 
     def _register(self, keys, final_row) -> None:
         parent = None
@@ -1226,9 +1246,12 @@ class ContinuousBatchingEngine:
         if n_active:
             decode = (paging.paged_decode_step if self.paged
                       else slot_decode_step)
-            last, self.cache = decode(
-                self.params, self.cfg, self.cache, self._tensor(tokens),
-                self._tensor(active, torch.bool))
+            tok_t = self._tensor(tokens)
+            act_t = self._tensor(active, torch.bool)
+            _jit_sentinel.note("engine.decode_step", tok_t, act_t)
+            with _hostsync.region("engine.decode"):
+                last, self.cache = decode(self.params, self.cfg, self.cache,
+                                          tok_t, act_t)
             for i in range(self.slots):
                 if active[i]:
                     self._last[i] = last[i]

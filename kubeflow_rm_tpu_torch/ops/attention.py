@@ -22,11 +22,38 @@ in memory.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import torch
 
 NEG_INF = -2.0**30  # large-but-finite: keeps fp32 softmax NaN-free on fully masked rows
 
 IMPLS = ("auto", "flash", "dense")
+
+#: the device type the dispatch decision takes a tensor to be on (None:
+#: its own). The cost model's walk sets "cuda" so that fake CPU tensors
+#: take the card's path (``analysis.torchcheck.costmodel``).
+_AS_DEVICE: contextvars.ContextVar[str | None] = contextvars.ContextVar(
+    "kfrm_as_device", default=None)
+
+
+@contextlib.contextmanager
+def as_device(kind: str | None):
+    """Within the block, ``impl="auto"`` decides as if every tensor lay
+    on a device of type ``kind`` ("cuda": the flash op wherever
+    ``flash_eligible``); None leaves the decision to the tensors."""
+    token = _AS_DEVICE.set(kind)
+    try:
+        yield
+    finally:
+        _AS_DEVICE.reset(token)
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether the dispatch decision takes ``t`` to be on the card."""
+    kind = _AS_DEVICE.get()
+    return t.is_cuda if kind is None else kind == "cuda"
 
 
 def attention_mask(
@@ -119,7 +146,7 @@ def dot_product_attention(
             "positions; use impl='dense' (packed sequences need only "
             "segment ids)")
     use_flash = impl == "flash" or (
-        impl == "auto" and q.is_cuda
+        impl == "auto" and on_card(q)
         and flash_eligible(q, k, causal=causal, positions_q=positions_q,
                            bias=bias))
     if use_flash:

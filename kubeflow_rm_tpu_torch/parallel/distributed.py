@@ -20,6 +20,7 @@ The backend is NCCL for a CUDA device and gloo for the CPU.
 
 from __future__ import annotations
 
+import atexit
 import os
 from dataclasses import dataclass
 
@@ -97,7 +98,11 @@ def initialize(environ=None, port: int = DEFAULT_COORDINATOR_PORT,
       ``MEGASCALE_COORDINATOR_ADDRESS``), rank ``process_id``.
 
     ``device`` (None: the card) picks the backend. A process that has
-    already joined a group returns at once.
+    already joined a group returns at once. A group joined here is left
+    at interpreter exit (``shutdown``, registered with ``atexit``): a
+    gloo group still alive when the interpreter tears down its threads
+    can abort the process (``terminate called without an active
+    exception``) after its work is done.
     """
     from kubeflow_rm_tpu_torch.device import default_device
 
@@ -117,6 +122,7 @@ def initialize(environ=None, port: int = DEFAULT_COORDINATOR_PORT,
         dist.init_process_group(backend=backend,
                                 init_method=f"tcp://{addr}:{master_port}",
                                 world_size=world, rank=rank)
+        atexit.register(shutdown)
         return env
     if not env.is_multihost:
         return env
@@ -127,7 +133,14 @@ def initialize(environ=None, port: int = DEFAULT_COORDINATOR_PORT,
     dist.init_process_group(backend=backend,
                             init_method=f"tcp://{coordinator}:{port}",
                             world_size=env.num_hosts, rank=env.process_id)
+    atexit.register(shutdown)
     return env
+
+
+def shutdown() -> None:
+    """Leave the default process group, if this process is in one."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def world_size() -> int:

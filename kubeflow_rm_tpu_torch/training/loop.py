@@ -29,6 +29,7 @@ from typing import Any, Callable, Iterable
 import torch
 import torch.distributed as dist
 
+from kubeflow_rm_tpu_torch.analysis.torchcheck import hostsync as _hostsync
 from kubeflow_rm_tpu_torch.training.checkpoint import Checkpointer
 from kubeflow_rm_tpu_torch.training.data import to_device
 from kubeflow_rm_tpu_torch.training.train import (
@@ -156,7 +157,11 @@ def fit(cfg: TrainConfig, data: Iterable[dict], loop: LoopConfig = LoopConfig(),
             if mesh is not None:
                 host = shard_batch(host, mesh)
             dev_batch = to_device(host, dev)
-            state, metrics = step_fn(state, dev_batch)
+            # hot region: the step must not wait on the card — the
+            # deliberate metric reads below run outside it
+            # (KFRM_HOSTSYNC_PROBE records any implicit sync in here)
+            with _hostsync.region("train.step"):
+                state, metrics = step_fn(state, dev_batch)
             now = i + 1
             if now == start + 1:
                 # one sync after the first step: start-up (kernel builds,

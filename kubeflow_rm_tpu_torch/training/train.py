@@ -47,6 +47,7 @@ from typing import Callable
 import torch
 import torch.distributed as dist
 
+from kubeflow_rm_tpu_torch.analysis.torchcheck import hostsync as _hostsync
 from kubeflow_rm_tpu_torch.models import forward_with_aux, init_params
 from kubeflow_rm_tpu_torch.models.llama import LlamaConfig
 from kubeflow_rm_tpu_torch.models.lora import is_lora_name
@@ -60,6 +61,7 @@ from kubeflow_rm_tpu_torch.parallel.sharding import (
     SPEC_ATTR, batch_pspec, gather_params, gather_tensor, leaf_spec,
     local_slices, param_shardings, shard_params, shard_tensor,
 )
+from kubeflow_rm_tpu_torch.utils.profiling import annotate
 from kubeflow_rm_tpu_torch.training.optim import (
     AdamState, FactoredState, OptimConfig, global_norm, host_put, leaf_key,
     leaf_paths, make_offload_optimizer, make_optimizer,
@@ -289,13 +291,17 @@ def make_train_step(cfg: TrainConfig, state: TrainState,
                              f"grad_accum={grad_accum}")
         grads, losses, auxes = None, [], []
         for m in range(grad_accum):
-            micro = {k: v[m::grad_accum] for k, v in batch.items()}
-            loss_m, aux_m, g = grads_of(params, micro)
-            losses.append(loss_m)
-            auxes.append(aux_m)
-            grads = g if grads is None else {
-                k: grads[k] + g[k] for k in grads}
-            del g
+            # a named region: the profiler's trace shows each
+            # microbatch, and the cost model counts the rest of an
+            # accumulation from one (analysis.torchcheck.memplan)
+            with annotate("train.microbatch"):
+                micro = {k: v[m::grad_accum] for k, v in batch.items()}
+                loss_m, aux_m, g = grads_of(params, micro)
+                losses.append(loss_m)
+                auxes.append(aux_m)
+                grads = g if grads is None else {
+                    k: grads[k] + g[k] for k in grads}
+                del g
         grads = {k: g / grad_accum for k, g in grads.items()}
         loss = torch.stack(losses).mean()
         aux = {k: torch.stack([a[k] for a in auxes]).mean()
@@ -498,10 +504,15 @@ def _build_offload_step(cfg: TrainConfig, state: TrainState,
     # at the first step and reused
     bufs: dict = {}
 
+    def grad_phase(params: dict, batch: dict):
+        """The step's work on the card: the gradients and their global
+        norm (what the cost model walks for the on-card peak)."""
+        loss, aux, grads = compute_grads(params, batch)
+        return loss, aux, grads, norm_of(grads, leaf_paths(params))
+
     def step(state: TrainState, batch: dict):
-        loss, aux, grads = compute_grads(state.params, batch)
+        loss, aux, grads, gnorm = grad_phase(state.params, batch)
         params = leaf_paths(state.params)
-        gnorm = norm_of(grads, params)
         g_leaves = [grads.pop(p) for p in opt.paths]
         p_leaves = [params[p] for p in opt.paths]
         if not bufs:
@@ -514,7 +525,6 @@ def _build_offload_step(cfg: TrainConfig, state: TrainState,
         blocked = 0.0
         opt.clock[0] = 0.0
         t_stream = time.perf_counter()
-        hs.start()
         inflight: deque = deque()
         pos = 0
 
@@ -526,13 +536,15 @@ def _build_offload_step(cfg: TrainConfig, state: TrainState,
             hs.copy(gh[i][sl], g_leaves[i].detach()[sl])
             inflight.append(hs.copy(ph[i][sl], p_leaves[i].detach()[sl]))
 
-        for _ in range(min(1 + _STREAM_LOOKAHEAD, len(work))):
-            dispatch_next()
-        t1 = time.perf_counter()
-        gnorm_host = gnorm.to("cpu")
-        blocked += time.perf_counter() - t1
-
-        with torch.no_grad():
+        # the transfers and the host's update ARE this arm: the probe
+        # tallies their syncs under the site instead of witnessing them
+        with _hostsync.sanctioned("train.offload_stream"), torch.no_grad():
+            hs.start()
+            for _ in range(min(1 + _STREAM_LOOKAHEAD, len(work))):
+                dispatch_next()
+            t1 = time.perf_counter()
+            gnorm_host = gnorm.to("cpu")
+            blocked += time.perf_counter() - t1
             for i, key in enumerate(keys):
                 for _ in range(1 if chunks[i] is None else len(chunks[i])):
                     ev = inflight.popleft()
@@ -548,7 +560,7 @@ def _build_offload_step(cfg: TrainConfig, state: TrainState,
                                 gnorm_host)
                 # back to the card behind this leaf's own transfers
                 hs.copy(p_leaves[i].detach(), ph[i])
-        hs.finish()
+            hs.finish()
         stream_wall = time.perf_counter() - t_stream
         blocked += opt.clock[0]
         metrics = {
@@ -563,4 +575,9 @@ def _build_offload_step(cfg: TrainConfig, state: TrainState,
 
     step.chunk_plan = dict(zip(keys, chunks))
     step.offload = "optimizer"
+    step.grad_phase = grad_phase
+    # the card holds no staging buffer of the stream: the transfers land
+    # in pinned host memory and the new leaf goes straight into the
+    # parameter
+    step.stream_slot_bytes = 0
     return step

@@ -48,8 +48,15 @@ def test_port_files_exist():
     # the import rule above reaches every subpackage of the port
     packages = {p.parent.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert {"kubeflow_rm_tpu_torch/training", "kubeflow_rm_tpu_torch/utils",
-            "kubeflow_rm_tpu_torch/models",
-            "kubeflow_rm_tpu_torch/ops"} <= packages
+            "kubeflow_rm_tpu_torch/models", "kubeflow_rm_tpu_torch/ops",
+            "kubeflow_rm_tpu_torch/analysis/torchcheck"} <= packages
+    # the auditor's modules, each the counterpart of a JAX module
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for mod in ("__init__", "__main__", "costmodel", "memplan", "pricer",
+                "hostsync", "recompile"):
+        assert f"kubeflow_rm_tpu_torch/analysis/torchcheck/{mod}.py" in names
+    assert {"kubeflow_rm_tpu_torch/utils/profiling.py",
+            "kubeflow_rm_tpu_torch/utils/pytree.py"} <= names
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
