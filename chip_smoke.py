@@ -102,15 +102,23 @@ prints one JSON line per phase:
    at world 4) on the same LoRA recipe with a batch of 8 × 2048 in 4
    microbatches against one rank (losses, grad norms, launches, step
    time, the measured bubble beside GPipe's 0.2); adafactor full
-   fine-tuning at fsdp=2 × tp=2 against one rank; and the host-offload
-   arm on that mesh against the on-card arm. A one-card machine prints
+   fine-tuning at fsdp=2 × tp=2 against one rank; the host-offload
+   arm on that mesh against the on-card arm; greedy decode on a pp=2
+   mesh (pp=2 × fsdp=2 at world 4) and, on four cards, a 2-KV-head model
+   at tp=4 (the K/V heads repeated): LoRA losses against one rank and
+   decode tokens equal to one card's (decode in float32). Each rank
+   joins through the launcher's torchrun env of a one-host slice
+   (``launcher/torchrun.py``). A one-card machine prints
    ``{"phase": "mesh_multi", "skipped": "1 card"}``.
 17. torchcheck — the program auditor (``analysis/torchcheck``) on the
-   card: the cost model's self-check; the planner's walk of four reduced
-   rungs (1.2B adamw mb2 dots, 2.7B and 7B adafactor mb1 full, each at
-   an accumulation of 2, and the train phase's 7B LoRA step) against
-   ``torch.cuda.max_memory_allocated()`` over one real step with the
-   state resident, each within ``PLAN_RTOL``; the 13B adamw rung, which
+   card: the cost model's self-check; the planner's walk of five reduced
+   rungs (1.2B adamw mb2 dots, 2.7B and 7B adafactor mb1 full, 7B adamw
+   mb1 full, each at an accumulation of 2, and the train phase's 7B LoRA
+   step) against ``torch.cuda.max_memory_allocated()`` over one real
+   step with the state resident, each within ``PLAN_RTOL``, beside the
+   walk's peak for the step before its accumulation added in place, and
+   the same rows as the admission seam's drift gauge (below the
+   warn-only SLO's 0.2); the 13B adamw rung, which
    the planner rejects, in a subprocess of its own that must end in
    ``torch.cuda.OutOfMemoryError`` before it completes a step (the one
    expected failure); the pricer's verdicts on the 7B declarations for
@@ -121,7 +129,19 @@ prints one JSON line per phase:
    runtime counts them (``set_sync_debug_mode("warn")``) beside the
    probe's; and ``utils.profiling.trace`` of one 7B LoRA step, whose
    trace must name the three kernels, their device times beside the
-   kernels phase's.
+   kernels phase's; then 3 steps of the 7B LoRA ``fit`` and two of the
+   7B adafactor rung under the probe, the sentinel and the control
+   plane's probe bridges: no witness in ``train.step`` and
+   ``implicit_hostsyncs_total{tenant="default"}`` unmoved, the CUDA
+   runtime's syncs of the adafactor step reported.
+18. seams  — the control plane's seams into the port: the admission
+   pricer over a recorder API on the H100 slice table (its memory
+   against this card's within 1%; the 7B and 13B declarations on one-
+   and four-card Notebooks, every stamp equal to the pricer's own
+   answer), the lint gate (``python -m
+   kubeflow_rm_tpu_torch.analysis.torchcheck``, exit 0) and the
+   launcher (``WorkerAgent`` on a one-host webhook env: ``/healthz``
+   200 once ``join_slice`` has formed a one-rank NCCL world).
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
 line, and last ``{"ok": true, "device": {...}}``. A failed check ends
@@ -134,6 +154,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -1766,9 +1787,12 @@ def phase_mesh1(cfg, params, train_ref):
     return paths
 
 
-def _mesh_multi_rank(rank: int, world: int, init: str, result: str,
+def _mesh_multi_rank(rank: int, world: int, port: int, result: str,
                      backend: str, preset: str, layers: int, T: int):
-    """One rank of the ``mesh_multi`` phase (a spawned process)."""
+    """One rank of the ``mesh_multi`` phase (a spawned process): its
+    rendezvous env is the launcher's for card ``rank`` of a one-host
+    slice of ``world`` cards (``launcher/torchrun.py``), joined through
+    ``parallel.distributed.initialize``."""
     import torch
     import torch.distributed as dist
 
@@ -1792,13 +1816,24 @@ def _mesh_multi_rank(rank: int, world: int, init: str, result: str,
         reduce_grads, shard_batch,
     )
 
+    from kubeflow_rm_tpu_torch.launcher.torchrun import torchrun_env
+    from kubeflow_rm_tpu_torch.parallel.distributed import initialize
+
     cuda = backend == "nccl"
     dev = torch.device("cuda", rank) if cuda else torch.device("cpu")
-    if cuda:
-        torch.cuda.set_device(dev)
-    dist.init_process_group(backend, init_method=init, world_size=world,
-                            rank=rank)
-    out = {"world": world}
+    # the webhook's env of a one-host slice, mapped to this card's
+    # torchrun env; initialize sets the card (LOCAL_RANK) and joins
+    rendezvous = torchrun_env(
+        {"TPU_WORKER_ID": "0", "TPU_WORKER_HOSTNAMES": "localhost",
+         "TPU_ACCELERATOR_TYPE": f"h100-80gb-{world}"},
+        cards_per_host=world, local_rank=rank, master_port=port)
+    initialize(rendezvous, device=dev)
+    if dist.get_backend() != backend or dist.get_world_size() != world \
+            or dist.get_rank() != rank:
+        raise AssertionError(f"rank {rank}: joined {dist.get_backend()} "
+                             f"world {dist.get_world_size()} as rank "
+                             f"{dist.get_rank()}")
+    out = {"world": world, "rendezvous": rendezvous}
     try:
         dtype = torch.bfloat16 if cuda else torch.float32
         cfg = getattr(LlamaConfig, preset)(n_layers=layers, dtype=dtype,
@@ -1945,6 +1980,10 @@ def _mesh_multi_rank(rank: int, world: int, init: str, result: str,
             torch.cuda.empty_cache()
         out["adafactor"], out["offload"] = _multi_optimizers(world, dev,
                                                              cfg, T)
+        if cuda:
+            torch.cuda.empty_cache()
+        out["pp_decode"], out["kv_heads"] = _multi_decode_and_heads(
+            world, dev, preset, layers, T)
     finally:
         dist.destroy_process_group()
     if rank == 0:
@@ -2188,6 +2227,94 @@ def _multi_optimizers(world: int, dev, cfg, T: int):
                  "streamed": arms["optimizer"]}
 
 
+def _multi_decode_and_heads(world: int, dev, preset: str, layers: int,
+                            T: int):
+    """Greedy decode on a pp=2 mesh (pp=2 × fsdp=2 at world 4) and, on
+    four cards, K/V heads repeated where tp exceeds them: the model with
+    2 KV heads at tp=4, ``MESH_STEPS`` LoRA steps against one rank, then
+    greedy decode there. Decode runs in float32, its reference
+    ``generate_fused`` of the whole tree on this card: in bf16 the mesh's
+    sums in another order move logits by their last bit, which flips
+    argmaxes of a randomly initialised model."""
+    import numpy as np
+    import torch
+
+    from kubeflow_rm_tpu_torch.models import init_params
+    from kubeflow_rm_tpu_torch.models.generate import (
+        generate_fused, make_generate_step,
+    )
+    from kubeflow_rm_tpu_torch.models.llama import LlamaConfig
+    from kubeflow_rm_tpu_torch.models.lora import add_lora
+    from kubeflow_rm_tpu_torch.parallel.mesh import (
+        MeshConfig, make_mesh, mesh_shape,
+    )
+    from kubeflow_rm_tpu_torch.parallel.sharded import kv_heads_local
+    from kubeflow_rm_tpu_torch.training.data import to_device
+    from kubeflow_rm_tpu_torch.training.optim import OptimConfig
+    from kubeflow_rm_tpu_torch.training.train import TrainConfig, shard_batch
+
+    cuda = dev.type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    new, plen = 16, 32
+
+    def decode(cfg, mc):
+        mesh = make_mesh(mc, dev)
+        gen = (lambda: torch.Generator(device=dev).manual_seed(6))
+        local = init_params(cfg, gen(), dev, mesh=mesh)
+        rng = np.random.default_rng(8)
+        prompt = torch.from_numpy(rng.integers(
+            1, cfg.vocab_size, (4, plen)).astype(np.int32)).to(dev)
+        step = make_generate_step(local, cfg, mesh, max_new_tokens=new,
+                                  total_len=plen + new)
+        got = step(local, prompt, None, None)
+        del local
+        want = generate_fused(init_params(cfg, gen(), dev), cfg, prompt,
+                              max_new_tokens=new)
+        return {"mesh": mesh_shape(mesh), "rows": 4, "new_tokens": new,
+                "tokens_equal": bool(torch.equal(got.cpu(), want.cpu())),
+                "differing_tokens": int((got.cpu() != want.cpu()).sum())}
+
+    fp32 = dict(dtype=torch.float32, param_dtype=torch.float32)
+    base = getattr(LlamaConfig, preset)
+    pp = decode(base(n_layers=layers, **fp32),
+                MeshConfig(pp=2, fsdp=world // 2))
+    if cuda:
+        torch.cuda.empty_cache()
+    if world < 4:
+        return pp, {"skipped": f"tp=4 needs 4 cards, {world} here"}
+
+    # 2 KV heads over tp=4 ranks (each rank repeats its K/V head)
+    dtype = torch.bfloat16 if cuda else torch.float32
+    cfg = base(n_layers=layers, n_kv_heads=2, dtype=dtype, param_dtype=dtype)
+    mesh = make_mesh(MeshConfig(tp=4), dev)
+
+    def draw(m):
+        p = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                        dev, mesh=m)
+        return add_lora(p, 16, generator=torch.Generator(device=dev)
+                        .manual_seed(2), targets=("wq", "wv"), mesh=m)
+
+    tcfg = TrainConfig(model=cfg, optim=OptimConfig(
+        train_only="lora", learning_rate=TRAIN_LR, warmup_steps=1))
+    batch = to_device(packed_rows(2, T, cfg.vocab_size, seed=3), dev)
+    reset_launches()
+    _, _, rec = _mesh_steps(tcfg, draw(mesh), shard_batch(batch, mesh), mesh,
+                            MESH_STEPS)
+    rec["launches"] = read_launches()
+    if cuda:
+        torch.cuda.empty_cache()
+    _, _, rec["one_rank"] = _mesh_steps(tcfg, draw(None), batch, None,
+                                        MESH_STEPS)
+    if cuda:
+        torch.cuda.empty_cache()
+    heads = {"mesh": mesh_shape(mesh), "n_heads": cfg.n_heads,
+             "n_kv_heads": cfg.n_kv_heads,
+             "kv_heads_local": kv_heads_local(cfg, 4), "lora": rec,
+             "decode": decode(base(n_layers=layers, n_kv_heads=2, **fp32),
+                              MeshConfig(tp=4))}
+    return pp, heads
+
+
 def phase_mesh_multi(backend: str = "nccl", preset: str = "llama2_7b",
                      layers: int = 4, T: int = 2048):
     """Only where the machine has two or more cards: ``min(count, 4)``
@@ -2213,8 +2340,8 @@ def phase_mesh_multi(backend: str = "nccl", preset: str = "llama2_7b",
     with tempfile.TemporaryDirectory() as d:
         result = f"{d}/mesh_multi.json"
         mp.start_processes(_mesh_multi_rank, nprocs=world, start_method="spawn",
-                           args=(world, f"file://{d}/rendezvous", result,
-                                 backend, preset, layers, T))
+                           args=(world, free_port(), result, backend,
+                                 preset, layers, T))
         with open(result) as f:
             out = json.load(f)
     lora = out["lora"]
@@ -2262,6 +2389,28 @@ def phase_mesh_multi(backend: str = "nccl", preset: str = "llama2_7b",
         check(pipe["launches"] == want,
               f"mesh_multi pipeline launches {pipe['launches']}, expected "
               f"{want}")
+    rdv = out["rendezvous"]          # rank 0's
+    check((rdv["RANK"], rdv["LOCAL_RANK"], rdv["WORLD_SIZE"])
+          == ("0", "0", str(world)),
+          f"mesh_multi rendezvous env of rank 0: {rdv}")
+    dec = out["pp_decode"]
+    check(dec["tokens_equal"],
+          f"mesh_multi decode on {dec['mesh']}: {dec['differing_tokens']} "
+          f"tokens differ from one rank's")
+    heads = out["kv_heads"]
+    if world == 4:
+        lo = heads["lora"]
+        for i in range(MESH_STEPS):
+            for what, tol in (("losses", MESH_LOSS_RTOL),
+                              ("grad_norms", MESH_GNORM_RTOL)):
+                a, b = lo[what][i], lo["one_rank"][what][i]
+                check(abs(a - b) <= tol * abs(b),
+                      f"mesh_multi tp=4 over {heads['n_kv_heads']} KV heads "
+                      f"step {i + 1} {what}: {a} vs one rank {b} (rtol {tol})")
+        check(heads["decode"]["tokens_equal"],
+              f"mesh_multi decode at tp=4 over 2 KV heads: "
+              f"{heads['decode']['differing_tokens']} tokens differ from "
+              f"one rank's")
     on, st = off["on_card"], off["streamed"]
     check(st["losses"][0] == on["losses"][0]
           and st["grad_norms"][0] == on["grad_norms"][0],
@@ -2889,9 +3038,21 @@ PLAN_RUNGS = (
      "full", 0),
     ("7B full-FT adafactor mb1 full seq2048", "llama2_7b", "adafactor", 2,
      2, "full", 0),
+    ("7B full-FT adamw mb1 full seq2048", "llama2_7b", "adamw", 2, 2,
+     "full", 0),
     ("7B LoRA r16 wq/wv dots (the train phase's step)", "llama2_7b",
      "adamw", 2, 1, "dots", 16),
 )
+# the walk's peak of each rung, in GB, while the step's gradient
+# accumulation rebuilt its sum out of place (the old sum, a microbatch's
+# tree and the new sum alive at once; added in place it holds two): the
+# planner's prediction for the step before that repair, shown beside
+# the new one (the same walk over that step's code, on a CPU)
+OUT_OF_PLACE_PEAK_GB = {
+    PLAN_RUNGS[0][0]: 15.951, PLAN_RUNGS[1][0]: 21.508,
+    PLAN_RUNGS[2][0]: 53.913, PLAN_RUNGS[3][0]: 80.861,
+    PLAN_RUNGS[4][0]: 30.588,
+}
 # the planner's peak against the allocator's, either way: the bound JAX
 # held its anchors to (tests/test_jaxcheck.py)
 PLAN_RTOL = 0.10
@@ -3160,6 +3321,11 @@ def phase_torchcheck(card, timing):
 
     from kubeflow_rm_tpu_torch.analysis.torchcheck import memplan, pricer
     from kubeflow_rm_tpu_torch.analysis.torchcheck.costmodel import selfcheck
+    from kubeflow_rm_tpu_torch.controlplane import metrics as cp_metrics
+    from kubeflow_rm_tpu_torch.controlplane.obs import slo
+    from kubeflow_rm_tpu_torch.controlplane.webhook.admission_pricer import (
+        record_declared_drift,
+    )
     from kubeflow_rm_tpu_torch.models.llama import LlamaConfig, init_params
     from kubeflow_rm_tpu_torch.models.lora import add_lora
     from kubeflow_rm_tpu_torch.training.data import to_device
@@ -3189,6 +3355,7 @@ def phase_torchcheck(card, timing):
             rung=rung[0], batch=rung[3], grad_accum=rung[4],
             microbatch=rung[3] // rung[4], remat=rung[5], seq=2048,
             walk_s=walk_s, predicted_peak_gb=w["peak_bytes"] / 1e9,
+            predicted_peak_gb_out_of_place=OUT_OF_PLACE_PEAK_GB[rung[0]],
             measured_peak_gb=m["peak_bytes"] / 1e9,
             delta_pct=100 * delta,
             predicted_state_gb=(w["params_bytes"] + w["opt_state_bytes"])
@@ -3203,6 +3370,17 @@ def phase_torchcheck(card, timing):
               f"{r['rung']}: predicted {r['predicted_peak_gb']:.3f} GB, "
               f"measured {r['measured_peak_gb']:.3f} GB "
               f"({r['delta_pct']:+.1f}% > {PLAN_RTOL:.0%})")
+    # the same rows as the admission seam's drift gauge: the worst
+    # |measured - predicted| / predicted, below the warn-only SLO's limit
+    drift = record_declared_drift([
+        {"priced_on_chip_peak_gb": r["predicted_peak_gb"],
+         "native_on_chip_peak_gb": r["measured_peak_gb"]} for r in rows])
+    emit("torchcheck", part="declared_drift", card=card, ratio=drift,
+         gauge=cp_metrics.DECLARED_HBM_DRIFT_RATIO.get(),
+         limit=slo.DECLARED_HBM_DRIFT_LIMIT)
+    check(drift < slo.DECLARED_HBM_DRIFT_LIMIT,
+          f"declared_hbm_drift_ratio {drift} >= "
+          f"{slo.DECLARED_HBM_DRIFT_LIMIT}")
 
     # the rung the card must reject: its own process, which must end in
     # torch.cuda.OutOfMemoryError before it completes a step
@@ -3295,10 +3473,280 @@ def phase_torchcheck(card, timing):
                         for k, v in kernels.items()})
     for name, v in kernels.items():
         check(v["launches"] > 0, f"the trace names no {name} kernel")
-    del state, step, lp, params
+    del state, step
+    gc.collect()
+    fit_launches = probe_training(cfg, lp, card)
+    del lp, params
     gc.collect()
     torch.cuda.empty_cache()
+    return launches, fit_launches
+
+
+def probe_training(cfg, lp, card) -> dict:
+    """Training under the host-sync probe, the signature sentinel and
+    the control plane's probe bridges: 3 steps of ``fit`` on the 7B LoRA
+    tree ``lp``, then one step of the 7B full-FT adafactor rung (where
+    the factored update's scalar rounding sits). No witness may fall in
+    ``train.step`` and ``implicit_hostsyncs_total{tenant="default"}``
+    must not move; the CUDA runtime's count of the adafactor step's
+    syncs is reported beside them. Returns the LoRA fit's launches."""
+    import gc
+    import warnings
+
+    import torch
+
+    from kubeflow_rm_tpu_torch.analysis.torchcheck import (
+        hostsync, recompile,
+    )
+    from kubeflow_rm_tpu_torch.controlplane import metrics as cp_metrics
+    from kubeflow_rm_tpu_torch.controlplane.obs import slo
+    from kubeflow_rm_tpu_torch.training.data import to_device
+    from kubeflow_rm_tpu_torch.training.loop import LoopConfig, fit
+    from kubeflow_rm_tpu_torch.training.optim import OptimConfig
+    from kubeflow_rm_tpu_torch.training.train import (
+        TrainConfig, init_train_state, make_train_step,
+    )
+
+    syncs = cp_metrics.IMPLICIT_HOSTSYNCS_TOTAL
+    recompiles = cp_metrics.JIT_RECOMPILES_TOTAL
+    hostsync.set_enabled(True)
+    recompile.set_enabled(True)
+    hostsync.install()
+    slo.install_probe_bridges()
+    out = {}
+    try:
+        hostsync.reset()
+        recompile.reset()
+        before = syncs.get(tenant="default"), recompiles.get(tenant="default")
+        tcfg = TrainConfig(model=cfg, optim=OptimConfig(
+            train_only="lora", learning_rate=TRAIN_LR, warmup_steps=1))
+        host = packed_rows(2, 2048, cfg.vocab_size, seed=3)
+        reset_launches()
+        _, history = fit(tcfg, iter([host] * 3),
+                         LoopConfig(total_steps=3, log_every=1),
+                         state=init_train_state(tcfg, params=lp))
+        torch.cuda.synchronize()
+        launches = read_launches()
+        out["lora_fit"] = dict(
+            steps=len(history), losses=[h.loss for h in history],
+            step_ms=[h.step_time_ms for h in history], launches=launches,
+            witnesses=len(hostsync.witnesses()))
+
+        rung = PLAN_RUNGS[2]                  # 7B full-FT adafactor
+        rcfg, packed = _rung_cfg(rung)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        state = init_train_state(rcfg, gen, device="cuda")
+        step = make_train_step(rcfg, state, grad_accum=rung[4])
+        batch = _rung_batch(rung, rcfg.model, packed)
+        with hostsync.region("train.step"):
+            state, metrics = step(state, batch)   # builds, warms up
+        loss1 = float(metrics["loss"])
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with hostsync.region("train.step"):
+                    state, metrics = step(state, batch)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        runtime = [w for w in caught
+                   if "called a synchronizing" in str(w.message)]
+        sites = {}
+        for w in runtime:
+            at = (f"{w.filename.split('kubeflow_rm_tpu_torch/')[-1]}:"
+                  f"{w.lineno}")
+            sites[at] = sites.get(at, 0) + 1
+        out["adafactor_step"] = dict(
+            rung=rung[0], losses=[loss1, float(metrics["loss"])],
+            cuda_runtime_syncs=len(runtime), cuda_runtime_sites=sites)
+        del state, step, batch, metrics
+        wit = hostsync.witnesses()
+        out["train_step_witnesses"] = [
+            dict(region=w["region"], kind=w["kind"]) for w in wit
+            if w["region"] == "train.step"]
+        out["implicit_hostsyncs_total_default"] = (
+            syncs.get(tenant="default") - before[0])
+        out["jit_recompiles_total_default"] = (
+            recompiles.get(tenant="default") - before[1])
+        out["rate_limits_per_s"] = slo.RATE_LIMITS_PER_S
+    finally:
+        hostsync.uninstall()
+        hostsync.set_enabled(False)
+        recompile.set_enabled(False)
+        hostsync.reset()
+        recompile.reset()
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit("torchcheck", part="training_under_probes", card=card, **out)
+    check(out["lora_fit"]["steps"] == 3
+          and all(math.isfinite(h) for h in out["lora_fit"]["losses"]),
+          f"the probed LoRA fit: {out['lora_fit']}")
+    check(out["train_step_witnesses"] == [],
+          f"implicit syncs in train.step: {out['train_step_witnesses']}")
+    check(out["implicit_hostsyncs_total_default"] == 0,
+          f"implicit_hostsyncs_total{{tenant=\"default\"}} moved by "
+          f"{out['implicit_hostsyncs_total_default']}")
     return launches
+
+
+class RecorderAPI:
+    """The two calls the admission seam makes on an API server: it runs
+    the registered plugins on a create, as the server's admission chain
+    does, and keeps the events."""
+
+    def __init__(self):
+        self.plugins, self.events = [], []
+
+    def register_admission(self, kind: str, fn) -> None:
+        self.plugins.append((kind, fn))
+
+    def record_event(self, obj, etype, reason, message) -> None:
+        self.events.append(dict(name=obj["metadata"]["name"], type=etype,
+                                reason=reason, message=message))
+
+    def create(self, obj: dict) -> dict:
+        for kind, fn in self.plugins:
+            if kind == obj["kind"]:
+                obj = fn("CREATE", obj, None) or obj
+        return obj
+
+
+# PERF.md's declarations, priced through the admission seam on one- and
+# four-card H100 Notebook CRs: (label, declaration, accelerator types)
+SEAM_DECLARATIONS = (
+    ("7B adafactor", {"preset": "llama2_7b", "optim": "adafactor",
+                      "batch": 32, "grad_accum": 32, "remat": "full",
+                      "seq": 2048}, ("h100-80gb-1", "h100-80gb-4")),
+    ("7B adamw", {"preset": "llama2_7b", "optim": "adamw", "batch": 32,
+                  "grad_accum": 32, "remat": "full", "seq": 2048},
+     ("h100-80gb-1", "h100-80gb-4")),
+    ("13B adamw", {"preset": "llama2_13b", "optim": "adamw", "batch": 32,
+                   "grad_accum": 32, "remat": "full", "seq": 2048},
+     ("h100-80gb-1",)),
+)
+
+
+def phase_seams(card, device: str = "cuda"):
+    """The control plane's seams into the port, on the card's machine:
+    the admission seam over a recorder API (the H100 slice table against
+    this card's memory; every stamped verdict, advisor and annotation
+    equal to the pricer's own answer), the lint gate
+    (``python -m kubeflow_rm_tpu_torch.analysis.torchcheck``, exit 0),
+    and the launcher (``WorkerAgent`` on a one-host webhook env:
+    ``/healthz`` answers 200 once ``join_slice`` has formed a one-rank
+    NCCL world). ``device="cpu"`` rehearses it without a card (gloo, and
+    the table's own memory in place of the card's)."""
+    import os
+    import urllib.request
+
+    import torch
+    import torch.distributed as dist
+
+    from kubeflow_rm_tpu_torch.analysis.torchcheck import pricer
+    from kubeflow_rm_tpu_torch.controlplane.api import gpu
+    from kubeflow_rm_tpu_torch.controlplane.webhook.admission_pricer import (
+        AdmissionPricer,
+    )
+    from kubeflow_rm_tpu_torch.launcher.agent import WorkerAgent
+
+    # the admission seam
+    topo = gpu.lookup("h100-80gb-1")
+    card_gib = (torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+                if device == "cuda" else topo.hbm_gib_per_chip)
+    table_err = abs(topo.hbm_gib_per_chip - card_gib) / card_gib
+    api = RecorderAPI()
+    AdmissionPricer(api).register()
+    stamped, mismatches = {}, []
+    for label, decl, types in SEAM_DECLARATIONS:
+        for acc in types:
+            name = f"{label.replace(' ', '-').lower()}-{acc}"
+            obj = api.create({
+                "apiVersion": "kubeflow.org/v1", "kind": "Notebook",
+                "metadata": {"name": name, "namespace": "smoke",
+                             "annotations": {
+                                 gpu.DECLARED_WORKLOAD_ANNOTATION:
+                                     json.dumps(decl)}},
+                "spec": {"tpu": {"acceleratorType": acc}}})
+            t = gpu.lookup(acc)
+            parsed = pricer.parse(decl)
+            want = pricer.price(parsed, chips=t.cards,
+                                hbm_gib_per_chip=t.hbm_gib_per_chip)
+            want["accelerator_type"] = acc
+            if want["verdict"] == "rejected":
+                want["advisor"] = pricer.advise(
+                    parsed, chips=t.cards,
+                    hbm_gib_per_chip=t.hbm_gib_per_chip)
+            adm = obj.get("status", {}).get("admission")
+            ann = obj["metadata"]["annotations"]
+            if adm != want or ann.get(gpu.PREDICTED_HBM_ANNOTATION) != str(
+                    want["predicted_peak_gb"]) or ann.get(
+                    gpu.PREDICTED_FLOPS_ANNOTATION) != str(
+                    want["flops_per_step"]):
+                mismatches.append(name)
+            stamped[f"{label} x{t.cards}"] = dict(
+                verdict=adm and adm["verdict"],
+                predicted_peak_gb=adm and adm["predicted_peak_gb"],
+                predicted_peak_per_chip_gb=adm
+                and adm["predicted_peak_per_chip_gb"],
+                budget_per_chip_gb=adm and adm["budget_per_chip_gb"],
+                binds=adm and adm["binds"],
+                advisor=adm and adm.get("advisor"))
+    emit("seams", part="admission", card=card,
+         table_hbm_gib=topo.hbm_gib_per_chip, card_hbm_gib=card_gib,
+         table_rel_err=table_err, verdicts=stamped,
+         events=[(e["name"], e["reason"]) for e in api.events],
+         mismatches=mismatches)
+    check(table_err <= 0.01,
+          f"h100-80gb-1 table memory {topo.hbm_gib_per_chip} GiB vs the "
+          f"card's {card_gib} GiB")
+    check(not mismatches, f"the seam's stamps differ from the pricer's "
+                          f"answers: {mismatches}")
+
+    # the lint gate, as the card's machine runs it
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    gate = subprocess.run(
+        [sys.executable, "-m", "kubeflow_rm_tpu_torch.analysis.torchcheck",
+         "--json"], cwd=here, capture_output=True, text=True, timeout=600)
+    report = json.loads(gate.stdout) if gate.returncode in (0, 1) else None
+    emit("seams", part="lint_gate", card=card, rc=gate.returncode,
+         seconds=time.perf_counter() - t0, report=report,
+         stderr=gate.stderr[-800:] if gate.returncode else None)
+    check(gate.returncode == 0, f"the torchcheck gate exited "
+                                f"{gate.returncode}: {report}")
+
+    # the launcher: a one-host webhook env through the worker agent
+    check(not dist.is_initialized(), "a process group is already open")
+    agent = WorkerAgent({"TPU_WORKER_ID": "0",
+                         "TPU_WORKER_HOSTNAMES": "localhost",
+                         "TPU_ACCELERATOR_TYPE": "h100-80gb-1"},
+                        cards_per_host=1, health_port=0,
+                        master_port=free_port(), device=device)
+    port = agent.start_health_server()
+    try:
+        t0 = time.perf_counter()
+        agent.join_slice(retry_interval_s=1.0, max_attempts=3)
+        join_s = time.perf_counter() - t0
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                    timeout=30) as r:
+            status, body = r.status, json.loads(r.read())
+        x = torch.ones(4, device=device)
+        dist.all_reduce(x)
+        world = dict(backend=dist.get_backend(), size=dist.get_world_size(),
+                     rank=dist.get_rank(), all_reduce=x.sum().item())
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        agent._httpd.shutdown()
+        agent._httpd.server_close()
+    emit("seams", part="launcher", card=card, healthz=status, body=body,
+         join_s=join_s, world=world)
+    check(status == 200 and body["ready"], f"/healthz: {status} {body}")
+    check(world["backend"] == ("nccl" if device == "cuda" else "gloo")
+          and world["size"] == 1
+          and world["rank"] == 0 and world["all_reduce"] == 4.0,
+          f"the agent's world: {world}")
 
 
 def main() -> int:
@@ -3364,8 +3812,10 @@ def main() -> int:
     if multi is not None:
         paths["mesh_multi_pipeline"] = multi["pipeline"]["launches"]
     torch.cuda.empty_cache()
-    paths["torchcheck_profile"] = run("torchcheck", phase_torchcheck, smi,
-                                      timing)
+    paths["torchcheck_profile"], paths["torchcheck_probed_fit"] = (
+        run("torchcheck", phase_torchcheck, smi, timing) or (None, None))
+    torch.cuda.empty_cache()
+    run("seams", phase_seams, smi)
     if failures:
         print("chip_smoke: FAILED\n  " + "\n  ".join(failures),
               file=sys.stderr)

@@ -18,10 +18,9 @@
   (``bool()``, ``.item()``, ``np.asarray`` on tensors) inside decode and
   train loops, reported with witness stacks.
 
-``python -m kubeflow_rm_tpu_torch.analysis.torchcheck`` runs the cost
-model's self-check. The JAX gate also runs lint rules KFRM006-008 over
-``jax.jit`` sites; their torch counterparts need a copy of
-``analysis/lint`` and are not here yet.
+``python -m kubeflow_rm_tpu_torch.analysis.torchcheck`` runs the port's
+lint rules KFRM006-008 (``analysis/lint``) over the tree and the cost
+model's self-check, as the JAX gate does.
 """
 
 from __future__ import annotations

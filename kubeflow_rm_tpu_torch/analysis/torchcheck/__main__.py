@@ -1,14 +1,14 @@
-"""CLI: ``python -m kubeflow_rm_tpu_torch.analysis.torchcheck``.
+"""CLI: ``python -m kubeflow_rm_tpu_torch.analysis.torchcheck [paths...]``.
 
-The compute-path audit gate of the port: the cost model's self-check
-(:func:`costmodel.selfcheck` — exact FLOPs on a known matmul, the
-donation double-buffer proof, loop trip accounting). Exit status: 0
-clean, 1 a failed self-check, 2 usage error — the JAX gate's contract.
-
-The JAX gate (``python -m kubeflow_rm_tpu.analysis.jaxcheck``) also runs
-lint rules KFRM006-008 over ``jax.jit`` sites. Their torch counterparts
-need a copy of ``analysis/lint`` in the port; until then this gate runs
-the self-check alone.
+The compute-path audit gate of the port (counterpart of ``python -m
+kubeflow_rm_tpu.analysis.jaxcheck``): runs the port's lint rules
+KFRM006-008 (``analysis/lint``: a scalar sync in a hot region inside a
+loop, a ``torch.compile`` or CUDA graph built in a loop, carried state
+rebuilt out of place in a loop) over the tree AND the cost model's
+self-check (:func:`costmodel.selfcheck` — exact FLOPs on a known matmul,
+the donation double-buffer proof, loop trip accounting). Exit status: 0
+clean, 1 findings or a failed self-check, 2 usage error — the same
+contract as ``analysis.lint``.
 """
 
 from __future__ import annotations
@@ -17,27 +17,50 @@ import argparse
 import json
 import sys
 
+from ..lint import lint_paths
+
+#: the compute-path rules this gate owns
+TORCHCHECK_RULES = frozenset({"KFRM006", "KFRM007", "KFRM008"})
+DEFAULT_PATH = "kubeflow_rm_tpu_torch"
+
 
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m kubeflow_rm_tpu_torch.analysis.torchcheck",
-        description="the port's program audit: cost-model self-check")
+        description="the port's program audit: lint rules KFRM006-008 "
+                    "+ cost-model self-check")
+    parser.add_argument("paths", nargs="*", default=[DEFAULT_PATH],
+                        help=f"files or directories (default: "
+                             f"{DEFAULT_PATH})")
     parser.add_argument("--json", action="store_true", dest="as_json",
                         help="machine-readable report on stdout")
+    parser.add_argument("--no-selfcheck", action="store_true",
+                        help="skip the cost-model self-check (lint only)")
     args = parser.parse_args(argv)
 
-    from .costmodel import selfcheck
-    failures = selfcheck()
+    findings = lint_paths(args.paths or [DEFAULT_PATH],
+                          set(TORCHCHECK_RULES))
+
+    failures: list[str] = []
+    if not args.no_selfcheck:
+        from .costmodel import selfcheck
+        failures = selfcheck()
 
     if args.as_json:
-        print(json.dumps({"findings": [], "selfcheck_failures": failures},
-                         indent=1))
+        print(json.dumps({
+            "findings": [f.as_dict() for f in findings],
+            "selfcheck_failures": failures,
+        }, indent=1))
     else:
+        for f in findings:
+            print(f.render())
         for msg in failures:
             print(f"costmodel selfcheck: {msg}")
-        if failures:
-            print(f"\n{len(failures)} selfcheck failure(s)", file=sys.stderr)
-    return 1 if failures else 0
+        if findings or failures:
+            print(f"\n{len(findings)} finding(s), "
+                  f"{len(failures)} selfcheck failure(s)",
+                  file=sys.stderr)
+    return 1 if (findings or failures) else 0
 
 
 if __name__ == "__main__":

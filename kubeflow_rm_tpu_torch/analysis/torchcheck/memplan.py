@@ -22,9 +22,9 @@ columns are a TPU's; the card's own peaks come from ``chip_smoke.py``'s
 **Gradient accumulation.** The port's step loops over its microbatches
 in Python, so walking ``accum`` of them would take ``accum`` times as
 long. The walk runs the step with two microbatches (the second one
-holds the accumulated gradients, the new ones and their sum at once,
-which is the step's peak for any count from two on, plus the rest of
-the batch) and counts each further microbatch as the second one's
+holds the accumulated gradients and the new ones at once, the sum being
+added into in place, which is the step's peak for any count from two
+on, plus the rest of the batch) and counts each further microbatch as the second one's
 ``train.microbatch`` region: JAX's scan rule, the body's FLOPs times the
 trip count. What this leaves out is the 0-dim metrics of the further
 microbatches (a loss and its aux terms, 512 bytes and one flop each).

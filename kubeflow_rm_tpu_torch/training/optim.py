@@ -114,10 +114,28 @@ def schedule(cfg: OptimConfig, count: int) -> float:
     return float(peak * (f32(1 - alpha) * cosine + f32(alpha)))
 
 
+_NP_FLOATS = {torch.float16: np.float16, torch.float32: np.float32,
+              torch.float64: np.float64}
+
+
 def _weak(x: float, t: torch.Tensor) -> float:
     """The Python scalar ``x`` as JAX's weak typing uses it against
-    ``t``: rounded to ``t``'s dtype."""
-    return torch.tensor(x, dtype=t.dtype).item()
+    ``t``: rounded to ``t``'s dtype, as ``torch.tensor(x, dtype).item()``
+    rounds it (through float32 for the 16-bit types), on the host
+    without making or reading a tensor: the optimizer calls it for every
+    leaf of every step, inside the training loop's hot region."""
+    if t.dtype == torch.float64:
+        return float(x)
+    with np.errstate(over="ignore"):
+        f = np.float32(x)
+        if t.dtype != torch.bfloat16:
+            return float(_NP_FLOATS[t.dtype](f))
+    if np.isnan(f):
+        return math.nan
+    # round to nearest even on the upper 16 bits; inf stays inf
+    bits = int(f.view(np.uint32))
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+    return float(np.uint32(bits).view(np.float32))
 
 
 def _mean(x: torch.Tensor, dim=None, keepdim: bool = False):

@@ -299,10 +299,17 @@ def make_train_step(cfg: TrainConfig, state: TrainState,
                 loss_m, aux_m, g = grads_of(params, micro)
                 losses.append(loss_m)
                 auxes.append(aux_m)
-                grads = g if grads is None else {
-                    k: grads[k] + g[k] for k in grads}
+                # the sum is added into in place: two gradient trees at
+                # the peak (the sum and a microbatch's), as JAX's scan
+                # aliases its carry
+                if grads is None:
+                    grads = _owned(g)
+                else:
+                    for k, t in grads.items():
+                        t.add_(g[k])
                 del g
-        grads = {k: g / grad_accum for k, g in grads.items()}
+        for t in grads.values():
+            t.div_(grad_accum)
         loss = torch.stack(losses).mean()
         aux = {k: torch.stack([a[k] for a in auxes]).mean()
                for k in auxes[0]}
@@ -331,6 +338,22 @@ def make_train_step(cfg: TrainConfig, state: TrainState,
         return state, metrics
 
     return step
+
+
+def _owned(grads: dict) -> dict:
+    """The first microbatch's gradients, safe to add into in place:
+    autograd may hand one tensor to two leaves (both inputs of an add)
+    or an expanded one (a sum's backward), and each of those is
+    copied. Any other gradient is kept as it is."""
+    seen, out = set(), {}
+    for k, g in grads.items():
+        base = g if g._base is None else g._base
+        if id(base) in seen or any(s == 0 and n > 1
+                                   for s, n in zip(g.stride(), g.shape)):
+            g = g.clone()
+        seen.add(id(base))
+        out[k] = g
+    return out
 
 
 def reduce_grads(grads: dict, params: dict, mesh) -> dict:

@@ -180,20 +180,24 @@ def test_observers_fire_on_unsanctioned_syncs(probe):
 
 
 @pytest.mark.parametrize("offload", ["optimizer", "none"])
-def test_training_regions_are_wired(probe, offload):
-    """``fit`` opens ``train.step`` around the step. The host-offload
-    arm's transfers and host update run under the sanctioned
-    ``train.offload_stream`` site, so their syncs are tallied and
-    nothing is witnessed; the on-card arm's only witnesses are the
-    optimizer's rounding of a Python scalar through a host tensor
-    (``optim._weak``: ``torch.tensor(x, dtype).item()``, no card
-    involved), recorded as JAX's probe records any array."""
+def test_training_regions_are_wired(probe, offload, monkeypatch):
+    """``fit`` opens ``train.step`` around the step. The on-card arm has
+    no witness at all: the optimizer rounds its Python scalars on the
+    host (``optim._weak``), without making or reading a tensor. The
+    host-offload arm's transfers and host update run under the
+    sanctioned ``train.offload_stream`` site: a sync there (here one put
+    into the host update on purpose) is tallied, never witnessed."""
     from kubeflow_rm_tpu_torch.models.llama import LlamaConfig
+    from kubeflow_rm_tpu_torch.training import optim
     from kubeflow_rm_tpu_torch.training.data import synthetic_batches
     from kubeflow_rm_tpu_torch.training.loop import LoopConfig, fit
     from kubeflow_rm_tpu_torch.training.optim import OptimConfig
     from kubeflow_rm_tpu_torch.training.train import TrainConfig
 
+    if offload == "optimizer":
+        weak = optim._weak
+        monkeypatch.setattr(optim, "_weak", lambda x, t: (
+            torch.tensor(x, dtype=t.dtype).item(), weak(x, t))[1])
     cfg = TrainConfig(model=LlamaConfig.tiny(),
                       optim=OptimConfig(offload=offload))
     fit(cfg, itertools.islice(synthetic_batches(2, 16, 256), 2),
@@ -206,6 +210,4 @@ def test_training_regions_are_wired(probe, offload):
         assert counts[("train.offload_stream", "item")] > 0
     else:
         assert counts == {}
-        assert wit and all(w["region"] == "train.step"
-                           and w["kind"] == "item"
-                           and "in _weak" in w["stack"] for w in wit)
+        assert wit == []

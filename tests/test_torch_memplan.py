@@ -150,12 +150,15 @@ def test_13b_rung_does_not_fit_an_h100():
 
 def test_the_7b_full_ft_rung_fits_an_h100():
     """On the H100 the 7B adafactor rung (the JAX plan's v5e OOM) is
-    predicted to fit: params plus three gradient trees (the accumulated
-    sum, a microbatch's, their sum) ~54 GB."""
+    predicted to fit: params plus two gradient trees (the accumulated
+    sum, added into in place, and a microbatch's) and the backward's
+    transient stacked-leaf gradients, ~47 GB; never the three trees of
+    an out-of-place sum."""
     row = _row(JAX_RUNGS - 1)
     assert row["preset"] == "llama2_7b" and row["predicted"]["fit"]
     p = row["predicted"]
-    assert p["peak_gb"] >= p["params_gb"] + 3 * p["grads_gb"] - 0.05
+    assert p["params_gb"] + 2 * p["grads_gb"] <= p["peak_gb"] < \
+        p["params_gb"] + 3 * p["grads_gb"] - 0.05
 
 
 def test_tiny_rung_peak_tracks_its_microbatch():

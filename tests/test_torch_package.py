@@ -1,5 +1,6 @@
 """Package rules of the PyTorch port: it imports no JAX, nothing of the
-JAX package and neither optax nor orbax (both import JAX), it never
+JAX package, neither optax nor orbax (both import JAX) and neither
+prometheus_client nor torch_xla (the card's machine has neither), it never
 runs on the CPU unless asked, and on the CPU the flash op never tries
 to build or launch its CUDA kernels, forward or backward."""
 
@@ -36,8 +37,10 @@ def _imported_modules(path: Path):
 def test_no_jax_or_jax_package_imports(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
+        # neither prometheus_client nor torch_xla is on the card's machine
         assert top not in ("jax", "jaxlib", "kubeflow_rm_tpu", "optax",
-                           "orbax"), f"{path.name} imports {mod}"
+                           "orbax", "prometheus_client", "torch_xla"), \
+            f"{path.name} imports {mod}"
 
 
 def test_port_files_exist():
@@ -57,6 +60,14 @@ def test_port_files_exist():
         assert f"kubeflow_rm_tpu_torch/analysis/torchcheck/{mod}.py" in names
     assert {"kubeflow_rm_tpu_torch/utils/profiling.py",
             "kubeflow_rm_tpu_torch/utils/pytree.py"} <= names
+    # the lint gate, the control-plane seams and the launcher
+    for mod in ("__init__", "__main__", "base", "rules"):
+        assert f"kubeflow_rm_tpu_torch/analysis/lint/{mod}.py" in names
+    assert {f"kubeflow_rm_tpu_torch/{f}" for f in (
+        "controlplane/webhook/admission_pricer.py",
+        "controlplane/obs/slo.py", "controlplane/metrics.py",
+        "controlplane/api/gpu.py", "launcher/agent.py",
+        "launcher/torchrun.py")} <= names
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
