@@ -38,7 +38,26 @@ prints one JSON line per phase:
    times) and the contiguous arm once; every request finishes, the
    block pool is released, no flash kernel launches, and every token
    passes a teacher-forced check against ``forward`` (see ``DELTA``).
-7. quant   — weight-only int8 and int4 (group 128) of the same weights:
+7. fleet   — the serving fleet (``controlplane/serving_fleet``) at full
+   7B width on the same tree, each replica an engine of 8 × 512-token
+   slots with its own paged cache: three replicas behind
+   ``make_fleet_app`` take 15 requests sharing a 192-token system prompt
+   and 3 three-turn sessions at once (the shared ones concentrate on
+   the prompt's owner or spill, sessions stick, the owner's prefix hit
+   ratio is above 0); a replica drained with two requests in its slots
+   (its ``/healthz`` 503, both finish there) and another killed after 4
+   engine steps with four requests on it (held by a step gate; every
+   request completes, migrations ≥ 1); a disaggregated fleet (a prefill
+   and two decode replicas over a ``GlobalBlockStore`` of 2 GiB) whose
+   hot prompt is handed off, evicted from the holder's small pool into
+   the store (promote-on-evict) and, after the holder dies, hit in the
+   store by the survivor; every bf16 token within DELTA of a
+   teacher-forced ``forward``; then the kill, drain and handoff paths
+   in float32 at full depth, each request equal to a solo
+   ``generate_fused``, and a ``/api/store/chain/<key>`` frame that
+   ``chain_from_bytes`` and ``verify_chain`` accept. No flash kernel
+   launches (serving decodes with explicit positions).
+8. quant   — weight-only int8 and int4 (group 128) of the same weights:
    the packed bytes and scales equal the CPU's, each quantized forward
    launches the flash kernel once per layer and equals the forward of
    its dequantized tree bit for bit, ``generate_fused`` on the serve
@@ -47,21 +66,21 @@ prints one JSON line per phase:
    check, pool released), and the HF conversion round trip at 7B width
    (``to_hf_llama`` → ``from_hf_llama``, and ``load_hf_dir`` on a
    two-layer directory).
-8. train_grad — Llama-2-7B width at 4 layers, one packed row of 2048:
+9. train_grad — Llama-2-7B width at 4 layers, one packed row of 2048:
    the gradients of every parameter through the kernels and through
    dense attention must be equally close to a float32 forward's; with
    remat on, ``flash_fwd`` launches twice per layer and each backward
    kernel once.
-9. train   — the trainer's main path: full Llama-2-7B, bf16 frozen base,
+10. train   — the trainer's main path: full Llama-2-7B, bf16 frozen base,
    rank-16 LoRA on wq/wv, 6 steps of B=2×2048 packed documents through
    ``training.loop.fit``: finite losses that fall, the base bit-identical,
    the adapters trained, the kernels launched as counted above.
-10. qlora  — the same run over an int4 base built directly in packed form
+11. qlora  — the same run over an int4 base built directly in packed form
    (``init_params_quantized``): losses fall, the packed base is
    byte-identical after, the adapters trained, the kernels launched as in
    the train phase.
 
-11. moe    — Mixtral 8x7B at full width and 16 of its 32 layers (bf16,
+12. moe    — Mixtral 8x7B at full width and 16 of its 32 layers (bf16,
    47 GB; the 7B tree is dropped first): the forward at (1, 2048) with
    one ``flash_fwd`` launch a layer and a router aux loss in [1, 8];
    kernel and dense attention equally close to a float32 copy of the
@@ -69,16 +88,16 @@ prints one JSON line per phase:
    engine (capacity factor 4: nothing drops) within δ of a
    teacher-forced forward; 4 LoRA steps of ``fit`` (losses fall, base
    bit-identical, ``router_aux`` reported, the kernels as counted).
-12. moe_int8 — the full 32-layer Mixtral built directly in int8
+13. moe_int8 — the full 32-layer Mixtral built directly in int8
    (``init_params_quantized``): stored bytes, fused decode equal to the
    per-token loop, no kernel launch.
-13. offload — full fine-tuning of Llama-2-7B with adafactor and the
+14. offload — full fine-tuning of Llama-2-7B with adafactor and the
    optimizer state in host memory (``offload="optimizer"``, chunks of 4
    layers) against the on-card arm, 2 steps each from the same weights:
    step-1 losses bit-equal, step-1 weights within ``OFFLOAD_MAX_STEPS``
    bf16 steps, every layer of every leaf moved, the kernels as counted;
    then adam and adafactor the same way at 2 layers.
-14. mesh1  — the mesh path at world size 1 over NCCL (run right after
+15. mesh1  — the mesh path at world size 1 over NCCL (run right after
    train, on the same 7B tree): ``make_mesh(MeshConfig(dp=1, fsdp=1,
    tp=1))``; the train phase's LoRA recipe through ``fit(..., mesh=)``
    for 3 steps (step-1 loss bit-equal to the train phase's, the kernels
@@ -89,12 +108,12 @@ prints one JSON line per phase:
    with one ``flash_fwd`` a call and one of each backward kernel; ring
    and zigzag at sp=1 in float32 within ``RING_ATOL`` of dense; and what
    a one-rank NCCL collective (which the port skips) would cost.
-15. offload_mesh1 — the host-offload arm on a one-rank NCCL mesh
+16. offload_mesh1 — the host-offload arm on a one-rank NCCL mesh
    (adafactor, 7B width, 2 layers, the offload phase's seed and batch):
    step-1 loss bit-equal to that phase's non-mesh streamed arm, the
    kernels as counted; ``pipeline_forward`` at pp=1 bit-equal to
    ``forward``.
-16. mesh_multi — only on a machine with two or more cards:
+17. mesh_multi — only on a machine with two or more cards:
    ``min(count, 4)`` NCCL ranks, one per card: a 7B-width 4-layer LoRA
    step at fsdp=2 (fsdp=2 × tp=2 at world 4) against the one-rank loss,
    Ulysses and ring at sp=world against the one-card flash op, and the
@@ -110,13 +129,19 @@ prints one JSON line per phase:
    joins through the launcher's torchrun env of a one-host slice
    (``launcher/torchrun.py``). A one-card machine prints
    ``{"phase": "mesh_multi", "skipped": "1 card"}``.
-17. torchcheck — the program auditor (``analysis/torchcheck``) on the
+18. fleet_multi — only on a machine with two or more cards: the
+   disaggregated part of ``fleet`` with its prefill replica on
+   ``cuda:0`` and its decode replicas on the other cards (each gateway's
+   drain thread on its engine's card), the same gates. A one-card
+   machine prints ``{"phase": "fleet_multi", "skipped": "1 card"}``.
+19. torchcheck — the program auditor (``analysis/torchcheck``) on the
    card: the cost model's self-check; the planner's walk of five reduced
    rungs (1.2B adamw mb2 dots, 2.7B and 7B adafactor mb1 full, 7B adamw
    mb1 full, each at an accumulation of 2, and the train phase's 7B LoRA
    step) against ``torch.cuda.max_memory_allocated()`` over one real
    step with the state resident, each within ``PLAN_RTOL``, beside the
-   walk's peak for the step before its accumulation added in place, and
+   walk's peak for the step before its accumulation added in place and
+   before its layers were sliced by ``llama.layer_slices``, and
    the same rows as the admission seam's drift gauge (below the
    warn-only SLO's 0.2); the 13B adamw rung, which
    the planner rejects, in a subprocess of its own that must end in
@@ -133,8 +158,9 @@ prints one JSON line per phase:
    7B adafactor rung under the probe, the sentinel and the control
    plane's probe bridges: no witness in ``train.step`` and
    ``implicit_hostsyncs_total{tenant="default"}`` unmoved, the CUDA
-   runtime's syncs of the adafactor step reported.
-18. seams  — the control plane's seams into the port: the admission
+   runtime's syncs of the adafactor step reported, none of them in
+   ``training/optim.py``.
+20. seams  — the control plane's seams into the port: the admission
    pricer over a recorder API on the H100 slice table (its memory
    against this card's within 1%; the 7B and 13B declarations on one-
    and four-card Notebooks, every stamp equal to the pricer's own
@@ -1071,6 +1097,706 @@ def phase_engine(cfg, params, forward_err, card):
     check(again == [h.tokens for h in runs["paged"]["handles"]],
           "a second paged run gave other tokens")
     return counts["paged"]
+
+
+# The fleet phase: the serving fleet (``controlplane/serving_fleet``) at
+# full 7B width, right after the engine phase, on the same tree. A
+# 512-token slot takes a prompt of at most 256 tokens (its prefill
+# bucket plus the new tokens must fit), so the shared system prompt is
+# 192 tokens (12 blocks) and the suffixes 16..64
+FLEET_SYSTEM = 192
+FLEET_SHARED, FLEET_SESSIONS, FLEET_TURNS = 15, 3, 3
+# the killed replica's engine steps between its last admission and the
+# kill; float32 exactness paths run at this many layers (all of them)
+FLEET_KILL_AFTER = 4
+FLEET_F32_LAYERS = 32
+# the store sized to the traffic: 7B K/V is 0.5 MiB a token (2 × 32
+# layers × 4096 × 2 B), so a 256-token chain is 128 MiB; 2 GiB holds 16
+FLEET_STORE_BYTES = 2 << 30
+
+
+class StepGate:
+    """Holds a gateway's engine at chosen steps, and counts admissions.
+
+    ``gw.engine.step`` is replaced: a call steps the engine while the
+    gate has steps to give (``allow``) or is open (``let_go``); otherwise
+    it parks with the gateway's lock released (the drain thread steps
+    under that lock), so that a kill or a drain lands while the engine's
+    requests are mid-flight, after an exact number of steps, with no
+    sleep. A parked call returns without stepping once woken."""
+
+    def __init__(self, gw):
+        from kubeflow_rm_tpu_torch.analysis.lockgraph import make_condition
+
+        self.gw = gw
+        self.budget = 0
+        self.open = False
+        self.reached = threading.Event()
+        self._cv = make_condition("chip_smoke.step_gate")
+        self._admitted = 0
+        self._step, self._submit = gw.engine.step, gw.try_submit
+        gw.engine.step, gw.try_submit = self.step, self.try_submit
+
+    def try_submit(self, *a, **kw):
+        out = self._submit(*a, **kw)
+        with self._cv:
+            self._admitted += out[0] is not None
+            self._cv.notify_all()
+        return out
+
+    def submitted(self, n: int) -> None:
+        with self._cv:
+            check(self._cv.wait_for(lambda: self._admitted >= n, 600),
+                  f"only {self._admitted} of {n} requests were admitted")
+
+    def step(self):
+        with self._cv:
+            go = self.open or self.budget > 0
+            if go:
+                self.budget -= not self.open
+            else:
+                self.reached.set()
+        if go:
+            return self._step()
+        self.gw._lock.release()
+        try:
+            with self._cv:
+                self._cv.wait_for(lambda: self.open or self.budget > 0, 600)
+        finally:
+            self.gw._lock.acquire()
+        return []
+
+    def allow(self, n: int) -> None:
+        """``n`` more engine steps; returns once the engine is held."""
+        self.reached.clear()
+        with self._cv:
+            self.budget += n
+            self._cv.notify_all()
+        check(self.reached.wait(600), "the engine was never held again")
+
+    def let_go(self) -> None:
+        with self._cv:
+            self.open = True
+            self._cv.notify_all()
+
+    def act_while_held(self, action) -> None:
+        """Run ``action`` (a kill or a removal of this replica) on a thread
+        of its own; once the replica's drain thread has been told to
+        stop, open the gate and join."""
+        check(self.reached.wait(600), "the engine never reached the gate")
+        t = threading.Thread(target=action)
+        t.start()
+        check(self.gw._stop.wait(600), "the replica never began to stop")
+        self.let_go()
+        t.join(600)
+        check(not t.is_alive(), "the kill never returned")
+
+
+class StepTimer:
+    """Times each ``engine.step`` of a gateway (host clock around the
+    call; a step ends in a host read of its sampled tokens, so the clock
+    spans the card's work too) and the gap from one step's end to the
+    next step's start (the drain loop's own time and its waits)."""
+
+    def __init__(self, gw):
+        self.ms, self.gaps = [], []
+        self._end = None
+        self._step = gw.engine.step
+        gw.engine.step = self.step
+
+    def step(self):
+        t0 = time.perf_counter()
+        if self._end is not None:
+            self.gaps.append((t0 - self._end) * 1e3)
+        try:
+            return self._step()
+        finally:
+            self._end = time.perf_counter()
+            self.ms.append((self._end - t0) * 1e3)
+
+    def summary(self) -> dict:
+        ms, gaps = sorted(self.ms), sorted(self.gaps)
+        if not ms:
+            return dict(steps=0)
+        return dict(steps=len(ms), median_ms=ms[len(ms) // 2],
+                    max_ms=ms[-1], total_s=sum(ms) / 1e3,
+                    median_gap_ms=gaps[len(gaps) // 2] if gaps else None,
+                    gaps_s=sum(gaps) / 1e3)
+
+
+def fleet_traffic(vocab: int, system_len: int = FLEET_SYSTEM):
+    """The affinity part's requests, from ``numpy.random.default_rng(1)``:
+    FLEET_SHARED prompts of the shared system prompt plus a 16..64-token
+    suffix (8..32 new tokens), and FLEET_SESSIONS conversations of
+    FLEET_TURNS turns, each turn the conversation so far plus 16 new
+    tokens of the user (16 new tokens). Returns (shared, sessions)."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+
+    def toks(n):
+        return rng.integers(1, vocab, n).tolist()
+
+    system = toks(system_len)
+    shared = [dict(prompt=system + toks(int(rng.integers(16, 65))),
+                   new=int(rng.integers(8, 33))) for _ in range(FLEET_SHARED)]
+    sessions = []
+    for s in range(FLEET_SESSIONS):
+        base, turns = toks(48), []
+        for t in range(FLEET_TURNS):
+            turns.append(dict(prompt=base + toks(16 * (t + 1)), new=16,
+                              session=f"session-{s}"))
+            base = turns[-1]["prompt"]
+        sessions.append(turns)
+    return system, shared, sessions
+
+
+def _fleet_post(app, body):
+    """``POST /generate`` on a WSGI app: (status, JSON, ms)."""
+    from kubeflow_rm_tpu_torch.serve import request
+
+    t0 = time.perf_counter()
+    status, out = request(app, "POST", "/generate", body)
+    return status, out, (time.perf_counter() - t0) * 1e3
+
+
+def _run_threads(fns, what: str) -> float:
+    threads = [threading.Thread(target=f) for f in fns]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    check(not any(t.is_alive() for t in threads), f"{what}: a request hung")
+    return time.perf_counter() - t0
+
+
+def _gateways(params, cfg, names, device_of=None, **engine_kw):
+    from kubeflow_rm_tpu_torch.controlplane.webapps.serving import (
+        ServingGateway, TenantPolicy,
+    )
+    from kubeflow_rm_tpu_torch.models.generate import ContinuousBatchingEngine
+
+    open_policy = TenantPolicy(qps=1e9, burst=10**6, tokens_per_s=1e9,
+                               token_burst=10**7, slo_p95_ms=1e12)
+    kw = dict(slots=ENGINE_SLOTS, slot_len=ENGINE_SLOT_LEN,
+              block_size=ENGINE_BLOCK)
+    out = {}
+    for n in names:
+        p = params if device_of is None else device_of[n]
+        eng = ContinuousBatchingEngine(p, cfg, **dict(kw, **engine_kw.get(
+            n, {})))
+        out[n] = ServingGateway(eng, default_policy=open_policy)
+    return out
+
+
+def _latency_summary(ms):
+    ms = sorted(ms)
+    return dict(n=len(ms), p50_ms=ms[len(ms) // 2],
+                p95_ms=ms[min(len(ms) - 1, int(0.95 * len(ms)))],
+                max_ms=ms[-1])
+
+
+def fleet_affinity(params, cfg, system_len=FLEET_SYSTEM):
+    """Part 1: three replicas behind ``make_fleet_app``; the shared
+    requests at once, then the sessions' turns (the sessions in
+    parallel). Returns (report, handles for the teacher-forced check,
+    the fleet, its app)."""
+    from types import SimpleNamespace
+
+    from kubeflow_rm_tpu_torch.controlplane.serving_fleet import (
+        ServingFleet, make_fleet_app,
+    )
+
+    system, shared, sessions = fleet_traffic(cfg.vocab_size, system_len)
+    fleet = ServingFleet(_gateways(params, cfg, [f"r{i}" for i in range(3)]))
+    timers = {n: StepTimer(gw) for n, gw in fleet.gateways.items()}
+    app = make_fleet_app(fleet, cfg)
+    owner = fleet.route(system)
+    results = {}
+
+    def one(key, req):
+        body = dict(prompt=req["prompt"], max_new_tokens=req["new"])
+        if "session" in req:
+            body["session"] = req["session"]
+        results[key] = _fleet_post(app, body)
+
+    def conversation(s):
+        for t, req in enumerate(sessions[s]):
+            one(("session", s, t), req)
+
+    wall = _run_threads(
+        [lambda i=i: one(("shared", i), shared[i]) for i in range(len(shared))]
+        + [lambda s=s: conversation(s) for s in range(len(sessions))],
+        "affinity")
+    bad = {k: r[:2] for k, r in results.items() if r[0] != 200}
+    check(not bad, f"affinity: requests failed: {bad}")
+    on_owner = sum(results[("shared", i)][1]["replicas"][0] == owner
+                   for i in range(len(shared)))
+    homes = {s: {results[("session", s, t)][1]["replicas"][0]
+                 for t in range(FLEET_TURNS)} for s in range(len(sessions))}
+    snap = fleet.snapshot()
+    tokens = sum(len(r[1]["tokens"]) for r in results.values())
+    handles = [SimpleNamespace(prompt=req["prompt"],
+                               tokens=results[("shared", i)][1]["tokens"])
+               for i, req in enumerate(shared)]
+    handles += [SimpleNamespace(prompt=sessions[s][t]["prompt"],
+                                tokens=results[("session", s, t)][1]["tokens"])
+                for s in range(len(sessions)) for t in range(FLEET_TURNS)]
+    report = dict(
+        requests=len(results), wall_s=wall, tokens_out=tokens,
+        tokens_per_s=tokens / wall,
+        latency=_latency_summary([r[2] for r in results.values()]),
+        owner=owner, shared_on_owner=on_owner, spills=fleet.spills,
+        session_homes={s: sorted(h) for s, h in homes.items()},
+        prefix_hit_ratio={n: r["prefix_hit_ratio"]
+                          for n, r in snap["replicas"].items()},
+        engine_steps={n: dict(t.summary(), **{
+            k: fleet.gateways[n].engine.stats()[k] for k in (
+                "decode_steps", "prefills", "batch_occupancy")})
+            for n, t in timers.items()},
+        migrations=fleet.migrations)
+    check(on_owner + fleet.spills >= len(shared) and
+          on_owner * 2 >= len(shared),
+          f"affinity: {on_owner} of {len(shared)} shared requests on the "
+          f"owner {owner} with {fleet.spills} spills")
+    check(all(len(h) == 1 for h in homes.values()),
+          f"affinity: a session moved: {homes}")
+    check(snap["replicas"][owner]["prefix_hit_ratio"] > 0,
+          f"affinity: no prefix hit on the owner: {snap['replicas']}")
+    return report, handles, fleet, app
+
+
+def fleet_drain_and_kill(fleet, app, cfg):
+    """Part 2 on the affinity fleet: drain a replica with two requests in
+    its slots (its ``/healthz`` says 503, the two finish there), then
+    kill another after FLEET_KILL_AFTER engine steps with four requests
+    on it (every request completes elsewhere). Returns (report,
+    handles)."""
+    import numpy as np
+    from types import SimpleNamespace
+
+    from kubeflow_rm_tpu_torch.controlplane.webapps.serving import (
+        make_serving_app,
+    )
+    from kubeflow_rm_tpu_torch.serve import request
+
+    rng = np.random.default_rng(2)
+    names = sorted(fleet.gateways)
+    # the drained replica: slotted work, then the drain
+    drained = names[1]
+    gw = fleet.gateways[drained]
+    gate = StepGate(gw)
+    held = [rng.integers(1, cfg.vocab_size, 40).tolist() for _ in range(2)]
+    pend = [gw.try_submit("t", p, max_new_tokens=24)[0] for p in held]
+    gate.submitted(2)
+    gate.allow(1)                         # both take a slot
+    t0 = time.perf_counter()
+    fleet.drain(drained)
+    health = request(make_serving_app(gw, cfg), "GET", "/healthz")
+    gate.let_go()
+    finished = [gw.wait(p, 600) for p in pend]
+    drain_s = time.perf_counter() - t0
+    check(health == (503, {"ok": False, "state": "draining"}),
+          f"drain: the drained replica's /healthz said {health}")
+    check([len(f) for f in finished] == [24, 24],
+          f"drain: in-flight requests ended with {[len(f) for f in finished]}")
+    handles = [SimpleNamespace(prompt=p, tokens=f)
+               for p, f in zip(held, finished)]
+
+    # the killed replica: four requests on it, held, then killed
+    ready = [n for n in names if fleet.states()[n] == "ready"]
+    victim = ready[0]
+    prompt = None
+    for _ in range(1000):
+        cand = rng.integers(1, cfg.vocab_size, 64).tolist()
+        if fleet.route(cand) == victim:
+            prompt = cand
+            break
+    check(prompt is not None, "kill: no prompt routes to the victim")
+    gate = StepGate(fleet.gateways[victim])
+    results = [None] * 4
+    before = fleet.migrations
+
+    def go(i):
+        results[i] = fleet.submit_and_wait("t", list(prompt),
+                                           max_new_tokens=32)
+
+    threads = [threading.Thread(target=go, args=(i,)) for i in range(4)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    try:
+        gate.submitted(4)
+        gate.allow(FLEET_KILL_AFTER)
+        gate.act_while_held(lambda: fleet.kill(victim))
+    finally:
+        gate.let_go()
+        for t in threads:
+            t.join(900)
+    kill_s = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "kill: a request hung")
+    migrations = fleet.migrations - before
+    check(all(r is not None and r[0] is not None and len(r[0]) == 32
+              for r in results), f"kill: requests ended with {results}")
+    check(migrations >= 1, f"kill: {migrations} migrations")
+    handles += [SimpleNamespace(prompt=prompt, tokens=r[0]) for r in results]
+    return dict(drained=drained, drained_healthz=health[0],
+                drain_s=drain_s, killed=victim, kill_s=kill_s,
+                migrations=migrations,
+                paths=[r[1]["replicas"] for r in results],
+                fleet_healthz=request(app, "GET", "/healthz")), handles
+
+
+def fleet_disaggregated(params, cfg, system, device_of=None, before=None):
+    """Part 3: one prefill and two decode replicas over a
+    ``GlobalBlockStore`` (FLEET_STORE_BYTES; ``device_of`` places each
+    replica's tree on its own card). A hot prompt goes through the
+    prefill tier (a handoff into the store, installed on dc0), four
+    unrelated prompts churn dc0's small pool (promote-on-evict copies
+    its evicted blocks to the host), dc0 dies, and the hot prompt again
+    must hit the store on dc1. ``before(name, gateway)`` runs on each
+    gateway before any traffic. Returns (report, handles, fleet, app)."""
+    import numpy as np
+    from types import SimpleNamespace
+
+    from kubeflow_rm_tpu_torch.controlplane import metrics as cp_metrics
+    from kubeflow_rm_tpu_torch.controlplane.serving_fleet import (
+        GlobalBlockStore, ServingFleet, make_fleet_app,
+    )
+    from kubeflow_rm_tpu_torch.models.paging import RESERVED_BLOCKS
+
+    rng = np.random.default_rng(3)
+    maxb = ENGINE_SLOT_LEN // ENGINE_BLOCK
+    # a slot and a half: the hot chain is evicted by the third churn
+    small = RESERVED_BLOCKS + maxb + maxb // 2
+    gws = _gateways(params, cfg, ["pf0", "dc0", "dc1"], device_of,
+                    dc0=dict(num_blocks=small))
+    for name, gw in gws.items():
+        if before is not None:
+            before(name, gw)
+    store = GlobalBlockStore(max_bytes=FLEET_STORE_BYTES)
+    fleet = ServingFleet(gws, roles={"pf0": "prefill", "dc0": "decode",
+                                     "dc1": "decode"}, store=store)
+    app = make_fleet_app(fleet, cfg)
+    hist = cp_metrics.SERVING_CHAIN_HANDOFF_SECONDS
+    n0, s0 = hist.get(), hist._unlabelled().sum
+    hot = system + rng.integers(1, cfg.vocab_size, 40).tolist()
+    handles, lat = [], []
+
+    def post(prompt, new):
+        status, out, ms = _fleet_post(app, dict(prompt=prompt,
+                                                max_new_tokens=new))
+        check(status == 200, f"disaggregated: {status} {out}")
+        handles.append(SimpleNamespace(prompt=prompt, tokens=out["tokens"]))
+        lat.append(ms)
+        return out
+
+    t0 = time.perf_counter()
+    first = post(hot, 24)
+    holder = first["replicas"][0]
+    churn = [post(rng.integers(1, cfg.vocab_size, 200).tolist(), 8)
+             for _ in range(4)]
+    st_before = store.stats()
+    dc1_before = (gws["dc1"].engine.chain_installs, gws["dc1"].engine.prefills)
+    fleet.kill(holder)
+    again = post(hot, 24)
+    wall = time.perf_counter() - t0
+    st = store.stats()
+    survivor = again["replicas"][0]
+    installs = gws[survivor].engine.chain_installs - (
+        dc1_before[0] if survivor == "dc1" else 0)
+    n, s_ = hist.get() - n0, hist._unlabelled().sum - s0
+    report = dict(
+        holder=holder, survivor=survivor, wall_s=wall,
+        latency=_latency_summary(lat), handoffs=fleet.handoffs,
+        handoff_seconds=dict(count=n, mean_s=s_ / n if n else None),
+        store_before_kill=st_before, store=st,
+        store_hit_ratio=st["hit_ratio"], hits_after_kill=(
+            st["hits"] - st_before["hits"]),
+        survivor_installs=installs, churn_paths=[c["replicas"]
+                                                 for c in churn])
+    check(holder == "dc0" and survivor != holder,
+          f"disaggregated: holder {holder}, survivor {survivor}")
+    check(st["hits"] > st_before["hits"],
+          f"disaggregated: no store hit after {holder} died: {st}")
+    check(fleet.handoffs >= 1 and n >= 1,
+          f"disaggregated: {fleet.handoffs} handoffs")
+    check(st_before["promoted"] >= 1,
+          f"disaggregated: nothing promoted on eviction: {st_before}")
+    return report, handles, fleet, app
+
+
+def fleet_float32(cfg, device="cuda", layers=FLEET_F32_LAYERS,
+                  system_len=FLEET_SYSTEM):
+    """Part 4: the migration, drain and handoff paths in float32 at full
+    width and ``layers`` layers: every request's tokens must equal a solo
+    ``generate_fused`` of its prompt (``max_len`` the slot's), and a
+    ``/api/store/chain/<key>`` fetch must come back as a frame that
+    ``chain_from_bytes`` and ``verify_chain`` accept. The kernel
+    launches of the serving paths are read before the solo references
+    run."""
+    import numpy as np
+    import torch
+
+    from kubeflow_rm_tpu_torch.controlplane.serving_fleet import (
+        ServingFleet, chain_from_bytes, make_fleet_app,
+    )
+    from kubeflow_rm_tpu_torch.models.generate import generate_fused
+    from kubeflow_rm_tpu_torch.models.llama import init_params
+    from kubeflow_rm_tpu_torch.models.paging import prefix_keys, verify_chain
+
+    cfg32 = replace(cfg, n_layers=layers, dtype=torch.float32,
+                    param_dtype=torch.float32)
+    params = init_params(cfg32, torch.Generator(device=device).manual_seed(5),
+                         device)
+    rng = np.random.default_rng(4)
+    served = {}        # path -> [(prompt, new tokens, tokens served)]
+    out = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    # kill -> migrate, and drain, on a fleet of two
+    fleet = ServingFleet(_gateways(params, cfg32, ["r0", "r1"]))
+    try:
+        prompt = rng.integers(1, cfg.vocab_size, 100).tolist()
+        victim = fleet.route(prompt)
+        gate = StepGate(fleet.gateways[victim])
+        results = [None] * 2
+
+        def go(i):
+            results[i] = fleet.submit_and_wait("t", list(prompt),
+                                               max_new_tokens=24)
+
+        threads = [threading.Thread(target=go, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        try:
+            gate.submitted(2)
+            gate.allow(FLEET_KILL_AFTER)
+            gate.act_while_held(lambda: fleet.kill(victim))
+        finally:
+            gate.let_go()
+            for t in threads:
+                t.join(900)
+        served["kill"] = [(prompt, 24, r[0]) for r in results]
+        out["kill_migrations"] = fleet.migrations
+        survivor = next(n for n in fleet.gateways if n != victim)
+        gw = fleet.gateways[survivor]
+        gate = StepGate(gw)
+        held = rng.integers(1, cfg.vocab_size, 60).tolist()
+        pend = gw.try_submit("t", held, max_new_tokens=24)[0]
+        gate.submitted(1)
+        gate.allow(1)
+        fleet.drain(survivor)
+        gate.let_go()
+        served["drain"] = [(held, 24, gw.wait(pend, 600))]
+    finally:
+        fleet.close()
+    # the handoff: prefill tier -> store -> decode install
+    fleet = ServingFleet(_gateways(params, cfg32, ["pf0", "dc0"]),
+                         roles={"pf0": "prefill", "dc0": "decode"},
+                         store_bytes=FLEET_STORE_BYTES)
+    try:
+        hot = rng.integers(1, cfg.vocab_size, system_len).tolist()
+        tokens, _ = fleet.submit_and_wait("t", hot, max_new_tokens=24)
+        served["handoff"] = [(hot, 24, tokens)]
+        eng = fleet.gateways["dc0"].engine
+        out["handoff"] = dict(installs=eng.chain_installs,
+                              prefills=eng.prefills,
+                              handoffs=fleet.handoffs)
+        key = prefix_keys(hot, ENGINE_BLOCK)[-1][1]
+        status, body = _raw_get(make_fleet_app(fleet, cfg32),
+                                f"/api/store/chain/{key.hex()}")
+        chain = chain_from_bytes(body)
+        verify_chain(chain)
+        out["chain_endpoint"] = dict(status=status, nbytes=len(body),
+                                     covered=chain["covered"],
+                                     tokens_equal=chain["tokens"] == hot)
+    finally:
+        fleet.close()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = read_launches()
+    out["layers"] = layers
+    for path, reqs in served.items():
+        out[path + "_equal"] = []
+        for prompt, n, got in reqs:
+            ref = generate_fused(params, cfg32,
+                                 torch.tensor([prompt], dtype=torch.int32,
+                                              device=device),
+                                 max_new_tokens=n, max_len=ENGINE_SLOT_LEN)
+            out[path + "_equal"].append(got == ref[0, len(prompt):].tolist())
+    check(all(out["kill_equal"]) and out["kill_migrations"] >= 1,
+          f"float32 kill: {out}")
+    check(all(out["drain_equal"]), f"float32 drain: {out}")
+    check(all(out["handoff_equal"]) and out["handoff"]["installs"] == 1
+          and out["handoff"]["prefills"] == 0,
+          f"float32 handoff: {out}")
+    check(out["chain_endpoint"]["status"] == 200
+          and out["chain_endpoint"]["tokens_equal"],
+          f"float32 chain endpoint: {out['chain_endpoint']}")
+    return out
+
+
+def _raw_get(app, path):
+    """``GET path`` on a WSGI app: (status, body bytes)."""
+    import io
+
+    got = []
+    environ = {"REQUEST_METHOD": "GET", "PATH_INFO": path,
+               "CONTENT_LENGTH": "0", "wsgi.input": io.BytesIO(b""),
+               "SERVER_NAME": "localhost", "SERVER_PORT": "0",
+               "wsgi.url_scheme": "http"}
+    body = b"".join(app(environ, lambda s, h: got.append(int(s.split()[0]))))
+    return got[0], body
+
+
+def phase_fleet(cfg, params, forward_err, card, device="cuda",
+                system_len=FLEET_SYSTEM, f32_layers=FLEET_F32_LAYERS):
+    """The serving fleet at full Llama-2-7B width on the engine phase's
+    tree: affinity, drain and kill, disaggregated, and float32
+    exactness (see FLEET_*). Every bf16 token is held teacher-forced
+    within DELTA of ``forward`` (as the engine phase holds its own);
+    serving decodes with explicit positions, so no flash kernel may
+    launch."""
+    import gc
+
+    import torch
+
+    reset_launches()
+    held_before = (torch.cuda.memory_allocated() if device == "cuda"
+                   else 0)
+    times = {}
+    t0 = time.perf_counter()
+    aff, handles, fleet, app = fleet_affinity(params, cfg, system_len)
+    times["affinity_s"] = time.perf_counter() - t0
+    emit("fleet", part="affinity", card=card, **aff)
+    t0 = time.perf_counter()
+    try:
+        dk, more = fleet_drain_and_kill(fleet, app, cfg)
+    finally:
+        fleet.close()
+    handles += more
+    times["drain_kill_s"] = time.perf_counter() - t0
+    emit("fleet", part="drain_and_kill", card=card, **dk)
+    system = fleet_traffic(cfg.vocab_size, system_len)[0]
+    t0 = time.perf_counter()
+    dis, more, dfleet, dapp = fleet_disaggregated(params, cfg, system)
+    dfleet.close()
+    handles += more
+    times["disaggregated_s"] = time.perf_counter() - t0
+    emit("fleet", part="disaggregated", card=card, **dis)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    # the serving paths' launches, before the references run
+    launches = read_launches()
+    seen = {}
+    tf, seq_err = teacher_forced(params, cfg, handles, seen, want_fp32=True)
+    delta = DELTA_PER_ERROR * max(seq_err, forward_err or 0.0)
+    max_gap = max(c["max_gap"] for c in tf)
+    t0 = time.perf_counter()
+    f32 = fleet_float32(cfg, device, f32_layers, system_len)
+    times["float32_s"] = time.perf_counter() - t0
+    launches = {k: v + f32["launches"][k] for k, v in launches.items()}
+    # the engines, their gates and promote hooks hold each other in
+    # cycles: collect them before the next phase needs the card
+    del fleet, app, dfleet, dapp
+    gc.collect()
+    held_after = 0
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        held_after = torch.cuda.memory_allocated()
+    emit("fleet", part="exactness", card=card, requests=len(tf),
+         exact_fraction=sum(c["exact"] for c in tf) / len(tf),
+         max_gap=max_gap, delta=delta, bf16_vs_fp32_max_abs=seq_err,
+         float32=f32, launches=launches, times=times,
+         card_gb_held_before_after=[held_before / 1e9, held_after / 1e9])
+    check(max_gap <= delta, f"fleet: a token trails forward's maximum by "
+                            f"{max_gap} > delta {delta}")
+    check(held_after <= held_before + (1 << 30),
+          f"fleet: {held_after / 1e9:.2f} GB still held on the card, "
+          f"{held_before / 1e9:.2f} GB before the phase")
+    check(launches == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                       "flash_bwd_dkv": 0},
+          f"fleet: the serving path launched {launches}")
+    return launches
+
+
+def phase_fleet_multi(card):
+    """The disaggregated fleet across cards: the prefill replica on
+    ``cuda:0`` and the decode replicas on the others, the tree copied to
+    every card; each gateway's drain thread must step its engine with
+    that engine's card current. The single-card part's gates, tokens
+    held teacher-forced on ``cuda:0``. Skipped on one card."""
+    import gc
+
+    import torch
+
+    from kubeflow_rm_tpu_torch.models.llama import LlamaConfig, init_params
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        emit("fleet_multi", skipped=f"{n} card")
+        return None
+    cfg = LlamaConfig.llama2_7b(param_dtype=torch.bfloat16)
+    p0 = init_params(cfg, torch.Generator(device="cuda:0").manual_seed(0),
+                     "cuda:0")
+    devs = {"pf0": "cuda:0", "dc0": "cuda:1", "dc1": f"cuda:{min(2, n - 1)}"}
+
+    def copy_to(d):
+        return {k: ({kk: t.to(d) for kk, t in v.items()}
+                    if isinstance(v, dict) else v.to(d))
+                for k, v in p0.items()}
+
+    trees = {d: p0 if d == "cuda:0" else copy_to(d)
+             for d in set(devs.values())}
+    system = fleet_traffic(cfg.vocab_size)[0]
+    current = {}
+
+    def watch(name, gw):
+        step = gw.engine.step
+
+        def stepped():
+            current.setdefault(name, set()).add(torch.cuda.current_device())
+            return step()
+
+        gw.engine.step = stepped
+
+    reset_launches()
+    t0 = time.perf_counter()
+    dis, handles, fleet, app = fleet_disaggregated(
+        p0, cfg, system, device_of={r: trees[d] for r, d in devs.items()},
+        before=watch)
+    wall = time.perf_counter() - t0
+    engines = {r: str(gw.engine.device) for r, gw in fleet.gateways.items()}
+    fleet.close()
+    del fleet, app
+    gc.collect()
+    torch.cuda.synchronize()
+    launches = read_launches()        # the serving path's, before the check
+    seen = {}
+    tf, seq_err = teacher_forced(p0, cfg, handles, seen, want_fp32=True)
+    delta = DELTA_PER_ERROR * seq_err
+    max_gap = max(c["max_gap"] for c in tf)
+    stepped_on = {r: sorted(f"cuda:{i}" for i in v)
+                  for r, v in current.items()}
+    emit("fleet_multi", card=card, cards=n, engines=engines,
+         stepped_on=stepped_on, part_wall_s=wall, max_gap=max_gap,
+         delta=delta, launches=launches, **dis)
+    check(engines == devs, f"fleet_multi: engines on {engines}")
+    check(all(stepped_on[r] == [devs[r]] for r in stepped_on)
+          and set(stepped_on) >= {"dc0", "dc1"},
+          f"fleet_multi: steps ran with current devices {stepped_on}")
+    check(max_gap <= delta, f"fleet_multi: a token trails forward's "
+                            f"maximum by {max_gap} > delta {delta}")
+    check(launches == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                       "flash_bwd_dkv": 0},
+          f"fleet_multi: the serving path launched {launches}")
+    del trees, p0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def dequantized(params: dict, dtype) -> dict:
@@ -3053,6 +3779,17 @@ OUT_OF_PLACE_PEAK_GB = {
     PLAN_RUNGS[2][0]: 53.913, PLAN_RUNGS[3][0]: 80.861,
     PLAN_RUNGS[4][0]: 30.588,
 }
+# the walk's peak of each rung, in GB, while the training forwards took
+# layer i of a stacked leaf by a per-layer select, whose backward is a
+# zero-filled tensor of the whole leaf, one a layer (the walk held two
+# of the largest leaf's at the backward that binds; the card one): the
+# planner's prediction for the step before the stacked-slice repair
+# (``llama.layer_slices``), shown beside the new one
+SELECT_PEAK_GB = {
+    PLAN_RUNGS[0][0]: 15.951, PLAN_RUNGS[1][0]: 18.591,
+    PLAN_RUNGS[2][0]: 46.781, PLAN_RUNGS[3][0]: 76.993,
+    PLAN_RUNGS[4][0]: 30.588,
+}
 # the planner's peak against the allocator's, either way: the bound JAX
 # held its anchors to (tests/test_jaxcheck.py)
 PLAN_RTOL = 0.10
@@ -3102,6 +3839,34 @@ def _rung_batch(rung, cfg, packed: bool) -> dict:
         host = {k: rng.integers(1, cfg.vocab_size, (rows, 2048))
                 .astype(np.int32) for k in ("tokens", "labels")}
     return {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+
+
+def walk_rung(rung) -> dict:
+    """The planner's walk of a ``PLAN_RUNGS`` entry on meta tensors (no
+    card needed): ``python3 -c "import chip_smoke as c;
+    c.print_plan_walks()"`` prints all five on a CPU."""
+    from kubeflow_rm_tpu_torch.analysis.torchcheck import memplan
+
+    tcfg, packed = _rung_cfg(rung)
+    t0 = time.perf_counter()
+    w = memplan.walk_train_step(
+        tcfg, rung[3], rung[4], packed=packed,
+        params_fn=None if not rung[-1] else
+        (lambda g, r=rung, c=tcfg.model: _rung_params(r, c, g, "meta")))
+    w["walk_s"] = time.perf_counter() - t0
+    return w
+
+
+def print_plan_walks() -> None:
+    """One JSON line per ``PLAN_RUNGS`` entry: the walk's peak beside the
+    walk of the step whose layers were taken by a per-layer select
+    (``SELECT_PEAK_GB``)."""
+    for rung in PLAN_RUNGS:
+        w = walk_rung(rung)
+        print(json.dumps(dict(rung=rung[0],
+                              predicted_peak_gb=w["peak_bytes"] / 1e9,
+                              select_peak_gb=SELECT_PEAK_GB[rung[0]],
+                              walk_s=w["walk_s"])), flush=True)
 
 
 def measure_rung(rung) -> dict:
@@ -3342,13 +4107,8 @@ def phase_torchcheck(card, timing):
     dev = memplan.card()
     rows = []
     for rung in PLAN_RUNGS:
-        tcfg, packed = _rung_cfg(rung)
-        t0 = time.perf_counter()
-        w = memplan.walk_train_step(
-            tcfg, rung[3], rung[4], packed=packed,
-            params_fn=None if not rung[-1] else
-            (lambda g, r=rung, c=tcfg.model: _rung_params(r, c, g, "meta")))
-        walk_s = time.perf_counter() - t0
+        w = walk_rung(rung)
+        walk_s = w["walk_s"]
         m = measure_rung(rung)
         delta = (w["peak_bytes"] - m["peak_bytes"]) / m["peak_bytes"]
         rows.append(dict(
@@ -3356,6 +4116,7 @@ def phase_torchcheck(card, timing):
             microbatch=rung[3] // rung[4], remat=rung[5], seq=2048,
             walk_s=walk_s, predicted_peak_gb=w["peak_bytes"] / 1e9,
             predicted_peak_gb_out_of_place=OUT_OF_PLACE_PEAK_GB[rung[0]],
+            predicted_peak_gb_select=SELECT_PEAK_GB[rung[0]],
             measured_peak_gb=m["peak_bytes"] / 1e9,
             delta_pct=100 * delta,
             predicted_state_gb=(w["params_bytes"] + w["opt_state_bytes"])
@@ -3587,6 +4348,12 @@ def probe_training(cfg, lp, card) -> dict:
     check(out["implicit_hostsyncs_total_default"] == 0,
           f"implicit_hostsyncs_total{{tenant=\"default\"}} moved by "
           f"{out['implicit_hostsyncs_total_default']}")
+    # adafactor's step count is filled on the card: no upload per leaf
+    optim_syncs = {k: v for k, v in
+                   out["adafactor_step"]["cuda_runtime_sites"].items()
+                   if "training/optim.py" in k}
+    check(not optim_syncs,
+          f"CUDA-runtime syncs in training/optim.py: {optim_syncs}")
     return launches
 
 
@@ -3644,6 +4411,9 @@ def phase_seams(card, device: str = "cuda"):
     import torch.distributed as dist
 
     from kubeflow_rm_tpu_torch.analysis.torchcheck import pricer
+    from kubeflow_rm_tpu_torch.analysis.torchcheck.__main__ import (
+        TORCHCHECK_RULES,
+    )
     from kubeflow_rm_tpu_torch.controlplane.api import gpu
     from kubeflow_rm_tpu_torch.controlplane.webhook.admission_pricer import (
         AdmissionPricer,
@@ -3711,8 +4481,11 @@ def phase_seams(card, device: str = "cuda"):
          "--json"], cwd=here, capture_output=True, text=True, timeout=600)
     report = json.loads(gate.stdout) if gate.returncode in (0, 1) else None
     emit("seams", part="lint_gate", card=card, rc=gate.returncode,
-         seconds=time.perf_counter() - t0, report=report,
+         seconds=time.perf_counter() - t0, rules=sorted(TORCHCHECK_RULES),
+         report=report,
          stderr=gate.stderr[-800:] if gate.returncode else None)
+    check(TORCHCHECK_RULES == {f"KFRM00{i}" for i in range(1, 9)},
+          f"the gate runs {sorted(TORCHCHECK_RULES)}, not KFRM001-008")
     check(gate.returncode == 0, f"the torchcheck gate exited "
                                 f"{gate.returncode}: {report}")
 
@@ -3784,6 +4557,8 @@ def main() -> int:
     paths["engine"] = run("engine", phase_engine, cfg, params, forward_err,
                           smi)
     torch.cuda.empty_cache()
+    paths["fleet"] = run("fleet", phase_fleet, cfg, params, forward_err, smi)
+    torch.cuda.empty_cache()
     paths["quant"] = run("quant", phase_quant, cfg, params, forward_err, smi)
     torch.cuda.empty_cache()
     paths["train_grad"] = run("train_grad", phase_train_grad)
@@ -3811,6 +4586,10 @@ def main() -> int:
     multi = run("mesh_multi", phase_mesh_multi)
     if multi is not None:
         paths["mesh_multi_pipeline"] = multi["pipeline"]["launches"]
+    torch.cuda.empty_cache()
+    fleet_multi = run("fleet_multi", phase_fleet_multi, smi)
+    if fleet_multi is not None:
+        paths["fleet_multi"] = fleet_multi
     torch.cuda.empty_cache()
     paths["torchcheck_profile"], paths["torchcheck_probed_fit"] = (
         run("torchcheck", phase_torchcheck, smi, timing) or (None, None))

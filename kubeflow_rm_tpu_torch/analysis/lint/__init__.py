@@ -20,9 +20,12 @@ __all__ = ["ALL_RULES", "ALLOWLIST", "Finding", "Rule", "lint_source",
            "lint_paths", "iter_python_files"]
 
 #: files where a rule is structurally inapplicable, by rule id (path
-#: suffixes). Empty: the port has no such file; a finding is fixed or
-#: disabled inline with a reason.
-ALLOWLIST: dict[str, tuple[str, ...]] = {}
+#: suffixes); every other finding is fixed or disabled inline with a
+#: reason. ``lockgraph.py`` IS the lock factory: it must make raw
+#: primitives, and each of its sites carries an inline reason too.
+ALLOWLIST: dict[str, tuple[str, ...]] = {
+    "KFRM001": ("kubeflow_rm_tpu_torch/analysis/lockgraph.py",),
+}
 
 
 def _norm(path: str) -> str:

@@ -6,6 +6,12 @@ Each rule is an :class:`ast.NodeVisitor` subclass that appends
 machine-readable (``as_dict``); the runner filters them through
 ``# kfrm: disable=RULE`` comments before reporting.
 
+- **lockish** — an expression reads as a lock if its terminal name (the
+  last attribute/name segment, unwrapping a call) matches
+  ``(?i)(lock|cond|cv|guard|mutex)``. Deliberately broad: the port
+  names every lock that way, a false positive on a ``with`` statement
+  is cheap to silence with a disable comment, and a miss would exempt a
+  critical section silently.
 - **disable comments** — ``# kfrm: disable=KFRM006`` silences rules on
   that line; ``# kfrm: disable-file=KFRM006`` silences them for the
   whole file. Both accept a comma-separated list and should carry a
@@ -17,6 +23,8 @@ from __future__ import annotations
 import ast
 import dataclasses
 import re
+
+LOCKISH = re.compile(r"(?i)(lock|cond|cv|guard|mutex)")
 
 _DISABLE = re.compile(
     r"#\s*kfrm:\s*disable(?P<file>-file)?\s*=\s*"
@@ -81,6 +89,11 @@ def dotted(node: ast.AST) -> str | None:
     return ".".join(reversed(parts))
 
 
+def is_lockish(node: ast.AST) -> bool:
+    name = terminal_name(node)
+    return bool(name and LOCKISH.search(name))
+
+
 class Rule(ast.NodeVisitor):
     """Base class: one instance per (rule, file) pass."""
 
@@ -100,3 +113,42 @@ class Rule(ast.NodeVisitor):
     def run(self, tree: ast.AST) -> list[Finding]:
         self.visit(tree)
         return self.findings
+
+
+class LockScopeRule(Rule):
+    """Base for rules that fire only *lexically inside* a
+    ``with <lockish>:`` body. Tracks nesting depth; nested function and
+    lambda bodies run later (not under the lock at definition time), so
+    the depth resets across them."""
+
+    def __init__(self, path: str):
+        super().__init__(path)
+        self._depth = 0
+
+    def visit_With(self, node: ast.With) -> None:
+        locks = sum(1 for item in node.items
+                    if is_lockish(item.context_expr))
+        for item in node.items:
+            self.visit(item)
+        self._depth += locks
+        try:
+            for stmt in node.body:
+                self.visit(stmt)
+        finally:
+            self._depth -= locks
+
+    def _visit_scope(self, node) -> None:
+        saved, self._depth = self._depth, 0
+        try:
+            self.generic_visit(node)
+        finally:
+            self._depth = saved
+
+    def visit_FunctionDef(self, node) -> None:
+        self._visit_scope(node)
+
+    def visit_AsyncFunctionDef(self, node) -> None:
+        self._visit_scope(node)
+
+    def visit_Lambda(self, node) -> None:
+        self._visit_scope(node)

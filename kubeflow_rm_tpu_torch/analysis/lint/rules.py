@@ -3,11 +3,17 @@
 
 | Rule    | Invariant                                                   |
 |---------|-------------------------------------------------------------|
-| KFRM001-005 | the control plane's locking rules: not in this copy; they come with the port's lock factory and serving fleet, the first port code that takes locks |
+| KFRM001 | locks come from the ``analysis.lockgraph`` factory          |
+| KFRM002 | no blocking call lexically inside ``with <lock>:``          |
+| KFRM003 | manual ``.acquire()`` has a ``try/finally`` release         |
+| KFRM004 | no apiserver/kubeclient write while a lock is held          |
+| KFRM005 | ``except Exception:`` must log, count, or re-raise          |
 | KFRM006 | no scalar host sync in a hot region inside a loop           |
 | KFRM007 | no ``torch.compile`` or CUDA graph built inside a loop body |
 | KFRM008 | no carried state or gradient tree rebuilt out of place in a loop |
 
+KFRM001-005 audit the locking of the port's serving fleet, gateway and
+probes; they are plain Python and JAX's rules word for word.
 KFRM006-008 are the static half of ``analysis/torchcheck``: each encodes
 a stall or memory class one of its dynamic probes (``hostsync``,
 ``recompile``, ``costmodel``) shows at run time. The JAX rules key on
@@ -23,7 +29,226 @@ from __future__ import annotations
 
 import ast
 
-from .base import Rule, dotted, terminal_name
+from .base import LockScopeRule, Rule, dotted, is_lockish, terminal_name
+
+_THREADING_PRIMITIVES = ("Lock", "RLock", "Condition")
+
+# Calls that park the thread in the kernel (or for unbounded time)
+# while any lock is held. ``.wait`` is deliberately absent: a condvar
+# wait RELEASES its lock for the duration.
+BLOCKING_DOTTED = {
+    "time.sleep",
+    "os.fsync", "os.fdatasync",
+    "socket.create_connection",
+    "subprocess.run", "subprocess.call", "subprocess.check_call",
+    "subprocess.check_output", "subprocess.Popen",
+    "urllib.request.urlopen",
+}
+BLOCKING_ATTRS = {
+    "fsync", "fdatasync",          # durability
+    "sendall", "recv", "recv_into", "accept",  # sockets
+    "getresponse",                 # http.client round trip
+    "result",                      # Future.result parks the caller
+}
+
+WRITE_VERBS = {
+    "create", "create_many", "update", "update_status", "patch",
+    "delete", "record_event",
+}
+# receivers that read as an apiserver/kubeclient handle; bare ``self``
+# is excluded so the apiserver's own verb implementations (which run
+# under their kind lock by design) don't self-flag
+CLIENTISH = {
+    "api", "kapi", "capi", "client", "kube", "kubeclient", "_api",
+    "backend",
+}
+
+# a handler is non-silent if it raises or calls one of these
+_HANDLED_CALLS = {
+    "debug", "info", "warning", "warn", "error", "exception", "log",
+    "critical",                   # logging
+    "inc", "observe", "swallowed",  # metrics
+    "print_exc",                  # traceback (tests/tools)
+}
+
+
+class RawLockConstruction(Rule):
+    """KFRM001: construct locks through ``lockgraph.make_lock`` /
+    ``make_rlock`` / ``make_condition``, never ``threading.Lock()``
+    directly — otherwise the dynamic analysis is blind to them."""
+
+    rule_id = "KFRM001"
+    synopsis = ("raw threading.Lock/RLock/Condition construction "
+                "outside the lockgraph factory")
+
+    def __init__(self, path: str):
+        super().__init__(path)
+        # local name -> the primitive it was imported as
+        self._from_imports: dict[str, str] = {}
+
+    def visit_ImportFrom(self, node: ast.ImportFrom) -> None:
+        if node.module == "threading":
+            for alias in node.names:
+                if alias.name in _THREADING_PRIMITIVES:
+                    self._from_imports[alias.asname or alias.name] = \
+                        alias.name
+        self.generic_visit(node)
+
+    def visit_Call(self, node: ast.Call) -> None:
+        name = dotted(node.func)
+        hit = prim = None
+        if name and name.startswith("threading."):
+            prim = name.split(".", 1)[1]
+            if prim in _THREADING_PRIMITIVES:
+                hit = name
+        elif isinstance(node.func, ast.Name) and \
+                node.func.id in self._from_imports:
+            hit = node.func.id
+            # JAX's rule looks an alias (``RLock as R``) up by its local
+            # name and raises KeyError; the port names the primitive
+            prim = self._from_imports[hit]
+        if hit:
+            factory = {"Lock": "make_lock", "RLock": "make_rlock",
+                       "Condition": "make_condition"}[prim]
+            self.emit(node, f"raw {hit}() — use "
+                            f"analysis.lockgraph.{factory}(name) so the "
+                            f"dynamic analysis can see this lock")
+        self.generic_visit(node)
+
+
+class BlockingUnderLock(LockScopeRule):
+    """KFRM002: a blocking call lexically inside a ``with <lock>:``
+    body serializes every other thread contending for that lock behind
+    a syscall/network round trip."""
+
+    rule_id = "KFRM002"
+    synopsis = "blocking call lexically inside a with-lock body"
+
+    def visit_Call(self, node: ast.Call) -> None:
+        if self._depth > 0:
+            name = dotted(node.func)
+            hit = name if name in BLOCKING_DOTTED else None
+            if hit is None and isinstance(node.func, ast.Attribute) \
+                    and node.func.attr in BLOCKING_ATTRS:
+                hit = f".{node.func.attr}"
+            if hit:
+                self.emit(node, f"blocking call {hit}() while holding "
+                                f"a lock — move it outside the "
+                                f"critical section")
+        self.generic_visit(node)
+
+
+class AcquireWithoutFinally(Rule):
+    """KFRM003: a manual ``<lock>.acquire()`` (a multi-lock pattern)
+    must have a ``try/finally`` in the same
+    function whose finalbody releases a matching lock — otherwise an
+    exception between acquire and release leaks the lock forever."""
+
+    rule_id = "KFRM003"
+    synopsis = "manual .acquire() without a try/finally release"
+
+    def _check_function(self, node) -> None:
+        acquires: list[ast.Call] = []
+        released: set[str] = set()
+        stack: list[tuple[ast.AST, bool]] = [(node, False)]
+        while stack:
+            cur, in_finally = stack.pop()
+            for child in ast.iter_child_nodes(cur):
+                if isinstance(child, (ast.FunctionDef,
+                                      ast.AsyncFunctionDef, ast.Lambda)):
+                    continue  # separate scope, checked on its own
+                child_in_finally = in_finally
+                if isinstance(child, ast.Call) and \
+                        isinstance(child.func, ast.Attribute) and \
+                        is_lockish(child.func.value):
+                    if child.func.attr == "acquire" and not in_finally:
+                        acquires.append(child)
+                    elif child.func.attr == "release" and in_finally:
+                        released.add(
+                            terminal_name(child.func.value) or "")
+                if isinstance(cur, ast.Try) and \
+                        child in getattr(cur, "finalbody", ()):
+                    child_in_finally = True
+                stack.append((child, child_in_finally))
+        for call in acquires:
+            recv = terminal_name(call.func.value) or "<lock>"
+            if recv not in released:
+                self.emit(call, f"{recv}.acquire() has no matching "
+                                f"release in a try/finally in this "
+                                f"function — an exception leaks the "
+                                f"lock")
+
+    def visit_FunctionDef(self, node) -> None:
+        self._check_function(node)
+        self.generic_visit(node)
+
+    def visit_AsyncFunctionDef(self, node) -> None:
+        self._check_function(node)
+        self.generic_visit(node)
+
+
+class WriteUnderLock(LockScopeRule):
+    """KFRM004: an apiserver/kubeclient write verb issued while a lock
+    is held couples the critical section to admission webhooks, WAL
+    fsync, and (cluster backend) a network round trip — and a write
+    re-entering the same kind lock from another thread's watch fanout
+    is the classic control-plane deadlock."""
+
+    rule_id = "KFRM004"
+    synopsis = "apiserver/kubeclient write call while a lock is held"
+
+    def visit_Call(self, node: ast.Call) -> None:
+        if self._depth > 0 and isinstance(node.func, ast.Attribute) \
+                and node.func.attr in WRITE_VERBS:
+            recv = terminal_name(node.func.value)
+            if recv in CLIENTISH:
+                self.emit(node, f"{recv}.{node.func.attr}() while "
+                                f"holding a lock — issue API writes "
+                                f"after the critical section")
+        self.generic_visit(node)
+
+
+class SilentSwallow(Rule):
+    """KFRM005: ``except Exception:`` that neither re-raises, logs,
+    nor counts turns real faults into silence. Use
+    ``metrics.swallowed(module)`` for intentional best-effort paths."""
+
+    rule_id = "KFRM005"
+    synopsis = "except Exception: swallowed without logging or counting"
+
+    @staticmethod
+    def _is_broad(handler: ast.ExceptHandler) -> bool:
+        t = handler.type
+        if t is None:
+            return True
+        names = t.elts if isinstance(t, ast.Tuple) else [t]
+        return any(terminal_name(n) in ("Exception", "BaseException")
+                   for n in names)
+
+    @staticmethod
+    def _is_handled(handler: ast.ExceptHandler) -> bool:
+        for sub in ast.walk(handler):
+            if isinstance(sub, ast.Raise):
+                return True
+            if isinstance(sub, ast.Call) and \
+                    terminal_name(sub.func) in _HANDLED_CALLS:
+                return True
+            # the bound exception flowing anywhere (stored for a later
+            # gather-raise, handed to a retry/record helper) is not a
+            # swallow — the fault stays visible to the program
+            if handler.name and isinstance(sub, ast.Name) and \
+                    sub.id == handler.name and \
+                    isinstance(sub.ctx, ast.Load):
+                return True
+        return False
+
+    def visit_ExceptHandler(self, node: ast.ExceptHandler) -> None:
+        if self._is_broad(node) and not self._is_handled(node):
+            self.emit(node, "except Exception: swallows the error — "
+                            "re-raise, log it, or count it via "
+                            "metrics.swallowed(module)")
+        self.generic_visit(node)
+
 
 #: ``with`` targets that open a hot region: the host-sync probe's
 #: ``hostsync.region(...)`` and the profiler's ``profiling.annotate(...)``
@@ -239,6 +464,11 @@ class CarriedStateOutOfPlace(_ScopedRule):
 
 
 ALL_RULES: tuple[type[Rule], ...] = (
+    RawLockConstruction,
+    BlockingUnderLock,
+    AcquireWithoutFinally,
+    WriteUnderLock,
+    SilentSwallow,
     ScalarSyncInHotLoop,
     CaptureInLoop,
     CarriedStateOutOfPlace,

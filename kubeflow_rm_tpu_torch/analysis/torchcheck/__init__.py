@@ -19,7 +19,7 @@
   train loops, reported with witness stacks.
 
 ``python -m kubeflow_rm_tpu_torch.analysis.torchcheck`` runs the port's
-lint rules KFRM006-008 (``analysis/lint``) over the tree and the cost
+lint rules KFRM001-008 (``analysis/lint``) over the tree and the cost
 model's self-check, as the JAX gate does.
 """
 

@@ -1,11 +1,11 @@
 """CLI: ``python -m kubeflow_rm_tpu_torch.analysis.torchcheck [paths...]``.
 
-The compute-path audit gate of the port (counterpart of ``python -m
-kubeflow_rm_tpu.analysis.jaxcheck``): runs the port's lint rules
-KFRM006-008 (``analysis/lint``: a scalar sync in a hot region inside a
-loop, a ``torch.compile`` or CUDA graph built in a loop, carried state
-rebuilt out of place in a loop) over the tree AND the cost model's
-self-check (:func:`costmodel.selfcheck` — exact FLOPs on a known matmul,
+The audit gate of the port (counterpart of ``python -m
+kubeflow_rm_tpu.analysis.jaxcheck``): runs every lint rule of the port,
+KFRM001-008 (``analysis/lint``: the locking rules, then a scalar sync in
+a hot region inside a loop, a ``torch.compile`` or CUDA graph built in a
+loop, carried state rebuilt out of place in a loop), over the tree AND
+the cost model's self-check (:func:`costmodel.selfcheck` — exact FLOPs on a known matmul,
 the donation double-buffer proof, loop trip accounting). Exit status: 0
 clean, 1 findings or a failed self-check, 2 usage error — the same
 contract as ``analysis.lint``.
@@ -17,17 +17,17 @@ import argparse
 import json
 import sys
 
-from ..lint import lint_paths
+from ..lint import ALL_RULES, lint_paths
 
-#: the compute-path rules this gate owns
-TORCHCHECK_RULES = frozenset({"KFRM006", "KFRM007", "KFRM008"})
+#: the rules this gate runs: all of the port's
+TORCHCHECK_RULES = frozenset(cls.rule_id for cls in ALL_RULES)
 DEFAULT_PATH = "kubeflow_rm_tpu_torch"
 
 
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m kubeflow_rm_tpu_torch.analysis.torchcheck",
-        description="the port's program audit: lint rules KFRM006-008 "
+        description="the port's program audit: lint rules KFRM001-008 "
                     "+ cost-model self-check")
     parser.add_argument("paths", nargs="*", default=[DEFAULT_PATH],
                         help=f"files or directories (default: "

@@ -42,13 +42,15 @@ import os
 import threading
 import traceback
 
+from kubeflow_rm_tpu_torch.analysis.lockgraph import make_lock
+
 _ENV = "KFRM_HOSTSYNC_PROBE"
 _enabled = os.environ.get(_ENV, "").strip().lower() not in (
     "", "0", "false", "no")
 
 _STACK_LIMIT = 12
 
-_lock = threading.Lock()
+_lock = make_lock("torchcheck.hostsync")
 _observers: list = []
 _witnesses: list[dict] = []
 _sanctioned_counts: dict[tuple[str, str], int] = {}  # (site, kind) -> n

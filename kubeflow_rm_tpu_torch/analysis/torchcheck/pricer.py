@@ -30,9 +30,9 @@ divided by the chip count. ``preset`` must name one of the port's
 from __future__ import annotations
 
 import json
-import threading
 from dataclasses import dataclass, replace
 
+from kubeflow_rm_tpu_torch.analysis.lockgraph import make_lock
 from kubeflow_rm_tpu_torch.analysis.torchcheck.memplan import (
     GB, HBM_MARGIN, USABLE_FRACTION, card, model_config, walk_train_step,
 )
@@ -214,7 +214,7 @@ def _walk(decl: DeclaredWorkload) -> dict:
 
 
 _cache: dict[str, dict] = {}
-_cache_lock = threading.Lock()
+_cache_lock = make_lock("torchcheck.pricer")
 
 
 def _walk_cached(decl: DeclaredWorkload) -> dict:

@@ -34,8 +34,9 @@ Instrumentation points (all one attribute read when disabled):
 from __future__ import annotations
 
 import os
-import threading
 import traceback
+
+from kubeflow_rm_tpu_torch.analysis.lockgraph import make_lock
 
 _ENV = "KFRM_JIT_SENTINEL"
 _enabled = os.environ.get(_ENV, "").strip().lower() not in (
@@ -43,7 +44,7 @@ _enabled = os.environ.get(_ENV, "").strip().lower() not in (
 
 _STACK_LIMIT = 12
 
-_lock = threading.Lock()
+_lock = make_lock("torchcheck.recompile")
 _entries: dict[str, dict] = {}
 _observers: list = []
 

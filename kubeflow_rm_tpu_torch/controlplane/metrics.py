@@ -1,28 +1,38 @@
-"""The control-plane counters the port's seams feed, on the standard
-library alone (the JAX control plane's are ``prometheus_client``
-metrics in ``kubeflow_rm_tpu/controlplane/metrics.py``, a package the
-card's machine does not have).
+"""The control-plane metrics the port feeds, on the standard library
+alone (the JAX control plane's are ``prometheus_client`` metrics in
+``kubeflow_rm_tpu/controlplane/metrics.py``, a package the card's
+machine does not have).
 
-A metric is labelled like ``prometheus_client``'s: ``.labels(**kw)``
-gives the child series, which ``.inc()``s (counter) or ``.set()``s
-(gauge), and ``.get()`` reads it back. :func:`render` writes the
-Prometheus text format under the JAX control plane's series names
-(``jit_recompiles_total{tenant="..."}``, ...), so a scrape of either
-reads the same series.
+A metric is labelled like ``prometheus_client``'s: ``.labels(...)``
+(label values by name or in ``labelnames`` order) gives the child
+series, which ``.inc()``s (counter), ``.set()``s (gauge) or
+``.observe()``s (histogram), and ``.get()`` reads it back (a
+histogram's: its count). :func:`render` (and :func:`scrape`, its bytes)
+writes the Prometheus text format under the JAX control plane's series
+names: a counter's series carries one ``_total`` suffix, whether or not
+its name already ended in it (``serving_migrations`` scrapes as
+``serving_migrations_total``), and a histogram writes ``_bucket``,
+``_sum`` and ``_count``, as ``prometheus_client`` does.
 """
 
 from __future__ import annotations
 
+import bisect
 import logging
 import math
-import threading
+
+from kubeflow_rm_tpu_torch.analysis.lockgraph import make_lock
 
 _swallow_log = logging.getLogger("kubeflow_rm_tpu_torch.swallowed")
+
+#: ``prometheus_client``'s default histogram buckets
+DEFAULT_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.075, 0.1, 0.25, 0.5, 0.75,
+                   1.0, 2.5, 5.0, 7.5, 10.0, math.inf)
 
 
 class _Series:
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = make_lock("metrics.series")
         self._value = 0.0
 
     def inc(self, amount: float = 1.0) -> None:
@@ -39,55 +49,120 @@ class _Series:
         with self._lock:
             return self._value
 
+    def lines(self, name: str, labels: dict) -> list[str]:
+        return [f"{name}{_labels(labels)} {_format(self.get())}"]
+
+
+class _HistogramSeries:
+    """Cumulative bucket counts, the sum and the count of observations."""
+
+    def __init__(self, bounds: tuple):
+        self._lock = make_lock("metrics.series")
+        self.bounds = bounds
+        self._counts = [0] * len(bounds)
+        self._sum = 0.0
+
+    def observe(self, value: float) -> None:
+        with self._lock:
+            self._counts[bisect.bisect_left(self.bounds, value)] += 1
+            self._sum += value
+
+    def get(self) -> float:
+        """The number of observations."""
+        with self._lock:
+            return float(sum(self._counts))
+
+    @property
+    def sum(self) -> float:
+        with self._lock:
+            return self._sum
+
+    def lines(self, name: str, labels: dict) -> list[str]:
+        with self._lock:
+            counts, total = list(self._counts), self._sum
+        out, run = [], 0
+        for bound, n in zip(self.bounds, counts):
+            run += n
+            le = _labels({**labels, "le": _format(bound)})
+            out.append(f"{name}_bucket{le} {_format(run)}")
+        out.append(f"{name}_count{_labels(labels)} {_format(run)}")
+        out.append(f"{name}_sum{_labels(labels)} {_format(total)}")
+        return out
+
 
 class _Metric:
     kind = ""
-    suffix = ""
 
     def __init__(self, name: str, documentation: str,
-                 labelnames: tuple = ()):
-        self.name = name + self.suffix
+                 labelnames: tuple = (), *, registry: list | None = None):
+        self.name = name
         self.documentation = documentation
         self.labelnames = tuple(labelnames)
-        self._lock = threading.Lock()
-        self._series: dict[tuple, _Series] = {}
+        self._lock = make_lock("metrics.family")
+        self._series: dict[tuple, object] = {}
         if not self.labelnames:
-            self._series[()] = _Series()
-        REGISTRY.append(self)
+            self._series[()] = self._new_series()
+        (REGISTRY if registry is None else registry).append(self)
 
-    def labels(self, **labels) -> _Series:
+    def _new_series(self):
+        return _Series()
+
+    def _key(self, values: tuple, labels: dict) -> tuple:
+        if values and labels:
+            raise ValueError("labels by position or by name, not both")
+        if values:
+            if len(values) != len(self.labelnames):
+                raise ValueError(f"{self.name} takes labels "
+                                 f"{self.labelnames}, got {values}")
+            return tuple(str(v) for v in values)
         if set(labels) != set(self.labelnames):
             raise ValueError(f"{self.name} takes labels "
                              f"{self.labelnames}, got {sorted(labels)}")
-        key = tuple(str(labels[n]) for n in self.labelnames)
-        with self._lock:
-            return self._series.setdefault(key, _Series())
+        return tuple(str(labels[n]) for n in self.labelnames)
 
-    def _unlabelled(self) -> _Series:
+    def labels(self, *values, **labels):
+        key = self._key(values, labels)
+        with self._lock:
+            series = self._series.get(key)
+            if series is None:
+                series = self._series[key] = self._new_series()
+            return series
+
+    def _unlabelled(self):
         if self.labelnames:
             raise ValueError(f"{self.name} is labelled: use .labels()")
         return self._series[()]
 
-    def get(self, **labels) -> float:
+    def get(self, *values, **labels) -> float:
         """The series' value (0 for a series never touched)."""
-        if not labels:
+        if not values and not labels:
             return self._unlabelled().get()
-        key = tuple(str(labels[n]) for n in self.labelnames)
+        key = self._key(values, labels)
         with self._lock:
             series = self._series.get(key)
         return 0.0 if series is None else series.get()
 
-    def samples(self) -> list[tuple[dict, float]]:
+    def series_name(self) -> str:
+        return self.name
+
+    def render_lines(self) -> list[str]:
+        name = self.series_name()
         with self._lock:
             items = list(self._series.items())
-        return [(dict(zip(self.labelnames, k)), s.get()) for k, s in items]
+        out = [f"# HELP {name} {self.documentation}",
+               f"# TYPE {name} {self.kind}"]
+        for key, series in items:
+            out.extend(series.lines(name, dict(zip(self.labelnames, key))))
+        return out
 
 
 class Counter(_Metric):
-    """A monotonic counter; its series carries the ``_total`` suffix, as
-    ``prometheus_client``'s does."""
+    """A monotonic counter; its series carries the ``_total`` suffix
+    once, as ``prometheus_client``'s does."""
     kind = "counter"
-    suffix = "_total"
+
+    def series_name(self) -> str:
+        return self.name.removesuffix("_total") + "_total"
 
     def inc(self, amount: float = 1.0) -> None:
         self._unlabelled().inc(amount)
@@ -100,7 +175,29 @@ class Gauge(_Metric):
         self._unlabelled().set(value)
 
 
-#: every metric of this module, in definition order
+class Histogram(_Metric):
+    """Observations in cumulative buckets (``le``), with their sum and
+    count."""
+    kind = "histogram"
+
+    def __init__(self, name: str, documentation: str,
+                 labelnames: tuple = (), buckets: tuple = DEFAULT_BUCKETS,
+                 *, registry: list | None = None):
+        bounds = tuple(float(b) for b in buckets)
+        if bounds[-1] != math.inf:
+            bounds += (math.inf,)
+        self.bounds = bounds
+        super().__init__(name, documentation, labelnames, registry=registry)
+
+    def _new_series(self):
+        return _HistogramSeries(self.bounds)
+
+    def observe(self, value: float) -> None:
+        self._unlabelled().observe(value)
+
+
+#: every metric of this module, in definition order (a metric made with
+#: ``registry=`` joins that list instead)
 REGISTRY: list[_Metric] = []
 
 
@@ -112,21 +209,29 @@ def _format(v: float) -> str:
     return repr(float(v))
 
 
+def _labels(labels: dict) -> str:
+    """``{k="v",...}`` in label-name order, as ``prometheus_client``
+    writes it; "" for none."""
+    body = ",".join(f'{k}="{_escape(v)}"' for k, v in sorted(labels.items()))
+    return f"{{{body}}}" if body else ""
+
+
 def _escape(v: str) -> str:
     return v.replace("\\", r"\\").replace("\n", r"\n").replace('"', r'\"')
 
 
-def render() -> str:
-    """The Prometheus text exposition of this module's metrics."""
+def render(registry: list | None = None) -> str:
+    """The Prometheus text exposition of ``registry``'s metrics (this
+    module's by default)."""
     lines = []
-    for m in REGISTRY:
-        lines.append(f"# HELP {m.name} {m.documentation}")
-        lines.append(f"# TYPE {m.name} {m.kind}")
-        for labels, value in m.samples():
-            body = ",".join(f'{k}="{_escape(v)}"' for k, v in labels.items())
-            lines.append(f"{m.name}{{{body}}} {_format(value)}" if body
-                         else f"{m.name} {_format(value)}")
+    for m in REGISTRY if registry is None else registry:
+        lines.extend(m.render_lines())
     return "\n".join(lines) + "\n"
+
+
+def scrape() -> bytes:
+    """:func:`render` as the bytes of a ``/metrics`` response."""
+    return render().encode()
 
 
 DECLARED_HBM_DRIFT_RATIO = Gauge(
@@ -158,6 +263,125 @@ SWALLOWED_ERRORS_TOTAL = Counter(
     "swallowed_errors",
     "Exceptions intentionally absorbed on best-effort paths, by module",
     ["module"],
+)
+
+
+# ---- the serving gateway and fleet (JAX: controlplane/metrics.py:364-500)
+SERVING_QUEUE_DEPTH = Gauge(
+    "serving_queue_depth",
+    "Requests admitted by the gateway but not yet holding a decode "
+    "slot (the engine's internal admission queue)",
+)
+SERVING_ACTIVE_SLOTS = Gauge(
+    "serving_active_slots",
+    "Decode slots currently mid-generation in the continuous-batching "
+    "engine (capacity is serving_slot_capacity)",
+)
+SERVING_SLOT_CAPACITY = Gauge(
+    "serving_slot_capacity",
+    "Total decode slots in the engine's KV pool",
+)
+SERVING_BATCH_OCCUPANCY = Gauge(
+    "serving_batch_occupancy",
+    "Mean fraction of decode slots doing useful work per decode step "
+    "since boot — the utilization win continuous batching exists for",
+)
+SERVING_REQUESTS_TOTAL = Counter(
+    "serving_requests_total",
+    "Gateway requests by tenant and result (ok | shed | error)",
+    ["tenant", "result"],
+)
+SERVING_SHED_TOTAL = Counter(
+    "serving_shed_total",
+    "Requests shed before touching the engine, by tenant and reason "
+    "(rate | tokens | queue | slo)",
+    ["tenant", "reason"],
+)
+SERVING_REQUEST_LATENCY_SECONDS = Histogram(
+    "serving_request_latency_seconds",
+    "End-to-end request latency (admission to last token) per tenant",
+    ["tenant"],
+    buckets=(0.005, 0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
+             30.0),
+)
+SERVING_GENERATED_TOKENS_TOTAL = Counter(
+    "serving_generated_tokens_total",
+    "Tokens decoded and returned, per tenant (the token-budget meter)",
+    ["tenant"],
+)
+SERVING_CLASS_QUEUE_DEPTH = Gauge(
+    "serving_class_queue_depth",
+    "Engine admission-queue depth per SLO class (interactive | batch | "
+    "best_effort) — the weighted-round-robin backlog each class drains "
+    "from at token boundaries",
+    ["slo_class"],
+)
+SERVING_PREFIX_HIT_RATIO = Gauge(
+    "serving_prefix_hit_ratio",
+    "Fraction of prompt tokens served from the shared-prefix block "
+    "cache instead of prefilled (cumulative since boot)",
+)
+SERVING_PREFIX_MISS_RATIO = Gauge(
+    "serving_prefix_miss_ratio",
+    "1 - serving_prefix_hit_ratio, set only once prompts have flowed — "
+    "the burn signal for the prefix-hit-collapse SLO (sustained ~1.0 "
+    "under prefix-heavy traffic means the cache stopped working)",
+)
+SERVING_FREE_BLOCK_FRACTION = Gauge(
+    "serving_free_block_fraction",
+    "Fraction of the paged-KV pool's usable blocks free or evictable "
+    "right now — sustained ~0 predicts admission OOM rejections",
+)
+SERVING_MIGRATIONS_TOTAL = Counter(
+    "serving_migrations",
+    "In-flight requests re-routed to another replica after their "
+    "original replica drained or died (resumed, not failed)",
+)
+SERVING_FLEET_REPLICAS = Gauge(
+    "serving_fleet_replicas",
+    "Serving-fleet replicas by state (ready | draining | dead)",
+    ["state"],
+)
+SERVING_STORE_HIT_RATIO = Gauge(
+    "serving_store_hit_ratio",
+    "Fraction of GlobalBlockStore lookups that found a chain "
+    "(cumulative since boot) — the fleet-wide prefix economy's "
+    "effectiveness across replica deaths and rebalancing",
+)
+SERVING_STORE_MISS_RATIO = Gauge(
+    "serving_store_miss_ratio",
+    "1 - serving_store_hit_ratio, set only once lookups have flowed — "
+    "the burn signal for the store-hit-collapse SLO (sustained ~1.0 "
+    "under steady traffic means the global prefix tier stopped "
+    "absorbing re-prefills)",
+)
+SERVING_STORE_CHAINS = Gauge(
+    "serving_store_chains",
+    "Chains currently resident in the GlobalBlockStore",
+)
+SERVING_STORE_BYTES = Gauge(
+    "serving_store_bytes",
+    "Bytes of chain payload resident in the GlobalBlockStore (LRU "
+    "evicts ref-0 chains past the byte budget)",
+)
+SERVING_STORE_PROMOTED_TOTAL = Counter(
+    "serving_store_promoted_chains",
+    "Hot ref-0 chains promoted into the GlobalBlockStore at local "
+    "eviction time instead of dying with the replica's pool",
+)
+SERVING_CHAIN_HANDOFF_SECONDS = Histogram(
+    "serving_chain_handoff_seconds",
+    "Prefill-tier handoff latency: route to a prefill replica, "
+    "prefill the prompt, export the chain, publish it to the global "
+    "store — the added cost a disaggregated request pays before its "
+    "decode replica installs the chain",
+)
+SERVING_TIER_OCCUPANCY = Gauge(
+    "serving_tier_occupancy",
+    "Mean busy fraction per serving tier (prefill: active prefill "
+    "fraction of READY prefill replicas' queue+work; decode: active "
+    "slot fraction of READY decode replicas)",
+    ["tier"],
 )
 
 

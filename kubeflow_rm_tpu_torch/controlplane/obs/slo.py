@@ -13,7 +13,7 @@ so a test or the smoke can state a burn in the port's terms.
 
 from __future__ import annotations
 
-import threading
+from kubeflow_rm_tpu_torch.analysis.lockgraph import make_lock
 
 #: the warn-only per-tenant SLOs on these series (JAX's
 #: ``jit-recompile-storm`` and ``implicit-hostsync-storm``): a tenant
@@ -34,7 +34,7 @@ def tenant_of(name: str) -> str:
     return tenant if sep and tenant else "default"
 
 
-_bridges_lock = threading.Lock()
+_bridges_lock = make_lock("obs.bridges")
 _bridges_installed = False
 
 

@@ -1,0 +1,245 @@
+"""Request tracing for the serving gateway (counterpart of the parts of
+``kubeflow_rm_tpu/controlplane/tracing.py`` the gateway calls).
+
+W3C-traceparent contexts (trace id, span id, parent id) carried across
+an HTTP hop (``parse_traceparent`` of the ``traceparent`` header) and a
+thread (a thread-local current span that ``start_span`` parents new
+spans on); ``record_span`` stamps an interval measured elsewhere (the
+gateway's drain thread, submit to done). Spans land in one in-memory
+``SpanCollector`` per process, a bounded ring.
+
+Tracing is off by default, and then ``start_span`` returns one shared
+no-op context manager after a boolean check.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+from collections import deque
+
+from kubeflow_rm_tpu_torch.analysis.lockgraph import make_lock
+
+_tls = threading.local()
+
+
+def new_trace_id() -> str:
+    return os.urandom(16).hex()
+
+
+def new_span_id() -> str:
+    return os.urandom(8).hex()
+
+
+class SpanContext:
+    """Just enough identity to parent a remote or later child."""
+
+    __slots__ = ("trace_id", "span_id")
+
+    def __init__(self, trace_id: str, span_id: str):
+        self.trace_id = trace_id
+        self.span_id = span_id
+
+    def to_traceparent(self) -> str:
+        return f"00-{self.trace_id}-{self.span_id}-01"
+
+
+class Span:
+    """One timed operation; ``start``/``end`` are epoch seconds."""
+
+    __slots__ = ("trace_id", "span_id", "parent_id", "name", "kind",
+                 "start", "end", "attrs")
+
+    def __init__(self, name: str, *, trace_id: str, span_id: str,
+                 parent_id: str | None, kind: str = "internal",
+                 start: float | None = None, attrs: dict | None = None):
+        self.name = name
+        self.trace_id = trace_id
+        self.span_id = span_id
+        self.parent_id = parent_id
+        self.kind = kind
+        self.start = time.time() if start is None else start
+        self.end: float | None = None
+        self.attrs = attrs or {}
+
+    def to_traceparent(self) -> str:
+        return f"00-{self.trace_id}-{self.span_id}-01"
+
+    def context(self) -> SpanContext:
+        return SpanContext(self.trace_id, self.span_id)
+
+    def set_attr(self, key: str, value) -> None:
+        self.attrs[key] = value
+
+    def to_dict(self) -> dict:
+        return {
+            "trace_id": self.trace_id, "span_id": self.span_id,
+            "parent_id": self.parent_id, "name": self.name,
+            "kind": self.kind, "start": self.start, "end": self.end,
+            "duration_ms": None if self.end is None
+            else round((self.end - self.start) * 1e3, 3),
+            "attrs": self.attrs,
+        }
+
+
+def parse_traceparent(header: str | None) -> SpanContext | None:
+    """``00-<32 hex>-<16 hex>-<2 hex>`` → SpanContext, else None (a
+    malformed header is dropped, never raised on)."""
+    if not header:
+        return None
+    parts = header.strip().split("-")
+    if len(parts) != 4:
+        return None
+    _, trace_id, span_id, _ = parts
+    if len(trace_id) != 32 or len(span_id) != 16:
+        return None
+    try:
+        int(trace_id, 16), int(span_id, 16)
+    except ValueError:
+        return None
+    return SpanContext(trace_id, span_id)
+
+
+class SpanCollector:
+    """The process's span sink: a bounded ring (the lock is held for an
+    append only)."""
+
+    def __init__(self, capacity: int = 8192):
+        self._lock = make_lock("tracing.collector")
+        self._ring: deque[Span] = deque(maxlen=capacity)
+
+    def add(self, span: Span) -> None:
+        with self._lock:
+            self._ring.append(span)
+
+    def spans(self) -> list[dict]:
+        with self._lock:
+            return [s.to_dict() for s in self._ring]
+
+    def get_trace(self, trace_id: str) -> list[dict]:
+        return sorted((d for d in self.spans() if d["trace_id"] == trace_id),
+                      key=lambda d: d["start"])
+
+    def clear(self) -> None:
+        with self._lock:
+            self._ring.clear()
+
+
+_collector = SpanCollector()
+_enabled = False
+
+
+def collector() -> SpanCollector:
+    return _collector
+
+
+def set_enabled(on: bool) -> None:
+    global _enabled
+    _enabled = bool(on)
+
+
+def enabled() -> bool:
+    return _enabled
+
+
+def current_traceparent() -> str | None:
+    """The live span's traceparent; None when tracing is off or no span
+    is open on this thread."""
+    span = getattr(_tls, "span", None) if _enabled else None
+    return span.to_traceparent() if span is not None else None
+
+
+class _NullSpan:
+    __slots__ = ()
+
+    def set_attr(self, key, value):
+        pass
+
+
+class _NullCtx:
+    """The disabled fast path: one shared instance."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return _NULL_SPAN
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NULL_SPAN = _NullSpan()
+_NULL_CTX = _NullCtx()
+
+
+class _SpanCtx:
+    """One live span: the thread's current span while open, collected on
+    exit (with the error, if one ended it)."""
+
+    __slots__ = ("span", "_prev")
+
+    def __init__(self, span: Span):
+        self.span = span
+        self._prev = None
+
+    def __enter__(self) -> Span:
+        self._prev = getattr(_tls, "span", None)
+        _tls.span = self.span
+        return self.span
+
+    def __exit__(self, exc_type, exc, tb):
+        _tls.span = self._prev
+        self.span.end = time.time()
+        if exc_type is not None:
+            self.span.attrs["error"] = f"{exc_type.__name__}: {exc}"
+        _collector.add(self.span)
+        return False
+
+
+def _ids_under(parent) -> tuple[str, str | None]:
+    if isinstance(parent, str):
+        parent = parse_traceparent(parent)
+    if parent is None:
+        return new_trace_id(), None
+    return parent.trace_id, parent.span_id
+
+
+def start_span(name: str, *, kind: str = "internal",
+               parent: SpanContext | Span | str | None = None,
+               attrs: dict | None = None):
+    """Open a span as a context manager, parented on ``parent`` (a
+    context, a span or a traceparent string) or else on the thread's
+    current span; a new trace when there is neither."""
+    if not _enabled:
+        return _NULL_CTX
+    if parent is None:
+        parent = getattr(_tls, "span", None)
+    trace_id, parent_id = _ids_under(parent)
+    return _SpanCtx(Span(name, trace_id=trace_id, span_id=new_span_id(),
+                         parent_id=parent_id, kind=kind, attrs=attrs))
+
+
+def start_span_if_active(name: str, *, kind: str = "internal",
+                         attrs: dict | None = None):
+    """A child span only when a trace is in flight on this thread, so
+    work with no causal origin mints no orphan trace."""
+    if not _enabled or getattr(_tls, "span", None) is None:
+        return _NULL_CTX
+    return start_span(name, kind=kind, attrs=attrs)
+
+
+def record_span(name: str, *, start: float, end: float,
+                parent: SpanContext | Span | str | None = None,
+                kind: str = "internal",
+                attrs: dict | None = None) -> SpanContext | None:
+    """Record a span whose interval was measured elsewhere. Returns its
+    context (None when tracing is off)."""
+    if not _enabled:
+        return None
+    trace_id, parent_id = _ids_under(parent)
+    span = Span(name, trace_id=trace_id, span_id=new_span_id(),
+                parent_id=parent_id, kind=kind, start=start, attrs=attrs)
+    span.end = end
+    _collector.add(span)
+    return span.context()

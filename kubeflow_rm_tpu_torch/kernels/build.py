@@ -17,8 +17,9 @@ import ctypes
 import hashlib
 import os
 import subprocess
-import threading
 from pathlib import Path
+
+from kubeflow_rm_tpu_torch.analysis.lockgraph import make_lock
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -50,7 +51,7 @@ SIGNATURES = {
     },
 }
 
-_lock = threading.Lock()
+_lock = make_lock("kernels.build")
 _loaded: dict[str, ctypes.CDLL] = {}
 #: ptxas report of each library built by this process (registers,
 #: shared memory, spills), for the smoke script to print

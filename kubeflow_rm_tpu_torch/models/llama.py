@@ -260,10 +260,118 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
 
 def layer_params(blocks: dict, i: int) -> dict:
     """Layer ``i``'s weights as views into the stacked tensors (a
-    quantized leaf is sliced array by array)."""
+    quantized leaf is sliced array by array). Decode and other paths that
+    record no gradient; a training forward takes ``layer_slices``."""
     return {name: ({k: t[i] for k, t in w.items()} if isinstance(w, dict)
                    else w[i])
             for name, w in blocks.items()}
+
+
+class _LeafGrad:
+    """The gradient of one stacked leaf, filled a layer at a time by
+    ``_StackedSlice`` in one backward pass."""
+
+    __slots__ = ("shape", "n", "pending", "buf")
+
+    def __init__(self, leaf: torch.Tensor):
+        self.shape = leaf.shape
+        self.n = self.pending = leaf.shape[0]
+        self.buf = None
+
+    def check_complete(self) -> None:
+        # queued at the first slice's backward, run when the pass ends
+        if self.pending != self.n:
+            pending, self.pending, self.buf = self.pending, self.n, None
+            raise RuntimeError(
+                f"{pending} of {self.n} layer slices of a stacked leaf "
+                f"received no gradient: every slice taken by "
+                f"layer_slices must be in the loss's graph")
+
+
+class _StackedSlice(torch.autograd.Function):
+    """Layer ``i`` of a stacked ``(L, ...)`` leaf, as the view ``leaf[i]``.
+
+    ``leaf[i]``'s own backward (``select_backward``) is a zero-filled
+    tensor of the whole leaf, one a layer, which autograd then adds into
+    the leaf's gradient. Here each layer's backward copies its slice's
+    gradient into one per-leaf buffer (``_LeafGrad``) in place and hands
+    autograd nothing; the last of the L slices hands it the buffer. A
+    backward pass holds the leaf's gradient plus one layer's slice, as
+    JAX's scan, which writes each layer's gradient into the stacked
+    result. The values are the sum's: each element has one non-zero term.
+    """
+
+    @staticmethod
+    def forward(ctx, leaf, i, acc):
+        ctx.i, ctx.acc = i, acc
+        return leaf[i]
+
+    @staticmethod
+    def backward(ctx, g):
+        acc = ctx.acc
+        if acc.buf is None:
+            acc.buf = g.new_empty(acc.shape)
+            torch.autograd.Variable._execution_engine.queue_callback(
+                acc.check_complete)
+        acc.buf[ctx.i].copy_(g)
+        acc.pending -= 1
+        if acc.pending:
+            return None, None, None
+        buf, acc.buf, acc.pending = acc.buf, None, acc.n
+        return buf, None, None
+
+
+def layer_slices(blocks: dict) -> "_LayerSlices":
+    """Every layer's weights of the stacked tree ``blocks``, for a forward
+    that uses each layer once or more, all in one backward pass. Where
+    autograd records, a leaf that requires grad is sliced by
+    ``_StackedSlice`` (its gradient is built in place, a layer at a
+    time); any other leaf, as ``layer_params``, by plain views.
+
+    A layer is sliced when it is first read (``layers[i]``, or as the
+    iteration reaches it) and kept for later reads: sliced just before
+    its block, its backward node runs as soon as that block's backward
+    is done, while slicing every layer up front would hold every layer's
+    gradient in pieces until the backward's end (autograd runs the ready
+    node it recorded last first)."""
+    return _LayerSlices(blocks)
+
+
+class _LayerSlices:
+    """The sequence ``layer_slices`` returns."""
+
+    def __init__(self, blocks: dict):
+        self._blocks = blocks
+        self._n = stacked_layers(blocks)
+        self._take = None
+        self._layers: dict[int, dict] = {}
+
+    def _slicer(self, t):
+        if not (t.requires_grad and torch.is_grad_enabled()):
+            return t.__getitem__
+        acc = _LeafGrad(t)
+        return lambda i: _StackedSlice.apply(t, i, acc)
+
+    def __len__(self) -> int:
+        return self._n
+
+    def __getitem__(self, i: int) -> dict:
+        if not 0 <= i < self._n:
+            raise IndexError(i)
+        if i not in self._layers:
+            if self._take is None:
+                self._take = {
+                    name: ({k: self._slicer(t) for k, t in w.items()}
+                           if isinstance(w, dict) else self._slicer(w))
+                    for name, w in self._blocks.items()}
+            self._layers[i] = {
+                name: ({k: f(i) for k, f in w.items()}
+                       if isinstance(w, dict) else w(i))
+                for name, w in self._take.items()}
+        return self._layers[i]
+
+    def __iter__(self):
+        return (self[i] for i in range(self._n))
 
 
 def _projector(cfg: LlamaConfig, layer, view):
@@ -396,9 +504,8 @@ def forward(
                                             packed, view)
     blocks = params["blocks"]
     block = remat_block(partial(_block, cfg, view=view), cfg)
-    for i in range(stacked_layers(blocks)):
-        x = block(x, layer_params(blocks, i), cos, sin, attn_positions,
-                  segments, impl)
+    for layer in layer_slices(blocks):
+        x = block(x, layer, cos, sin, attn_positions, segments, impl)
     return _epilogue(params, x, cfg, view, local_vocab=local_vocab)
 
 

@@ -25,7 +25,7 @@ import torch
 
 from kubeflow_rm_tpu_torch.models.llama import (
     LlamaConfig, _attention_half, _epilogue, _mesh_view, _prologue,
-    init_tree, layer_params, remat_block, stacked_layers,
+    init_tree, layer_slices, remat_block,
 )
 from kubeflow_rm_tpu_torch.models.llama import (
     param_spec_shapes as _llama_shapes,
@@ -133,9 +133,8 @@ def forward(
     blocks = params["blocks"]
     block = remat_block(partial(_moe_block, cfg, view=view), cfg)
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(stacked_layers(blocks)):
-        x, aux = block(x, layer_params(blocks, i), cos, sin, attn_positions,
-                       segments, impl)
+    for layer in layer_slices(blocks):
+        x, aux = block(x, layer, cos, sin, attn_positions, segments, impl)
         aux_sum = aux_sum + aux
     return (_epilogue(params, x, cfg, view, local_vocab=local_vocab),
             aux_sum / cfg.n_layers)

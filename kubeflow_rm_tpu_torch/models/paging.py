@@ -45,6 +45,7 @@ and ``_chunk_checksum`` hashes the same bytes a JAX bf16 array holds.
 from __future__ import annotations
 
 import hashlib
+import logging
 from collections import OrderedDict, deque
 from dataclasses import dataclass
 
@@ -53,6 +54,8 @@ import torch
 
 from kubeflow_rm_tpu_torch.models.generate import _UNFILLED, _run_blocks
 from kubeflow_rm_tpu_torch.models.llama import LlamaConfig
+
+_log = logging.getLogger(__name__)
 
 #: reserved block ids (see module docstring)
 NULL_BLOCK = 0
@@ -360,8 +363,11 @@ class BlockPool:
                     # failing hook must never break alloc
                     try:
                         self.on_evict(key, b)
-                    except Exception:  # noqa: BLE001 - counted below
+                    except Exception:
                         self.evict_hook_errors += 1
+                        _log.warning("on_evict hook failed; block %d "
+                                     "evicted without it", b,
+                                     exc_info=True)
                 del self._index[key]
                 del self._block_key[b]
                 self._parent.pop(key, None)
@@ -461,8 +467,10 @@ class BlockPool:
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:
-    """A cache tensor as a numpy array; bf16 as its ``uint16`` bits."""
-    t = t.detach().cpu()
+    """A cache tensor as a numpy array of its own (a copy, never a view
+    of the pool: a CPU tensor's ``.cpu()`` is the tensor itself); bf16
+    as its ``uint16`` bits."""
+    t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
     return t.numpy()

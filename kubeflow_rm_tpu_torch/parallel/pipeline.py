@@ -72,7 +72,7 @@ def pipeline_forward_with_aux(
     family's ``forward``.
     """
     from kubeflow_rm_tpu_torch.models.llama import (
-        _block, _epilogue, _prologue, layer_params, remat_block,
+        _block, _epilogue, _prologue, layer_slices, remat_block,
     )
     from kubeflow_rm_tpu_torch.models.mixtral import (
         MixtralConfig, _moe_block,
@@ -125,8 +125,10 @@ def pipeline_forward_with_aux(
         def block_aux(h, *a):
             return dense(h, *a), None
 
-    blocks = params["blocks"]
-    n_local = cfg.n_layers // pp
+    # this stage's layers, sliced once for every microbatch: a layer's
+    # gradient sums over the microbatches in its slice, then enters the
+    # stacked leaf's (llama.layer_slices)
+    layers = layer_slices(params["blocks"])
     stage = view.stage
 
     def stage_apply(h, idx):
@@ -134,9 +136,9 @@ def pipeline_forward_with_aux(
             return None if a_mb is None else a_mb[idx]
 
         aux = None
-        for i in range(n_local):
-            h, a = block_aux(h, layer_params(blocks, i), cos_mb[idx],
-                             sin_mb[idx], pick(pos_mb), pick(seg_mb), impl)
+        for layer in layers:
+            h, a = block_aux(h, layer, cos_mb[idx], sin_mb[idx],
+                             pick(pos_mb), pick(seg_mb), impl)
             aux = a if aux is None else aux + a
         return h, aux
 

@@ -349,8 +349,9 @@ class Optimizer:
         dtype = p.dtype
         split = layout is not None and bool(layout.axes)
         # scale_by_factored_rms: optax's decay_rate is an exponent,
-        # beta2_t = 1 - (t + 1)^-decay_rate, a float32 array
-        t = torch.tensor(count + 1, dtype=torch.float32, device=g.device)
+        # beta2_t = 1 - (t + 1)^-decay_rate, a float32 array; filled on
+        # the leaf's device (a kernel, not a copy from the host)
+        t = torch.full((), count + 1, dtype=torch.float32, device=g.device)
         decay = 1.0 - t ** -cfg.b2
         keep = 1.0 - decay
         g2 = g * g + _weak(1e-30, g)

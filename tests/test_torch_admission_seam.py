@@ -246,6 +246,13 @@ def test_real_pricer_on_the_h100_table():
         assert ann[gpu.PREDICTED_FLOPS_ANNOTATION] == \
             str(direct["flops_per_step"])
         if label == "13B adamw":
-            assert adm["advisor"] is None
+            # the cheapest passing rung is the streamed host-offload
+            # optimizer (79.49 GB a card since a stacked leaf's backward
+            # builds its gradient in place; no rung fit while each layer
+            # made a whole-leaf gradient tensor)
+            assert adm["advisor"] == tpricer.advise(
+                tpricer.parse(decl), chips=topo.cards,
+                hbm_gib_per_chip=topo.hbm_gib_per_chip)
+            assert adm["advisor"]["workload"]["offload"] == "optimizer"
             reasons = [e["reason"] for e in api.events_for(obj)]
             assert reasons == ["AdmissionRejected"]

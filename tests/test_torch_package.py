@@ -1,6 +1,7 @@
 """Package rules of the PyTorch port: it imports no JAX, nothing of the
-JAX package, neither optax nor orbax (both import JAX) and neither
-prometheus_client nor torch_xla (the card's machine has neither), it never
+JAX package, neither optax nor orbax (both import JAX) and none of
+prometheus_client, torch_xla, werkzeug and ml_dtypes (the card's machine
+has none of them), it never
 runs on the CPU unless asked, and on the CPU the flash op never tries
 to build or launch its CUDA kernels, forward or backward."""
 
@@ -37,9 +38,11 @@ def _imported_modules(path: Path):
 def test_no_jax_or_jax_package_imports(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
-        # neither prometheus_client nor torch_xla is on the card's machine
+        # prometheus_client, torch_xla, werkzeug and ml_dtypes are not on
+        # the card's machine
         assert top not in ("jax", "jaxlib", "kubeflow_rm_tpu", "optax",
-                           "orbax", "prometheus_client", "torch_xla"), \
+                           "orbax", "prometheus_client", "torch_xla",
+                           "werkzeug", "ml_dtypes"), \
             f"{path.name} imports {mod}"
 
 
@@ -68,6 +71,16 @@ def test_port_files_exist():
         "controlplane/obs/slo.py", "controlplane/metrics.py",
         "controlplane/api/gpu.py", "launcher/agent.py",
         "launcher/torchrun.py")} <= names
+    # the serving fleet and what it stands on: the lock factory, the
+    # ring, the rate limiter, tracing, the gateway
+    assert {f"kubeflow_rm_tpu_torch/{f}" for f in (
+        "analysis/lockgraph.py", "controlplane/shard/ring.py",
+        "controlplane/deploy/kubeclient.py", "controlplane/tracing.py",
+        "controlplane/webapps/serving.py",
+        "controlplane/serving_fleet.py")} <= names
+    assert {"kubeflow_rm_tpu_torch/controlplane/shard",
+            "kubeflow_rm_tpu_torch/controlplane/deploy",
+            "kubeflow_rm_tpu_torch/controlplane/webapps"} <= packages
 
 
 def test_default_device_raises_without_cuda(monkeypatch):

@@ -1,7 +1,7 @@
 """Rank bodies of the port's multi-process tests (``test_torch_mesh.py``,
 ``test_torch_sp.py``, ``test_torch_mesh_train.py``,
 ``test_torch_pipeline.py``, ``test_torch_mesh_optim.py``,
-``test_torch_mesh_heads.py``).
+``test_torch_mesh_heads.py``, ``test_torch_repairs_c7_c8.py``).
 
 ``start_worlds`` spawns, for each world size, that many processes that join
 one gloo process group (a ``file://`` rendezvous in the caller's
@@ -866,3 +866,39 @@ def loss_gathers(axes: dict, params, batch: dict) -> dict:
     finally:
         sharded.gather_from_group = real
     return {"in_loss": in_loss, "in_forward": len(calls) - in_loss}
+
+
+def stacked_slice_arms(axes: dict, params, batch: dict, n_microbatches,
+                       overrides: dict | None = None) -> dict:
+    """``pipeline_case`` with gradients twice: through the training
+    forwards' ``llama.layer_slices`` and through the per-layer select
+    (``leaf[i]``) it replaced. Whether every gathered gradient is equal,
+    and both losses."""
+    from kubeflow_rm_tpu_torch.models import llama
+
+    def run():
+        return pipeline_case(axes, params, batch, n_microbatches,
+                             overrides=overrides, grads=True)
+
+    class selects:
+        """``leaf[i]`` made afresh each time a loop reaches layer i."""
+
+        def __init__(self, blocks):
+            self.blocks = blocks
+
+        def __iter__(self):
+            return (llama.layer_params(self.blocks, i)
+                    for i in range(llama.stacked_layers(self.blocks)))
+
+    new = run()
+    real = llama.layer_slices
+    llama.layer_slices = selects
+    try:
+        old = run()
+    finally:
+        llama.layer_slices = real
+    return {"loss_new": new["loss"], "loss_old": old["loss"],
+            "leaves": len(new["grads"]),
+            "equal": set(new["grads"]) == set(old["grads"]) and all(
+                np.array_equal(new["grads"][k], old["grads"][k])
+                for k in new["grads"])}
