@@ -80,7 +80,26 @@ prints one JSON line per phase:
    byte-identical after, the adapters trained, the kernels launched as in
    the train phase.
 
-12. moe    — Mixtral 8x7B at full width and 16 of its 32 layers (bf16,
+12. controlplane — the control plane's spawn path with the card as its
+   node (run after the 7B tree is dropped, so the pod has the card to
+   itself): ``make_gpu_node("gpu-0", "h100-80gb-1")`` (the table's
+   memory equal to the card's), ``make_control_plane(cache=False)``, and
+   a Notebook declaring the train phase's LoRA workload at 3 steps: it
+   must be priced ``fit``, its StatefulSet rendered with one replica,
+   its pod bound to ``gpu-0`` with ``nvidia.com/gpu: "1"``, the
+   accelerator selector and the injected env (``TPU_WORKER_ID=0``,
+   ``TPU_WORKER_HOSTNAMES`` the pod's headless DNS name), the Notebook
+   Ready. Then the pod's container runs as a child process with the
+   pod's own env (``MASTER_ADDR=127.0.0.1`` the one substitution: no
+   cluster DNS here; ``CUDA_VISIBLE_DEVICES`` the device plugin's
+   allocation): ``launcher.torchrun`` joins a one-rank NCCL world and
+   ``finetune`` runs Llama-2-7B at full width and depth, LoRA r16 on
+   wq/wv, 2 × 2048, 3 steps: finite losses, the kernels launched 3 × 64
+   / 32 / 32, the peak within ``CP_PEAK_RTOL`` of the pod's predicted-
+   memory annotation. Last the stop annotation (replicas 0, the pod
+   gone, the card free in the scheduler) and the delete (the children
+   collected).
+13. moe    — Mixtral 8x7B at full width and 16 of its 32 layers (bf16,
    47 GB; the 7B tree is dropped first): the forward at (1, 2048) with
    one ``flash_fwd`` launch a layer and a router aux loss in [1, 8];
    kernel and dense attention equally close to a float32 copy of the
@@ -88,16 +107,16 @@ prints one JSON line per phase:
    engine (capacity factor 4: nothing drops) within δ of a
    teacher-forced forward; 4 LoRA steps of ``fit`` (losses fall, base
    bit-identical, ``router_aux`` reported, the kernels as counted).
-13. moe_int8 — the full 32-layer Mixtral built directly in int8
+14. moe_int8 — the full 32-layer Mixtral built directly in int8
    (``init_params_quantized``): stored bytes, fused decode equal to the
    per-token loop, no kernel launch.
-14. offload — full fine-tuning of Llama-2-7B with adafactor and the
+15. offload — full fine-tuning of Llama-2-7B with adafactor and the
    optimizer state in host memory (``offload="optimizer"``, chunks of 4
    layers) against the on-card arm, 2 steps each from the same weights:
    step-1 losses bit-equal, step-1 weights within ``OFFLOAD_MAX_STEPS``
    bf16 steps, every layer of every leaf moved, the kernels as counted;
    then adam and adafactor the same way at 2 layers.
-15. mesh1  — the mesh path at world size 1 over NCCL (run right after
+16. mesh1  — the mesh path at world size 1 over NCCL (run right after
    train, on the same 7B tree): ``make_mesh(MeshConfig(dp=1, fsdp=1,
    tp=1))``; the train phase's LoRA recipe through ``fit(..., mesh=)``
    for 3 steps (step-1 loss bit-equal to the train phase's, the kernels
@@ -108,12 +127,12 @@ prints one JSON line per phase:
    with one ``flash_fwd`` a call and one of each backward kernel; ring
    and zigzag at sp=1 in float32 within ``RING_ATOL`` of dense; and what
    a one-rank NCCL collective (which the port skips) would cost.
-16. offload_mesh1 — the host-offload arm on a one-rank NCCL mesh
+17. offload_mesh1 — the host-offload arm on a one-rank NCCL mesh
    (adafactor, 7B width, 2 layers, the offload phase's seed and batch):
    step-1 loss bit-equal to that phase's non-mesh streamed arm, the
    kernels as counted; ``pipeline_forward`` at pp=1 bit-equal to
    ``forward``.
-17. mesh_multi — only on a machine with two or more cards:
+18. mesh_multi — only on a machine with two or more cards:
    ``min(count, 4)`` NCCL ranks, one per card: a 7B-width 4-layer LoRA
    step at fsdp=2 (fsdp=2 × tp=2 at world 4) against the one-rank loss,
    Ulysses and ring at sp=world against the one-card flash op, and the
@@ -129,12 +148,12 @@ prints one JSON line per phase:
    joins through the launcher's torchrun env of a one-host slice
    (``launcher/torchrun.py``). A one-card machine prints
    ``{"phase": "mesh_multi", "skipped": "1 card"}``.
-18. fleet_multi — only on a machine with two or more cards: the
+19. fleet_multi — only on a machine with two or more cards: the
    disaggregated part of ``fleet`` with its prefill replica on
    ``cuda:0`` and its decode replicas on the other cards (each gateway's
    drain thread on its engine's card), the same gates. A one-card
    machine prints ``{"phase": "fleet_multi", "skipped": "1 card"}``.
-19. torchcheck — the program auditor (``analysis/torchcheck``) on the
+20. torchcheck — the program auditor (``analysis/torchcheck``) on the
    card: the cost model's self-check; the planner's walk of five reduced
    rungs (1.2B adamw mb2 dots, 2.7B and 7B adafactor mb1 full, 7B adamw
    mb1 full, each at an accumulation of 2, and the train phase's 7B LoRA
@@ -160,7 +179,7 @@ prints one JSON line per phase:
    ``implicit_hostsyncs_total{tenant="default"}`` unmoved, the CUDA
    runtime's syncs of the adafactor step reported, none of them in
    ``training/optim.py``.
-20. seams  — the control plane's seams into the port: the admission
+21. seams  — the control plane's seams into the port: the admission
    pricer over a recorder API on the H100 slice table (its memory
    against this card's within 1%; the 7B and 13B declarations on one-
    and four-card Notebooks, every stamp equal to the pricer's own
@@ -4522,6 +4541,232 @@ def phase_seams(card, device: str = "cuda"):
           f"the agent's world: {world}")
 
 
+# the controlplane phase: the Notebook's declared workload is the pod's
+# fine-tune (``finetune``'s LoRA recipe: adamw on rank-16 adapters on
+# wq/wv, remat "dots", B = 2 × 2048 in one microbatch), CP_STEPS steps
+CP_DECLARATION = {"preset": "llama2_7b", "optim": "adamw", "batch": 2,
+                  "grad_accum": 1, "remat": "dots", "seq": 2048,
+                  "lora_rank": 16}
+CP_STEPS = 3
+# the pod's measured peak against its predicted-memory annotation, either
+# way: the bound the planner's anchors are held to (PLAN_RTOL)
+CP_PEAK_RTOL = PLAN_RTOL
+# the child's own time limit (7B init + 3 steps take well under a minute)
+CP_CHILD_TIMEOUT_S = 600
+
+
+def pod_workload() -> int:
+    """The pod's container, run in a child process with the pod's env
+    (``phase_controlplane``): the launcher turns the injected rendezvous
+    env into torchrun's and joins the process group, then ``finetune``
+    runs the declared workload. Prints one JSON line: the losses, the
+    step times, the peak, the kernels' launches and the world."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from kubeflow_rm_tpu_torch import finetune
+    from kubeflow_rm_tpu_torch.launcher.torchrun import init_distributed
+    from kubeflow_rm_tpu_torch.training import loop
+
+    decl = json.loads(os.environ["CP_DECLARATION"])
+    device = os.environ.get("CP_DEVICE", "cuda")
+    steps = int(os.environ["CP_STEPS"])
+    init_distributed(device=device,
+                     **({} if device == "cuda" else {"cards_per_host": 1}))
+    world = dict(backend=dist.get_backend(), size=dist.get_world_size(),
+                 rank=dist.get_rank(),
+                 master=os.environ["MASTER_ADDR"],
+                 torchrun={k: os.environ[k] for k in (
+                     "RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_PORT")})
+    history = []
+    fit = loop.fit
+
+    def recorded_fit(*args, **kwargs):
+        state, hist = fit(*args, **kwargs)
+        history.extend(hist)
+        return state, hist
+
+    loop.fit = recorded_fit
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = finetune.main(
+        ["--preset", decl["preset"], "--lora-rank", str(decl["lora_rank"]),
+         "--batch", str(decl["batch"]), "--seq-len", str(decl["seq"]),
+         "--grad-accum", str(decl["grad_accum"]), "--steps", str(steps),
+         "--no-sample"] + (["--device", device] if device != "cuda" else []))
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    print(json.dumps({"pod_workload": dict(
+        rc=rc, losses=[h.loss for h in history],
+        step_ms=[h.step_time_ms for h in history], wall_s=wall,
+        peak_gb=(torch.cuda.max_memory_allocated() / 1e9 if on_card
+                 else None),
+        launches=launches, world=world)}), flush=True)
+    return rc
+
+
+def phase_controlplane(card, train_ref=None, device: str = "cuda",
+                       decl=None, steps: int = CP_STEPS):
+    """The control plane's spawn path on the card (module docstring,
+    phase 12); ``train_ref`` (the train phase's) puts the pod's step
+    beside the train phase's. ``device="cpu"`` rehearses it without a
+    card (the table's own memory, gloo, a small declaration such as
+    ``{"preset": "tiny", ...}``; no kernel launches, no peak)."""
+    import os
+
+    import torch
+
+    from kubeflow_rm_tpu_torch.controlplane import make_control_plane
+    from kubeflow_rm_tpu_torch.controlplane import scheduler
+    from kubeflow_rm_tpu_torch.controlplane.api import gpu
+    from kubeflow_rm_tpu_torch.controlplane.api import notebook as nb_api
+    from kubeflow_rm_tpu_torch.controlplane.controllers.statefulset import (
+        make_gpu_node,
+    )
+    from kubeflow_rm_tpu_torch.models.llama import LlamaConfig
+
+    decl = decl or CP_DECLARATION
+    ns, acc = "smoke", "h100-80gb-1"
+    t_phase = time.perf_counter()
+    # 1. the node: this card, as the table describes it
+    topo = gpu.lookup(acc)
+    node = make_gpu_node("gpu-0", acc)
+    card_gib = (torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+                if device == "cuda" else topo.hbm_gib_per_chip)
+    cards_here = torch.cuda.device_count() if device == "cuda" else 1
+    check(topo.hbm_gib_per_chip == card_gib,
+          f"{acc}'s memory {topo.hbm_gib_per_chip} GiB is not the card's "
+          f"{card_gib} GiB")
+    check(topo.cards <= cards_here,
+          f"{acc} has {topo.cards} cards, the machine {cards_here}")
+
+    # 2. the notebook: admitted, priced, rendered, bound, injected
+    api, mgr = make_control_plane(cache=False)
+    api.ensure_namespace(ns)
+    api.create(node)
+    t0 = time.perf_counter()
+    api.create(nb_api.make_notebook(
+        "ft", ns, accelerator_type=acc,
+        annotations={gpu.DECLARED_WORKLOAD_ANNOTATION: json.dumps(decl)}))
+    reconciles = mgr.run_until_idle()
+    spawn_s = time.perf_counter() - t0
+    nb = api.get(nb_api.KIND, "ft", ns)
+    sts = api.get("StatefulSet", "ft", ns)
+    pods = api.list("Pod", ns)
+    adm = (nb.get("status") or {}).get("admission") or {}
+    check(adm.get("verdict") == "fit", f"admission: {adm}")
+    ann = nb["metadata"].get("annotations") or {}
+    check(ann.get(gpu.PREDICTED_HBM_ANNOTATION) == str(
+        adm["predicted_peak_gb"]) and ann.get(
+        gpu.PREDICTED_FLOPS_ANNOTATION) == str(adm["flops_per_step"]),
+        f"the pricer's annotations: {ann}")
+    check(sts["spec"]["replicas"] == 1, f"replicas {sts['spec']['replicas']}")
+    check([p["metadata"]["name"] for p in pods] == ["ft-0"],
+          f"pods {[p['metadata']['name'] for p in pods]}")
+    pod = pods[0]
+    c0 = pod["spec"]["containers"][0]
+    env = {e["name"]: e["value"] for e in c0.get("env") or []}
+    check(pod["spec"].get("nodeName") == "gpu-0"
+          and c0["resources"]["limits"] == {gpu.NVIDIA_GPU_RESOURCE: "1"}
+          and pod["spec"].get("nodeSelector") == {
+              gpu.NODE_LABEL_ACCELERATOR: topo.gke_accelerator}
+          and pod["status"]["phase"] == "Running",
+          f"the pod's binding: {pod['spec'].get('nodeName')} "
+          f"{c0['resources']} {pod['spec'].get('nodeSelector')}")
+    check(env.get("TPU_WORKER_ID") == "0" and env.get(
+        "TPU_WORKER_HOSTNAMES") == f"ft-0.ft-workers.{ns}.svc.cluster.local",
+        f"the injected env: {env}")
+    check(nb["status"].get("readyReplicas") == 1, f"status {nb['status']}")
+    sched = scheduler.cache_for(api)
+    bound = sched.stats()
+    check(bound["free_chips"] == 0.0, f"scheduler after the bind: {bound}")
+    predicted = float(pod["metadata"]["annotations"][
+        gpu.PREDICTED_HBM_ANNOTATION])
+
+    # 3. the pod's container: its own env, in a child process
+    here = os.path.dirname(os.path.abspath(__file__))
+    child_env = dict(os.environ)
+    child_env.update(env)
+    substituted = {"MASTER_ADDR": "127.0.0.1"}
+    child_env.update(substituted)
+    child_env.update(CP_DECLARATION=json.dumps(decl), CP_STEPS=str(steps),
+                     CP_DEVICE=device)
+    if device == "cuda":
+        # the device plugin's allocation of the pod's one card
+        child_env["CUDA_VISIBLE_DEVICES"] = "0"
+    print(f"controlplane: the pod's env {sorted(env)} with "
+          f"{substituted} (no cluster DNS on this machine)", flush=True)
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, chip_smoke; sys.exit(chip_smoke.pod_workload())"],
+        cwd=here, env=child_env, capture_output=True, text=True,
+        timeout=CP_CHILD_TIMEOUT_S)
+    child_s = time.perf_counter() - t0
+    lines = [ln for ln in child.stdout.splitlines()
+             if ln.startswith('{"pod_workload"')]
+    result = json.loads(lines[-1])["pod_workload"] if lines else None
+    if child.returncode or result is None:
+        print(child.stdout[-4000:], child.stderr[-8000:], file=sys.stderr)
+    check(child.returncode == 0 and result is not None,
+          f"the pod's workload exited {child.returncode}")
+    losses, launches = result["losses"], result["launches"]
+    layers = getattr(LlamaConfig, decl["preset"])().n_layers
+    want = ({"flash_fwd": 2 * layers * steps,
+             "flash_bwd_dq": layers * steps,
+             "flash_bwd_dkv": layers * steps} if device == "cuda"
+            else dict.fromkeys(launches, 0))
+    peak_err = (None if result["peak_gb"] is None
+                else (result["peak_gb"] - predicted) / predicted)
+    # the first record holds the start-up sync (as in the train phase)
+    step_ms = statistics.median(result["step_ms"][1:] or result["step_ms"])
+    train_ms = train_ref and train_ref["step_ms"]
+
+    # 4. stop, then delete
+    nb = api.get(nb_api.KIND, "ft", ns)
+    nb["metadata"]["annotations"][nb_api.STOP_ANNOTATION] = "smoke"
+    api.update(nb)
+    mgr.run_until_idle()
+    stopped = dict(replicas=api.get("StatefulSet", "ft", ns)["spec"][
+        "replicas"], pods=len(api.list("Pod", ns)),
+        free_cards=sched.stats()["free_chips"])
+    api.delete(nb_api.KIND, "ft", ns)
+    mgr.run_until_idle()
+    left = {k: len(api.list(k, ns)) for k in (
+        "StatefulSet", "Service", "VirtualService", "Pod")}
+    emit("controlplane", card=card, node_gib=topo.hbm_gib_per_chip,
+         card_gib=card_gib, reconciles=reconciles, spawn_s=spawn_s,
+         admission={k: adm.get(k) for k in (
+             "verdict", "predicted_peak_gb", "budget_per_chip_gb", "binds",
+             "flops_per_step", "workload")},
+         pod_env=env, substituted=substituted, child_s=child_s,
+         pod_workload=result, pod_step_ms=step_ms, train_step_ms=train_ms,
+         pod_over_train=train_ms and step_ms / train_ms,
+         predicted_pod_gb=predicted,
+         peak_rel_err=peak_err, stopped=stopped, left_after_delete=left,
+         phase_s=time.perf_counter() - t_phase)
+    check(all(math.isfinite(x) for x in losses) and len(losses) == steps,
+          f"the pod's losses: {losses}")
+    check(result["world"]["size"] == 1 and result["world"]["backend"] == (
+        "nccl" if device == "cuda" else "gloo")
+        and result["world"]["master"] == "127.0.0.1",
+        f"the pod's world: {result['world']}")
+    check(launches == want, f"the pod's launches {launches}, expected "
+                            f"{want}")
+    check(peak_err is None or abs(peak_err) <= CP_PEAK_RTOL,
+          f"the pod's peak {result['peak_gb']} GB vs its predicted "
+          f"{predicted} GB")
+    check(stopped == dict(replicas=0, pods=0, free_cards=1.0),
+          f"after the stop: {stopped}")
+    check(not any(left.values()), f"left after the delete: {left}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4569,8 +4814,12 @@ def main() -> int:
     paths.update(run("mesh1", phase_mesh1, cfg, params, train_ref) or {})
     torch.cuda.empty_cache()
     paths["qlora"] = run("qlora", phase_qlora, smi)
-    # the MoE and offload phases need the card to themselves
+    # the control plane's pod, the MoE and offload phases need the card
+    # to themselves
     del params
+    torch.cuda.empty_cache()
+    paths["controlplane"] = run("controlplane", phase_controlplane, smi,
+                                train_ref)
     torch.cuda.empty_cache()
     paths["moe_forward"], paths["moe_lora"] = (
         run("moe", phase_moe, smi) or (None, None))

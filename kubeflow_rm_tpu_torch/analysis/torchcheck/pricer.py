@@ -29,6 +29,7 @@ divided by the chip count. ``preset`` must name one of the port's
 
 from __future__ import annotations
 
+import functools
 import json
 from dataclasses import dataclass, replace
 
@@ -48,6 +49,9 @@ MAX_DIM = 32768
 MAX_SEQ = 65536
 MAX_BATCH = 65536
 MAX_VOCAB = 1_000_000
+MAX_LORA_RANK = 1024
+#: the weights a declared LoRA adapts (the port's fine-tune recipe)
+LORA_TARGETS = ("wq", "wv")
 
 _MODEL_DIM_KEYS = ("dim", "n_layers", "n_heads", "n_kv_heads",
                    "hidden_dim", "vocab_size")
@@ -70,6 +74,7 @@ class DeclaredWorkload:
     param_dtype: str = "bfloat16"
     offload: str | None = None
     tenant: str = "default"
+    lora_rank: int = 0           # 0: full fine-tuning
 
     @property
     def microbatch(self) -> int:
@@ -89,6 +94,8 @@ class DeclaredWorkload:
             d["offload"] = self.offload
         if self.tenant != "default":
             d["tenant"] = self.tenant
+        if self.lora_rank:
+            d["lora_rank"] = self.lora_rank
         return d
 
     def key(self) -> str:
@@ -165,10 +172,18 @@ def parse(raw: str | dict) -> DeclaredWorkload:
     tenant = raw.get("tenant", "default")
     if not isinstance(tenant, str) or len(tenant) > 63:
         raise DeclarationError("tenant must be a short string")
+    lora_rank = raw.get("lora_rank", 0)
+    if not isinstance(lora_rank, int) or not 0 <= lora_rank <= MAX_LORA_RANK:
+        raise DeclarationError(
+            f"lora_rank must be an int in [0, {MAX_LORA_RANK}]")
+    if lora_rank and offload:
+        raise DeclarationError("a LoRA declaration streams no optimizer "
+                               "state: offload must be unset")
     return DeclaredWorkload(preset=preset, model=model, optim=optim,
                             batch=batch, grad_accum=accum, remat=remat,
                             seq=seq, param_dtype=param_dtype,
-                            offload=offload, tenant=tenant)
+                            offload=offload, tenant=tenant,
+                            lora_rank=lora_rank)
 
 
 # ---- the walker ------------------------------------------------------
@@ -181,6 +196,8 @@ def _model_config(decl: DeclaredWorkload):
 def _walk(decl: DeclaredWorkload) -> dict:
     """Walk the declared step and return the raw byte/flop tallies.
     Expensive (seconds) — always reached through the memo cache."""
+    import torch
+
     from kubeflow_rm_tpu_torch.training.optim import OptimConfig
     from kubeflow_rm_tpu_torch.training.train import TrainConfig
 
@@ -188,16 +205,24 @@ def _walk(decl: DeclaredWorkload) -> dict:
     optim_kw: dict = {"factored": decl.optim == "adafactor"}
     if decl.offload:
         optim_kw["offload"] = decl.offload
+    params_fn = None
+    if decl.lora_rank:
+        # a frozen base with rank-r adapters on LORA_TARGETS: only the
+        # adapters take gradients and optimizer state
+        optim_kw["train_only"] = "lora"
+        params_fn = functools.partial(_lora_params, model, decl.lora_rank)
     tcfg = TrainConfig(model=model, optim=OptimConfig(**optim_kw))
     # the streamed step: on-card peak = grad phase + the step's stream
     # slot; the optimizer state and the update live in host memory
     w = walk_train_step(tcfg, decl.batch, decl.grad_accum,
-                        offload=decl.offload == "optimizer")
+                        offload=decl.offload == "optimizer",
+                        params_fn=params_fn)
     params_b = w["params_bytes"]
     opt_b = w["opt_state_bytes"]
     peak = w["peak_bytes"]
     logits_b = decl.microbatch * model.max_seq_len * model.vocab_size * 4
-    grads_b = params_b
+    grads_b = params_b if not decl.lora_rank else _adapter_bytes(
+        params_fn(torch.Generator()))
     return {
         "peak_bytes": int(peak),
         "params_bytes": params_b,
@@ -211,6 +236,25 @@ def _walk(decl: DeclaredWorkload) -> dict:
         "n_params": params_b // (2 if decl.param_dtype == "bfloat16"
                                  else 4),
     }
+
+
+def _lora_params(model, rank: int, gen):
+    """The declared LoRA tree on the meta device."""
+    from kubeflow_rm_tpu_torch.models import init_params
+    from kubeflow_rm_tpu_torch.models.lora import add_lora
+
+    return add_lora(init_params(model, gen, "meta"), rank, generator=gen,
+                    targets=LORA_TARGETS)
+
+
+def _adapter_bytes(params: dict) -> int:
+    """Bytes of the adapters of a LoRA tree (what takes gradients)."""
+    from kubeflow_rm_tpu_torch.models.lora import is_lora_name
+    from kubeflow_rm_tpu_torch.training.optim import leaf_paths
+
+    return sum(v.numel() * v.element_size()
+               for k, v in leaf_paths(params).items()
+               if is_lora_name(k.rsplit("/", 1)[-1]))
 
 
 _cache: dict[str, dict] = {}
@@ -318,6 +362,8 @@ def _ladder(decl: DeclaredWorkload) -> list[DeclaredWorkload]:
         if mb_rung.batch % mb_rung.grad_accum != 0:
             break
         push(mb_rung)
+    if cur.lora_rank:
+        return rungs[:8]   # adapters' state is too small to stream
     # stream the optimizer update through host memory
     off = replace(cur, offload="optimizer")
     push(off)

@@ -1,4 +1,4 @@
-"""The port's copies of the control plane's API vocabulary that its
-seams call: object helpers (:mod:`.meta`), the card slice table
-(:mod:`.gpu`), and the Notebook and TPUJob fields the admission pricer
-and the launcher read (:mod:`.notebook`, :mod:`.tpujob`)."""
+"""The control plane's API vocabulary (counterpart of
+``kubeflow_rm_tpu/controlplane/api``): object helpers (:mod:`.meta`), the
+card slice table (:mod:`.gpu`, JAX's ``tpu.py``), and the Notebook and
+TPUJob resources (:mod:`.notebook`, :mod:`.tpujob`)."""

@@ -1,18 +1,35 @@
 """Card slice topology: the GPU counterpart of
-``kubeflow_rm_tpu/controlplane/api/tpu.py``'s ``SliceTopology`` and
-``lookup``, and the predictive-admission annotation keys.
+``kubeflow_rm_tpu/controlplane/api/tpu.py`` — the platform's accelerator
+vocabulary, which the notebook controller, the injection webhook, the
+scheduler and the admission pricer all render from.
 
-A slice here is one host of NVIDIA H100 80GB cards. The webhook host has
-no card, so the table carries what the pricer needs: the card count, the
-cards on a host, each card's memory and its bf16 peak. The memory is the
-card's own ``torch.cuda.get_device_properties(0).total_memory`` as
-measured on an H100 80GB HBM3 (85,017,493,504 bytes = 79.1787109375
-GiB); the peak is NVIDIA's dense bf16 figure for the SXM part.
+A slice is one or more hosts of NVIDIA H100 80GB cards (one pod per
+host). The webhook host has no card, so the table carries what the
+pricer and the scheduler need: the card count, the hosts, each card's
+memory and its bf16 peak. The memory is the card's own
+``torch.cuda.get_device_properties(0).total_memory`` as measured on an
+H100 80GB HBM3 (85,017,493,504 bytes = 79.1787109375 GiB); the peak is
+NVIDIA's dense bf16 figure for the SXM part.
+
+The node vocabulary is GKE's for GPU node pools: the card count is the
+``nvidia.com/gpu`` resource, the accelerator the
+``cloud.google.com/gke-accelerator`` label, and the cards on a host GPU
+feature discovery's ``nvidia.com/gpu.count`` label (the counterpart of
+the TPU topology label). A single-host slice selects on the accelerator
+alone, a multi-host one on both.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+NVIDIA_GPU_RESOURCE = "nvidia.com/gpu"
+#: synthetic allocatable key carrying a node's aggregate card memory
+#: (GiB as a decimal string) — the scheduler's second packing axis,
+#: surfaced by the fake kubelet as a first-class quantity
+NVIDIA_GPU_MEMORY_RESOURCE = "nvidia.com/gpu-memory-gib"
+NODE_LABEL_ACCELERATOR = "cloud.google.com/gke-accelerator"
+NODE_LABEL_TOPOLOGY = "nvidia.com/gpu.count"
 
 # ---- predictive admission vocabulary (tpu.kubeflow.org/) -------------
 #: JSON declaration of the training workload a Notebook/TPUJob intends
@@ -47,6 +64,10 @@ class SliceTopology:
     def multihost(self) -> bool:
         return self.hosts > 1
 
+    @property
+    def hbm_gib_per_host(self) -> float:
+        return self.cards_per_host * self.hbm_gib_per_chip
+
 
 _H100 = "nvidia-h100-80gb"
 
@@ -54,6 +75,9 @@ _TOPOLOGIES = [
     SliceTopology("h100-80gb-1", _H100, "1", 1, 1, H100_BF16_FLOPS),
     SliceTopology("h100-80gb-4", _H100, "4", 4, 1, H100_BF16_FLOPS),
     SliceTopology("h100-80gb-8", _H100, "8", 8, 1, H100_BF16_FLOPS),
+    # multi-host: hosts of 4 or 8 cards, one pod per host
+    SliceTopology("h100-80gb-2x4", _H100, "4", 8, 2, H100_BF16_FLOPS),
+    SliceTopology("h100-80gb-2x8", _H100, "8", 16, 2, H100_BF16_FLOPS),
 ]
 
 TOPOLOGIES: dict[str, SliceTopology] = {
@@ -73,3 +97,13 @@ def lookup(accelerator_type: str) -> SliceTopology:
             f"unknown GPU acceleratorType {accelerator_type!r}; known: "
             f"{sorted(TOPOLOGIES)}"
         ) from None
+
+
+def by_node_labels(gke_accelerator: str, topology: str) -> SliceTopology | None:
+    """Reverse lookup from node labels (spawner capacity discovery). A
+    GPU node's labels name one host's shape, so this is the single-host
+    type of that card count (the multi-host types share it)."""
+    for t in _TOPOLOGIES:
+        if t.gke_accelerator == gke_accelerator and t.topology == topology:
+            return t
+    return None

@@ -1,0 +1,1242 @@
+"""In-memory Kubernetes-style apiserver: the envtest of this repo.
+
+The reference tests its controllers against a real kube-apiserver booted
+by envtest (``notebook-controller/controllers/suite_test.go:50-110``);
+this module provides the same contract hermetically: typed CRUD with
+resourceVersion conflicts, admission chains (where the mutating
+webhooks plug in), label-selector lists, watch events, finalizers +
+deletionTimestamp semantics, ownerReference cascade deletion, and
+ResourceQuota enforcement on pod admission. Controllers drive it
+through the same verbs they would use against a cluster.
+
+Cluster-scoped kinds are stored with namespace ``None``. Time is
+injected (``clock``) so culling/idleness tests are deterministic.
+
+(The port's copy of ``kubeflow_rm_tpu/controlplane/apiserver.py``. The
+store is in-memory only: ``wal_dir=`` and ``shard=`` raise
+``NotImplementedError`` until the WAL and shards are ported, ROADMAP
+slice 7e.)
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import copy
+import datetime
+import fnmatch
+import json
+import logging
+import os
+import threading
+import time
+from typing import Callable
+
+from kubeflow_rm_tpu_torch.controlplane.api.meta import (
+    deep_get,
+    fast_deepcopy,
+    labels_of,
+    matches_selector,
+    name_of,
+    namespace_of,
+    new_uid,
+    parse_quantity,
+    strategic_merge,
+)
+from kubeflow_rm_tpu_torch.controlplane import chaos, tracing
+from kubeflow_rm_tpu_torch.analysis.lockgraph import (
+    make_condition,
+    make_lock,
+    make_rlock,
+)
+
+CLUSTER_SCOPED_KINDS = {
+    "Namespace", "Profile", "Node", "ClusterRole", "ClusterRoleBinding",
+    "PersistentVolume", "CustomResourceDefinition",
+}
+
+
+class APIError(Exception):
+    pass
+
+
+class NotFound(APIError):
+    pass
+
+
+class AlreadyExists(APIError):
+    pass
+
+
+class Conflict(APIError):
+    pass
+
+
+class Invalid(APIError):
+    pass
+
+
+class AdmissionDenied(APIError):
+    pass
+
+
+def _utcnow() -> datetime.datetime:
+    return datetime.datetime.now(datetime.timezone.utc)
+
+
+# store objects are always JSON-shaped (they arrive through
+# create/update, which copy), so the JSON-round-trip copy applies
+_fastcopy = fast_deepcopy
+
+
+log = logging.getLogger("kubeflow_rm_tpu_torch.apiserver")
+
+# event type delivered to a watcher whose fanout queue overflowed: the
+# dropped window cannot be replayed, so the watcher must relist (the
+# same contract as a kube watch 410 Gone — cache/informer.py and the
+# REST facade both turn it into their existing relist paths)
+TOO_OLD = "TOO_OLD"
+
+_NULL_CTX = contextlib.nullcontext()
+_EMPTY: dict = {}
+
+# admission chains for bulk creates run on this shared bounded pool in
+# sharded mode (plugins only read, and sharded reads are lock-free);
+# lazily built so import stays thread-free
+_admission_pool = None
+_admission_pool_guard = make_lock("apiserver.admission_pool")
+
+
+def _bulk_admission_pool():
+    global _admission_pool
+    with _admission_pool_guard:
+        if _admission_pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+            _admission_pool = ThreadPoolExecutor(
+                max_workers=8, thread_name_prefix="bulk-admit")
+        return _admission_pool
+
+
+def status_from_error(exc: Exception) -> dict:
+    """Kube Status-shaped failure dict for one member of a bulk write
+    (the REST facade serializes these verbatim into the List reply)."""
+    code, reason = 500, type(exc).__name__
+    if isinstance(exc, NotFound):
+        code = 404
+    elif isinstance(exc, AlreadyExists):
+        code = 409
+    elif isinstance(exc, Conflict):
+        code = 409
+    elif isinstance(exc, (Invalid, AdmissionDenied)):
+        code = 422
+    return {"kind": "Status", "apiVersion": "v1", "status": "Failure",
+            "reason": reason, "message": str(exc), "code": code}
+
+
+def is_status(obj: dict) -> bool:
+    """True for a per-item bulk failure marker (vs a created object)."""
+    return isinstance(obj, dict) and obj.get("kind") == "Status"
+
+
+class _WatcherChannel:
+    """Bounded per-watcher FIFO drained by a dedicated dispatch thread.
+
+    ``publish`` never blocks and never runs the callback — writers are
+    decoupled from watch delivery entirely. Ordered delivery per
+    watcher is preserved (one FIFO, one drainer). On overflow the
+    backlog is dropped wholesale and a single ``TOO_OLD`` sentinel is
+    queued, forcing the watcher through its relist recovery path.
+    The dispatch thread is started lazily and exits after a few idle
+    seconds so short-lived apiservers (tests build hundreds) don't
+    accumulate parked threads."""
+
+    IDLE_EXIT_S = 5.0
+
+    def __init__(self, fn: Callable, maxlen: int, name: str):
+        self.fn = fn
+        self.name = name
+        self.maxlen = maxlen
+        self._q: collections.deque = collections.deque()
+        self._cond = make_condition(
+            "apiserver.watch_channel",
+            lock=make_lock("apiserver.watch_channel"))
+        self._thread: threading.Thread | None = None
+        self._busy = False  # a callback is in flight
+        self.overflows = 0
+        self.delivered = 0
+        from kubeflow_rm_tpu_torch.controlplane import metrics
+        self._m_depth = metrics.WATCH_FANOUT_QUEUE_DEPTH.labels(
+            watcher=name)
+        self._m_overflow = metrics.WATCH_FANOUT_OVERFLOWS_TOTAL.labels(
+            watcher=name)
+        self._m_delivered = metrics.WATCH_FANOUT_DELIVERED_TOTAL.labels(
+            watcher=name)
+        self._m_lag = metrics.WATCH_FANOUT_DISPATCH_LAG.labels(
+            watcher=name)
+
+    def _chaos_item(self, item: tuple) -> list[tuple]:
+        """Chaos-engine watch faults (no-op without an installed plan):
+        a *drop* substitutes the channel's own ``TOO_OLD`` gap sentinel
+        — the watch contract is "ordered window or detectable gap", so
+        a lost event manifests as the gap and the watcher relists; a
+        *dup* delivers the item twice (idempotency probe). The verdict
+        is drawn before the channel lock; injected sentinels follow the
+        normal overflow path."""
+        verdict = chaos.watch_fault(self.name, item[0])
+        if verdict is None:
+            return [item]
+        if verdict == "drop":
+            self.overflows += 1
+            self._m_overflow.inc()
+            return [(TOO_OLD, {}, None, time.monotonic())]
+        return [item, item]  # dup
+
+    def publish(self, item: tuple) -> None:
+        items = [item]
+        if chaos.active() is not None:
+            items = self._chaos_item(item)
+        with self._cond:
+            if len(self._q) + len(items) > self.maxlen:
+                # drop the whole window: partial delivery after a gap
+                # would be indistinguishable from ordered delivery
+                self._q.clear()
+                self.overflows += 1
+                self._m_overflow.inc()
+                self._q.append((TOO_OLD, {}, None, time.monotonic()))
+            else:
+                self._q.extend(items)
+            self._m_depth.set(len(self._q))
+            if self._thread is None or not self._thread.is_alive():
+                self._thread = threading.Thread(
+                    target=self._run, daemon=True,
+                    name=f"watch-fanout-{self.name}")
+                self._thread.start()
+            self._cond.notify()
+
+    def publish_many(self, items: list[tuple]) -> None:
+        """Enqueue a whole batch under ONE lock acquisition and one
+        notify — the bulk-create path's coalesced emit (per-event
+        ``publish`` paid a lock round-trip per object per watcher).
+        Batch order is preserved; overflow collapses the window to a
+        single ``TOO_OLD`` exactly like ``publish``."""
+        if not items:
+            return
+        if chaos.active() is not None:
+            items = [out for it in items for out in self._chaos_item(it)]
+        with self._cond:
+            if len(self._q) + len(items) > self.maxlen:
+                self._q.clear()
+                self.overflows += 1
+                self._m_overflow.inc()
+                self._q.append((TOO_OLD, {}, None, time.monotonic()))
+            else:
+                self._q.extend(items)
+            self._m_depth.set(len(self._q))
+            if self._thread is None or not self._thread.is_alive():
+                self._thread = threading.Thread(
+                    target=self._run, daemon=True,
+                    name=f"watch-fanout-{self.name}")
+                self._thread.start()
+            self._cond.notify()
+
+    def _run(self) -> None:
+        while True:
+            with self._cond:
+                while not self._q:
+                    if not self._cond.wait(timeout=self.IDLE_EXIT_S) \
+                            and not self._q:
+                        self._thread = None
+                        return
+                item = self._q.popleft()
+                self._m_depth.set(len(self._q))
+                self._busy = True
+            etype, obj, old, t_enq = item
+            try:
+                self.fn(etype, obj, old)
+            except Exception:  # noqa: BLE001 - a watcher must not
+                log.exception("watcher %s raised", self.name)  # kill fanout
+            finally:
+                self.delivered += 1
+                self._m_delivered.inc()
+                self._m_lag.set(time.monotonic() - t_enq)
+                with self._cond:
+                    self._busy = False
+                    self._cond.notify_all()
+
+    def idle(self) -> bool:
+        with self._cond:
+            return not self._q and not self._busy
+
+    def drain(self, deadline: float) -> bool:
+        """Block until every event queued so far has been delivered
+        (queue empty AND no callback in flight)."""
+        with self._cond:
+            while self._q or self._busy:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return False
+                self._cond.wait(remaining)
+            return True
+
+
+class APIServer:
+    def __init__(self, clock: Callable[[], datetime.datetime] = _utcnow,
+                 *, global_lock: bool = False,
+                 watch_queue_maxlen: int = 4096,
+                 wal_dir: str | None = None, wal_fsync: bool = True,
+                 wal_snapshot_every: int = 4096,
+                 shard: str | None = None):
+        if wal_dir:
+            raise NotImplementedError(
+                "APIServer(wal_dir=...): the WAL and snapshots "
+                "(controlplane/persistence) are not ported yet — "
+                "ROADMAP slice 7e; the port's store is in-memory only")
+        if shard:
+            raise NotImplementedError(
+                "APIServer(shard=...): sharded apiservers are not ported "
+                "yet — ROADMAP slice 7e")
+        self.clock = clock
+        # shard identity ("" outside sharded deployments) — labels this
+        # process's per-shard metric series and the /debug surfaces
+        self.shard = shard or ""
+        # ---- locking model ------------------------------------------
+        # Sharded (default): one RLock PER KIND serializes writes to
+        # that kind (the Conflict read-compare-write and rv ordering
+        # within a kind stay atomic), a separate atomic counter hands
+        # out resourceVersions, and reads come from copy-on-write
+        # per-kind snapshots WITHOUT any lock — so a Pod list never
+        # waits on an Event write and vice versa. Locks are reentrant
+        # because verbs nest (patch→update, delete→_finalize_delete→
+        # garbage-collect→delete); cross-kind nesting follows the
+        # ownerReference DAG (owner's kind lock held while dependents'
+        # are taken), which is acyclic for every object graph the
+        # platform builds.
+        #
+        # ``global_lock=True`` restores the pre-r08 model — ONE
+        # reentrant lock around every verb, watchers fired
+        # synchronously inside the write path — as the A/B baseline
+        # arm (`spawn_conformance --global-lock`).
+        self._global = global_lock
+        self._lock = make_rlock("apiserver.global")  # global-arm verb lock
+        self._locks: dict[str, threading.RLock] = {}
+        self._locks_guard = make_lock("apiserver.kind_locks_map")
+        self._rv_lock = make_lock("apiserver.rv")
+        self._seq_lock = make_lock("apiserver.event_seq")
+        self._watch_queue_maxlen = watch_queue_maxlen
+        # per-kind working dicts (kind -> {full key: obj}) — mutated
+        # only under that kind's lock — plus the published COW
+        # snapshots reads iterate lock-free (sharded mode only)
+        self._by_kind: dict[str, dict[tuple, dict]] = {}
+        self._snap: dict[str, dict[tuple, dict]] = {}
+        self._rv = 0
+        # admission plugins: fn(op, obj, old) -> obj | None (op: CREATE/UPDATE)
+        self._admission: list[tuple[str, Callable]] = []
+        # validators per kind: fn(obj) raising on bad spec (CRD schema stand-in)
+        self._validators: dict[str, Callable[[dict], None]] = {}
+        self._watchers: list[Callable[[str, dict, dict | None], None]] = []
+        self._channels: list[_WatcherChannel] = []
+        self._event_seq = 0
+        self.quota_enforcement = True
+        # container stdout per pod (the kubelet's log store; the fake
+        # kubelet appends boot lines, the `pods/<name>/log` subresource
+        # reads them — ref jupyter backend get_pod_logs)
+        self._pod_logs: dict[tuple[str, str], list[str]] = {}
+        self._pod_log_lock = make_lock("apiserver.pod_logs")
+        # bounded audit trail of writes, tagged with the writer identity
+        # set via set_writer (the REST facade stamps it from the
+        # X-Writer-Identity header). The failover conformance asserts
+        # "no overlapping reconciles" over this: once a standby's first
+        # write lands, the dead leader must never write again.
+        self.write_log: collections.deque = collections.deque(maxlen=8192)
+        self._write_seq = 0
+        self._write_lock = make_lock("apiserver.write_log")
+        self._writer = threading.local()
+        # ---- durability (persistence/: WAL + compacting snapshots) --
+        # wal_dir=None (the default, and the --no-wal arm) keeps the
+        # store purely in-memory with ZERO extra work on the write
+        # path; with a wal_dir every acked write is group-committed to
+        # a CRC-framed log before the verb returns, and boot replays
+        # snapshot + WAL tail so a SIGKILLed shard recovers its full
+        # store and resumes its rv sequence (no duplicate watch events
+        # — watchers attach after replay, which emits nothing).
+        self._persistence = None
+        self._wal_tls = threading.local()  # _write_verb depth + ticket
+        self._wal_dir = wal_dir
+        # range tombstones: partition keys this shard has handed OFF
+        # (elastic FLIP done, donor cleanup maybe not). A respawn
+        # replaying the WAL must not resurrect the moved range — the
+        # recipient owns it now — so recovery drops tombstoned keys
+        # between populate and publish. Durable next to the WAL.
+        self._tombstones: set[str] = set()
+        self.tombstone_purged = 0
+
+    # ---- wiring ------------------------------------------------------
+    def register_admission(self, kind_pattern: str, fn: Callable) -> None:
+        """Register a mutating/validating admission plugin for kinds
+        matching ``kind_pattern`` (fnmatch, e.g. "Pod" or "*")."""
+        self._admission.append((kind_pattern, fn))
+
+    def register_validator(self, kind: str, fn: Callable[[dict], None]) -> None:
+        self._validators[kind] = fn
+
+    def add_watcher(self, fn: Callable[[str, dict, dict | None], None],
+                    name: str | None = None) -> None:
+        """Subscribe to store events. Sharded mode delivers them
+        asynchronously (ordered per watcher) off a bounded FIFO; a
+        watcher that falls behind gets a ``TOO_OLD`` event and must
+        relist. ``name`` labels the fanout gauges."""
+        self._watchers.append(fn)
+        if not self._global:
+            self._channels.append(_WatcherChannel(
+                fn, self._watch_queue_maxlen,
+                name or f"watcher-{len(self._channels)}"))
+
+    def drain_watchers(self, timeout: float = 30.0) -> bool:
+        """Barrier: block until every event emitted so far has been
+        delivered to every watcher. Deterministic tests and
+        ``Manager.run_until_idle`` call this so async fanout never
+        races a readiness assertion. No-op (True) in global-lock mode,
+        where delivery is synchronous."""
+        deadline = time.monotonic() + timeout
+        # one delivered event can enqueue follow-on events for another
+        # channel only through a write, and watchers never write — but
+        # a TOO_OLD relist repopulates stores, so settle until every
+        # channel is simultaneously idle
+        while True:
+            ok = all(ch.drain(deadline) for ch in list(self._channels))
+            if not ok:
+                return False
+            if all(ch.idle() for ch in self._channels):
+                return True
+            if time.monotonic() > deadline:
+                return False
+
+    # ---- helpers -----------------------------------------------------
+    def _key(self, kind: str, name: str, namespace: str | None):
+        if kind in CLUSTER_SCOPED_KINDS:
+            return (kind, None, name)
+        return (kind, namespace, name)
+
+    def _kind_lock(self, kind: str) -> threading.RLock:
+        """The write lock for ``kind`` (the one global lock in the
+        legacy arm)."""
+        if self._global:
+            return self._lock
+        lk = self._locks.get(kind)
+        if lk is None:
+            with self._locks_guard:
+                lk = self._locks.setdefault(
+                    kind, make_rlock("apiserver.kind"))
+        return lk
+
+    def _read_lock(self):
+        """Reads are lock-free against COW snapshots in sharded mode;
+        the legacy arm serializes them on the verb lock as before."""
+        return self._lock if self._global else _NULL_CTX
+
+    def _view(self, kind: str) -> dict:
+        """The mapping a read of ``kind`` iterates: the published COW
+        snapshot (sharded — safe without any lock, never mutated after
+        publication) or the live working dict (global arm — callers
+        hold the verb lock)."""
+        return (self._by_kind if self._global else self._snap).get(
+            kind, _EMPTY)
+
+    def _publish(self, kind: str) -> None:
+        """Publish a fresh immutable snapshot of ``kind`` (caller holds
+        the kind lock). Shallow copy: stored objects are replaced, not
+        mutated, on update — so an old snapshot stays internally
+        consistent for readers mid-iteration."""
+        if not self._global:
+            self._snap[kind] = dict(self._by_kind.get(kind, _EMPTY))
+
+    def _next_rv(self) -> str:
+        with self._rv_lock:
+            self._rv += 1
+            return str(self._rv)
+
+    def _next_rvs(self, n: int) -> list[str]:
+        """Reserve a contiguous block of ``n`` resourceVersions in one
+        counter acquisition (bulk create). Failed batch members leave
+        gaps — rv is an ordering token, not a dense sequence."""
+        with self._rv_lock:
+            start = self._rv + 1
+            self._rv += n
+            return [str(v) for v in range(start, start + n)]
+
+    def set_writer(self, identity: str | None) -> None:
+        """Tag subsequent writes from THIS thread with ``identity`` in
+        the write log (thread-local: the REST facade serves each
+        request on its own thread)."""
+        self._writer.identity = identity
+
+    def _log_write(self, verb: str, obj: dict) -> None:
+        rv = int(obj["metadata"].get("resourceVersion") or 0)
+        with self._write_lock:
+            self._write_seq += 1
+            seq = self._write_seq
+            self.write_log.append({
+                "seq": seq,
+                "rv": rv,
+                "verb": verb,
+                "kind": obj["kind"],
+                "namespace": namespace_of(obj),
+                "name": name_of(obj),
+                "writer": getattr(self._writer, "identity", None),
+                "t": time.time(),
+            })
+        p = self._persistence
+        if p is not None:
+            # durable before ack, but never fsync under the kind lock:
+            # the record is buffered here (cheap — wal.cv only) and its
+            # ticket accumulated on the thread; the enclosing
+            # _write_verb flushes AFTER the kind lock is released, so
+            # one kind's fsync wait never blocks that kind's (or any
+            # other kind's) writers, and concurrent verbs share one
+            # group commit. create_many's whole batch rides one flush.
+            ticket = p.log(seq=seq, rv=rv, verb=verb, obj=obj,
+                           wait=False)
+            tls = self._wal_tls
+            if getattr(tls, "depth", 0) > 0:
+                tls.ticket = max(getattr(tls, "ticket", 0), ticket)
+            else:
+                # defensive: a write outside any _write_verb still
+                # acks only after durability
+                p.flush(upto=ticket)
+            if p.snapshot_due() and p.begin_snapshot():
+                threading.Thread(target=self._run_snapshot, daemon=True,
+                                 name="wal-snapshot").start()
+
+    @contextlib.contextmanager
+    def _write_verb(self, kind: str):
+        """The kind lock plus deferred WAL durability: records logged
+        inside the block are fsynced once, AFTER the lock is released,
+        and the verb returns only when they are durable. Reentrant —
+        nested verbs (patch → update, ensure_namespace → create,
+        cascading deletes across kinds) accumulate tickets and the
+        outermost exit does the single flush, outside every lock."""
+        tls = self._wal_tls
+        depth = getattr(tls, "depth", 0)
+        tls.depth = depth + 1
+        try:
+            with self._kind_lock(kind):
+                yield
+        finally:
+            tls.depth = depth
+            if depth == 0:
+                ticket = getattr(tls, "ticket", 0)
+                tls.ticket = 0
+                if ticket and self._persistence is not None:
+                    self._persistence.flush(upto=ticket)
+
+    def _run_snapshot(self) -> None:
+        """Cut a consistent snapshot and compact the WAL. The cut +
+        segment rotation happen under the write lock (and, in the
+        global arm, the verb lock — taken FIRST to respect the
+        verb-lock → write-lock order every writer uses); JSON
+        serialization and the fsync of the snapshot file happen off
+        the write path."""
+        p = self._persistence
+        outer = self._lock if self._global else _NULL_CTX
+        with outer:
+            with self._write_lock:
+                seq = self._write_seq
+                with self._rv_lock:
+                    rv = self._rv
+                view = self._by_kind if self._global else self._snap
+                objects = [o for m in list(view.values())
+                           for o in list(m.values())]
+                p.wal.rotate()
+        p.complete_snapshot(seq=seq, rv=rv, objects=objects)
+
+    def snapshot_now(self) -> bool:
+        """Force a compacting snapshot (tests, pre-shutdown). Returns
+        False without a WAL or when one is already in flight."""
+        p = self._persistence
+        if p is None or not p.begin_snapshot():
+            return False
+        self._run_snapshot()
+        return True
+
+    # ---- range tombstones (elastic handoff crash fencing) ------------
+
+    def _tombstone_path(self) -> str | None:
+        if not self._wal_dir:
+            return None
+        return os.path.join(self._wal_dir, "range_tombstones.json")
+
+    def _load_tombstones(self) -> set[str]:
+        path = self._tombstone_path()
+        if path is None or not os.path.exists(path):
+            return set()
+        try:
+            with open(path, encoding="utf-8") as f:
+                return {str(k) for k in json.load(f)}
+        except (OSError, ValueError):
+            # an unreadable stone file fails OPEN: worst case the shard
+            # serves moved objects until cleanup, which is the exact
+            # pre-tombstone behavior, never data loss
+            return set()
+
+    def _save_tombstones(self) -> None:
+        path = self._tombstone_path()
+        if path is None:
+            return        # no WAL: stones are in-memory only
+        tmp = path + ".tmp"
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump(sorted(self._tombstones), f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+
+    def _purge_tombstoned(self) -> None:
+        """Drop recovered objects whose partition key is tombstoned.
+        Runs between WAL-replay populate and snapshot publish, so the
+        moved range is never observable post-respawn. Broadcast kinds
+        replicate everywhere (no single owner to fence) and Leases are
+        shard-local by design; both are exempt."""
+        try:
+            from kubeflow_rm_tpu_torch.controlplane.deploy.kubeclient import (
+                BROADCAST_KINDS,
+            )
+        except ImportError:
+            BROADCAST_KINDS = frozenset()
+        for kind, objs in self._by_kind.items():
+            if kind in BROADCAST_KINDS or kind == "Lease":
+                continue
+            cluster = kind in CLUSTER_SCOPED_KINDS
+            doomed = [k for k in objs
+                      if (k[2] if cluster else k[1]) in self._tombstones]
+            for k in doomed:
+                del objs[k]
+            self.tombstone_purged += len(doomed)
+
+    def set_range_tombstone(self, keys) -> list[str]:
+        """Durably mark partition keys as handed off: a respawn of
+        this shard will refuse to resurrect them from its WAL. The
+        elastic coordinator sets this on the donor right after the
+        router FLIP (the moment ownership transfers) and clears it
+        after donor cleanup deletes the moved objects for real."""
+        self._tombstones.update(str(k) for k in keys)
+        self._save_tombstones()
+        return sorted(self._tombstones)
+
+    def clear_range_tombstone(self, keys=None) -> list[str]:
+        """Lift stones — the listed partition keys, or all of them
+        when ``keys`` is None. A recipient ADOPTING a range must clear
+        any stale stone it holds for it (a range that left this shard
+        once and is now coming back), or its next respawn would purge
+        live data."""
+        if keys is None:
+            self._tombstones.clear()
+        else:
+            for k in keys:
+                self._tombstones.discard(str(k))
+        self._save_tombstones()
+        return sorted(self._tombstones)
+
+    def range_tombstones(self) -> list[str]:
+        return sorted(self._tombstones)
+
+    def advance_rv_floor(self, rv: int) -> int:
+        """Raise the resourceVersion counter to at least ``rv`` (no-op
+        when already past). The elastic handoff calls this on a
+        recipient shard before copying a donor's range: every re-created
+        object then gets an rv ABOVE anything the donor ever issued for
+        it, so the router cache's per-object rv monotonicity keeps
+        accepting events for moved objects after the flip."""
+        with self._rv_lock:
+            self._rv = max(self._rv, int(rv))
+            return self._rv
+
+    def close_persistence(self) -> None:
+        if self._persistence is not None:
+            self._persistence.close()
+
+    def _emit(self, event: str, obj: dict, old: dict | None = None) -> None:
+        # ONE defensive copy shared by all watchers — the watcher
+        # contract is read-only; per-watcher deepcopies measurably
+        # dominated the 20-way spawn event storm. Sharded mode only
+        # ENQUEUES here (still under the kind lock, so per-kind order
+        # per watcher matches rv order) and a dedicated thread per
+        # watcher delivers — a slow or blocked watcher can no longer
+        # hold the write path. The legacy arm fires synchronously
+        # inside the verb, as before r08.
+        obj_c = _fastcopy(obj)
+        old_c = _fastcopy(old) if old else None
+        if self._global:
+            for w in list(self._watchers):
+                w(event, obj_c, old_c)
+            return
+        t = time.monotonic()
+        for ch in self._channels:
+            ch.publish((event, obj_c, old_c, t))
+
+    def _run_admission(self, op: str, obj: dict, old: dict | None) -> dict:
+        matched = [fn for pattern, fn in self._admission
+                   if fnmatch.fnmatch(obj["kind"], pattern)]
+        if not matched:
+            return obj
+        # one child span covers the whole mutating chain — webhook
+        # latency (PodDefault merges, TPU injection) shows up as its
+        # own hop in the trace instead of hiding inside the verb
+        with tracing.start_span_if_active(f"admit {obj['kind']}",
+                                          attrs={"op": op,
+                                                 "hooks": len(matched)}):
+            for fn in matched:
+                result = fn(op, obj, old)
+                if result is not None:
+                    obj = result
+        return obj
+
+    def ensure_namespace(self, namespace: str) -> dict:
+        with self._write_verb("Namespace"):
+            try:
+                return self.get("Namespace", namespace)
+            except NotFound:
+                return self.create({"apiVersion": "v1", "kind": "Namespace",
+                                    "metadata": {"name": namespace}})
+
+    # ---- verbs -------------------------------------------------------
+    def create(self, obj: dict) -> dict:
+        obj = _fastcopy(obj)
+        # persist the causal chain: the creating request's trace
+        # context rides the object's annotations so watch consumers
+        # (workqueues, reconciles) resume the SAME trace later,
+        # possibly in another process
+        tracing.stamp(obj)
+        kind = obj["kind"]
+        name, ns = name_of(obj), namespace_of(obj)
+        with self._write_verb(kind):
+            if kind in CLUSTER_SCOPED_KINDS:
+                ns = None
+                obj["metadata"].pop("namespace", None)
+            elif ns is None:
+                raise Invalid(
+                    f"{kind}/{name}: namespaced kind requires namespace")
+            else:
+                if ("Namespace", None, ns) not in self._view("Namespace"):
+                    raise NotFound(f"namespace {ns!r} not found")
+            key = self._key(kind, name, ns)
+            if key in self._by_kind.get(kind, _EMPTY):
+                raise AlreadyExists(f"{kind} {ns}/{name} already exists")
+            if kind in self._validators:
+                try:
+                    self._validators[kind](obj)
+                except Exception as e:
+                    raise Invalid(f"{kind} {ns}/{name}: {e}") from e
+            obj = self._run_admission("CREATE", obj, None)
+            if self.quota_enforcement and kind == "Pod":
+                self._enforce_quota(obj)
+            meta = obj["metadata"]
+            meta["uid"] = new_uid()
+            meta["resourceVersion"] = self._next_rv()
+            meta["creationTimestamp"] = self.clock().isoformat()
+            self._by_kind.setdefault(kind, {})[key] = obj
+            self._publish(kind)
+            self._log_write("CREATE", obj)
+            self._emit("ADDED", obj)
+            return _fastcopy(obj)
+
+    def create_many(self, objs: list[dict]) -> list[dict]:
+        """Create a same-kind batch with ONE kind-lock acquisition, one
+        contiguous resourceVersion range, and one coalesced watch emit
+        per channel. Per-object failures (validation, admission, quota,
+        duplicate name) come back as Status-shaped dicts at that
+        object's index — one bad pod rejects only itself, the rest of
+        the slice lands. The admission chain runs per object IN
+        PARALLEL in sharded mode (plugins only read, and sharded reads
+        are lock-free; the global arm keeps it on this thread, whose
+        reentrant verb lock the plugins' reads reenter). Quota and
+        duplicate checks run sequentially in input order so batch-mates
+        count against each other exactly as serial creates would.
+        Watchers observe exactly one ADDED per created object, in rv
+        order."""
+        from kubeflow_rm_tpu_torch.controlplane import metrics
+        if not objs:
+            return []
+        objs = [_fastcopy(o) for o in objs]
+        kind = objs[0]["kind"]
+        for o in objs:
+            if o["kind"] != kind:
+                raise Invalid(
+                    "create_many: all objects must share one kind "
+                    f"(got {o['kind']} in a {kind} batch)")
+        metrics.BULK_CREATE_BATCHES_TOTAL.labels(kind=kind).inc()
+        m_obj = metrics.BULK_CREATE_OBJECTS_TOTAL
+        results: list = [None] * len(objs)
+        admitted: list = [None] * len(objs)
+
+        # bulk creates stamp on the CALLER's thread: _admit may run on
+        # the shared admission pool where the thread-local trace
+        # context of the submitting request is absent
+        for o in objs:
+            tracing.stamp(o)
+
+        def _admit(i: int) -> None:
+            o = objs[i]
+            name, ns = name_of(o), namespace_of(o)
+            if kind in CLUSTER_SCOPED_KINDS:
+                o["metadata"].pop("namespace", None)
+            elif ns is None:
+                raise Invalid(
+                    f"{kind}/{name}: namespaced kind requires namespace")
+            elif ("Namespace", None, ns) not in self._view("Namespace"):
+                raise NotFound(f"namespace {ns!r} not found")
+            if kind in self._validators:
+                try:
+                    self._validators[kind](o)
+                except Exception as e:
+                    raise Invalid(f"{kind} {ns}/{name}: {e}") from e
+            if tracing.enabled():
+                # pool threads lack the submitter's thread-local span;
+                # re-attach from the stamp so admission spans join the
+                # originating trace instead of orphaning
+                with tracing.attach(tracing.context_of(o)):
+                    admitted[i] = self._run_admission("CREATE", o, None)
+            else:
+                admitted[i] = self._run_admission("CREATE", o, None)
+
+        with self._write_verb(kind):
+            if self._global or len(objs) == 1:
+                for i in range(len(objs)):
+                    try:
+                        _admit(i)
+                    except APIError as e:
+                        results[i] = status_from_error(e)
+            else:
+                futs = [_bulk_admission_pool().submit(_admit, i)
+                        for i in range(len(objs))]
+                for i, fut in enumerate(futs):
+                    try:
+                        # deliberate wait under the kind lock: holding
+                        # it across parallel admission is the batch's
+                        # point (one atomic slice); plugins only read
+                        fut.result()  # kfrm: disable=KFRM002
+                    except APIError as e:
+                        results[i] = status_from_error(e)
+            pending = [i for i in range(len(objs)) if results[i] is None]
+            rvs = self._next_rvs(len(pending))
+            created: list[dict] = []
+            for j, i in enumerate(pending):
+                o = admitted[i]
+                name = name_of(o)
+                ns = None if kind in CLUSTER_SCOPED_KINDS \
+                    else namespace_of(o)
+                key = self._key(kind, name, ns)
+                try:
+                    if key in self._by_kind.get(kind, _EMPTY):
+                        raise AlreadyExists(
+                            f"{kind} {ns}/{name} already exists")
+                    if self.quota_enforcement and kind == "Pod":
+                        self._enforce_quota(o)
+                except APIError as e:
+                    results[i] = status_from_error(e)
+                    m_obj.labels(kind=kind, result="rejected").inc()
+                    continue
+                meta = o["metadata"]
+                meta["uid"] = new_uid()
+                meta["resourceVersion"] = rvs[j]
+                meta["creationTimestamp"] = self.clock().isoformat()
+                self._by_kind.setdefault(kind, {})[key] = o
+                # publish per insert (cheap shallow copy) so the
+                # quota scan for the NEXT batch-mate sees this one;
+                # the watch emit below stays one coalesced batch
+                self._publish(kind)
+                self._log_write("CREATE", o)
+                results[i] = _fastcopy(o)
+                created.append(o)
+                m_obj.labels(kind=kind, result="created").inc()
+            for i in range(len(objs)):
+                if results[i] is not None and is_status(results[i]) \
+                        and admitted[i] is None:
+                    m_obj.labels(kind=kind, result="rejected").inc()
+            if created:
+                t = time.monotonic()
+                batch = [("ADDED", _fastcopy(o), None, t) for o in created]
+                if self._global:
+                    for w in list(self._watchers):
+                        for etype, obj_c, old_c, _t in batch:
+                            w(etype, obj_c, old_c)
+                else:
+                    for ch in self._channels:
+                        ch.publish_many(batch)
+        return results
+
+    def get(self, kind: str, name: str, namespace: str | None = None) -> dict:
+        with self._read_lock():
+            obj = self._view(kind).get(self._key(kind, name, namespace))
+            if obj is None:
+                raise NotFound(f"{kind} {namespace}/{name} not found")
+            return _fastcopy(obj)
+
+    def try_get(self, kind: str, name: str,
+                namespace: str | None = None) -> dict | None:
+        try:
+            return self.get(kind, name, namespace)
+        except NotFound:
+            return None
+
+    def list(self, kind: str, namespace: str | None = None,
+             label_selector: dict | None = None) -> list[dict]:
+        out = []
+        with self._read_lock():
+            for (_, ns, _), obj in self._view(kind).items():
+                if namespace is not None and ns != namespace:
+                    continue
+                if label_selector and not matches_selector(
+                        labels_of(obj), label_selector):
+                    continue
+                out.append(_fastcopy(obj))
+        out.sort(key=lambda o: (namespace_of(o) or "", name_of(o)))
+        return out
+
+    def scan(self, kind: str, namespace: str | None = None) -> list[dict]:
+        """READ-ONLY ``list``: returns live store references WITHOUT
+        copying. For in-process consumers on hot paths (the fake
+        kubelet's scheduler sums chip usage over every Pod per
+        reconcile — copy-per-object turned that O(pods) read into the
+        top CPU entry of the 20-way spawn profile). Callers MUST NOT
+        mutate the returned objects; mutate a ``get()`` copy and write
+        it back through ``update``. Remote adapters don't have this
+        method — use ``getattr(api, "scan", api.list)``."""
+        with self._read_lock():
+            return [o for (_, ns, _), o in self._view(kind).items()
+                    if namespace is None or ns == namespace]
+
+    def update(self, obj: dict) -> dict:
+        obj = _fastcopy(obj)
+        kind, name, ns = obj["kind"], name_of(obj), namespace_of(obj)
+        if kind in CLUSTER_SCOPED_KINDS:
+            ns = None
+        key = self._key(kind, name, ns)
+        with self._write_verb(kind):
+            working = self._by_kind.get(kind, _EMPTY)
+            if key not in working:
+                raise NotFound(f"{kind} {ns}/{name} not found")
+            old = working[key]
+            rv = obj["metadata"].get("resourceVersion")
+            if rv is not None and rv != old["metadata"]["resourceVersion"]:
+                raise Conflict(
+                    f"{kind} {ns}/{name}: resourceVersion {rv} != "
+                    f"{old['metadata']['resourceVersion']}"
+                )
+            if kind in self._validators:
+                try:
+                    self._validators[kind](obj)
+                except Exception as e:
+                    raise Invalid(f"{kind} {ns}/{name}: {e}") from e
+            obj = self._run_admission("UPDATE", obj, _fastcopy(old))
+            # immutable fields
+            obj["metadata"]["uid"] = old["metadata"]["uid"]
+            obj["metadata"]["creationTimestamp"] = \
+                old["metadata"]["creationTimestamp"]
+            if old["metadata"].get("deletionTimestamp"):
+                obj["metadata"]["deletionTimestamp"] = \
+                    old["metadata"]["deletionTimestamp"]
+            obj["metadata"]["resourceVersion"] = self._next_rv()
+            working[key] = obj
+            self._publish(kind)
+            self._log_write("UPDATE", obj)
+            # a deleting object whose finalizers have all been removed
+            # goes away
+            if obj["metadata"].get("deletionTimestamp") and \
+                    not obj["metadata"].get("finalizers"):
+                return self._finalize_delete(key)
+            self._emit("MODIFIED", obj, old)
+            return _fastcopy(obj)
+
+    def patch(self, kind: str, name: str, patch: dict,
+              namespace: str | None = None) -> dict:
+        with self._write_verb(kind):
+            current = self.get(kind, name, namespace)
+            merged = strategic_merge(current, patch)
+            merged["metadata"]["resourceVersion"] = \
+                current["metadata"]["resourceVersion"]
+            return self.update(merged)
+
+    def update_status(self, obj: dict) -> dict:
+        """Status-subresource write: only ``status`` is applied."""
+        with self._write_verb(obj["kind"]):
+            current = self.get(obj["kind"], name_of(obj),
+                               namespace_of(obj))
+            current["status"] = _fastcopy(obj.get("status", {}))
+            return self.update(current)
+
+    def delete(self, kind: str, name: str, namespace: str | None = None) -> None:
+        key = self._key(kind, name, namespace)
+        with self._write_verb(kind):
+            working = self._by_kind.get(kind, _EMPTY)
+            if key not in working:
+                raise NotFound(f"{kind} {namespace}/{name} not found")
+            obj = working[key]
+            if obj["metadata"].get("finalizers"):
+                if not obj["metadata"].get("deletionTimestamp"):
+                    # replace, don't mutate in place: published
+                    # snapshots share the stored reference and lock-
+                    # free readers must never see a half-written object
+                    obj = _fastcopy(obj)
+                    obj["metadata"]["deletionTimestamp"] = \
+                        self.clock().isoformat()
+                    obj["metadata"]["resourceVersion"] = self._next_rv()
+                    working[key] = obj
+                    self._publish(kind)
+                    self._log_write("UPDATE", obj)
+                    self._emit("MODIFIED", obj)
+                return
+            self._finalize_delete(key)
+
+    def append_pod_log(self, namespace: str, pod_name: str,
+                       line: str) -> None:
+        with self._pod_log_lock:
+            self._pod_logs.setdefault(
+                (namespace, pod_name), []).append(line)
+
+    def pod_logs(self, namespace: str, pod_name: str,
+                 tail_lines: int | None = None) -> str:
+        """Stored container stdout for a pod (kube ``pods/.../log``).
+        Raises NotFound for a pod that does not exist."""
+        self.get("Pod", pod_name, namespace)
+        with self._pod_log_lock:
+            lines = list(self._pod_logs.get((namespace, pod_name), ()))
+        if tail_lines is not None:
+            if tail_lines < 0:
+                raise Invalid(f"tailLines must be >= 0, got {tail_lines}")
+            lines = lines[-tail_lines:] if tail_lines else []
+        return "".join(f"{line}\n" for line in lines)
+
+    def _finalize_delete(self, key) -> dict:
+        """Caller holds ``key``'s kind lock."""
+        kind = key[0]
+        obj = self._by_kind.get(kind, _EMPTY).pop(key)
+        self._publish(kind)
+        self._log_write("DELETE", obj)
+        if obj["kind"] == "Pod":
+            with self._pod_log_lock:
+                self._pod_logs.pop(
+                    (namespace_of(obj) or "default", name_of(obj)), None)
+        self._emit("DELETED", obj)
+        self._garbage_collect(obj)
+        if obj["kind"] == "Namespace":
+            # namespace deletion drains everything inside it
+            ns = name_of(obj)
+            doomed = []
+            with self._read_lock():
+                for k, snapmap in list(
+                        (self._by_kind if self._global
+                         else self._snap).items()):
+                    doomed.extend(kk for kk in snapmap if kk[1] == ns)
+            for (kkind, kns, kname) in doomed:
+                try:
+                    self.delete(kkind, kname, kns)
+                except NotFound:
+                    pass
+        return _fastcopy(obj)
+
+    def _garbage_collect(self, owner: dict) -> None:
+        """Cascade-delete dependents referencing the deleted owner's
+        uid. Lock acquisition follows the ownerReference DAG (the
+        owner's kind lock is held while each dependent's is taken) —
+        acyclic for every graph the platform builds, and the CI
+        contention-stress step runs with a faulthandler hang dump so a
+        future cycle fails fast instead of deadlocking silently."""
+        owner_uid = owner["metadata"].get("uid")
+        if not owner_uid:
+            return
+        dependents = []
+        with self._read_lock():
+            for kind, snapmap in list(
+                    (self._by_kind if self._global
+                     else self._snap).items()):
+                for k, obj in snapmap.items():
+                    if any(r.get("uid") == owner_uid for r in
+                           obj["metadata"].get("ownerReferences", [])):
+                        dependents.append(k)
+        for (kind, ns, name) in dependents:
+            try:
+                self.delete(kind, name, ns)
+            except NotFound:
+                pass
+
+    # ---- events ------------------------------------------------------
+    def record_event(self, involved: dict, etype: str, reason: str,
+                     message: str) -> dict:
+        """Create a v1 Event for ``involved`` (controller event recorder)."""
+        with self._seq_lock:
+            self._event_seq += 1
+            seq = self._event_seq
+        ns = namespace_of(involved) or "default"
+        ev = {
+            "apiVersion": "v1",
+            "kind": "Event",
+            "metadata": {
+                "name": f"{name_of(involved)}.{seq:08x}",
+                "namespace": ns,
+            },
+            "type": etype,
+            "reason": reason,
+            "message": message,
+            "involvedObject": {
+                "kind": involved["kind"],
+                "name": name_of(involved),
+                "namespace": ns,
+                "uid": involved["metadata"].get("uid"),
+            },
+            "firstTimestamp": self.clock().isoformat(),
+            "lastTimestamp": self.clock().isoformat(),
+            "count": 1,
+        }
+        return self.create(ev)
+
+    def events_for(self, involved: dict) -> list[dict]:
+        # scan() + copy-on-match: list() deep-copied EVERY Event in the
+        # namespace per call, and the notebook controller re-emits pod
+        # events each reconcile — under the spawn storm that went
+        # O(notebooks × events)
+        ns = namespace_of(involved)
+        name, kind = name_of(involved), involved["kind"]
+        out = [
+            _fastcopy(e) for e in self.scan("Event", ns)
+            if deep_get(e, "involvedObject", "name") == name
+            and deep_get(e, "involvedObject", "kind") == kind
+        ]
+        out.sort(key=lambda e: (namespace_of(e) or "", name_of(e)))
+        return out
+
+    # ---- SubjectAccessReview (kube-apiserver authorization) ----------
+    READ_VERBS = frozenset({"get", "list", "watch"})
+
+    def access_review(self, user: str | None, verb: str, resource: str,
+                      namespace: str | None = None) -> bool:
+        """Evaluate RBAC the way a SubjectAccessReview does: the web
+        apps' authz decorator submits one per request (reference:
+        ``crud_backend/authz.py:46-80`` builds a V1SubjectAccessReview;
+        here the apiserver evaluates the RoleBindings the profile
+        controller / KFAM wrote instead of delegating to kube).
+
+        Semantics covered: cluster-admin ClusterRoleBindings grant
+        everything; other ClusterRoleBindings grant their role's rules
+        cluster-wide; namespace RoleBindings grant their role's rules
+        in that namespace. A role's rules come from a stored
+        ClusterRole object when one exists (``rules: [{resources,
+        verbs}]``, ``*`` wildcards honored — real per-resource RBAC);
+        absent a stored object, the kubeflow-{admin,edit,view} names
+        fall back to their aggregated-deployment tiers (admin/edit =
+        all verbs, view = read verbs), matching the reference's
+        default roles.
+        """
+        if user is None:
+            return False
+        # scan(): read-only store references (we hold the verb lock) —
+        # SARs arrive per web-app request, and copy-per-binding made
+        # authorization a measurable slice of spawn-storm CPU
+        for crb in self.scan("ClusterRoleBinding"):
+            if not self._binding_has_subject(crb, user, None):
+                continue
+            role = deep_get(crb, "roleRef", "name") or ""
+            if role == "cluster-admin":
+                return True
+            if self._role_allows(role, verb, resource):
+                return True
+        if namespace is None:
+            return False
+        for rb in self.scan("RoleBinding", namespace):
+            if not self._binding_has_subject(rb, user, namespace):
+                continue
+            role = deep_get(rb, "roleRef", "name") or ""
+            if self._role_allows(role, verb, resource):
+                return True
+        return False
+
+    def _role_allows(self, role_name: str, verb: str,
+                     resource: str) -> bool:
+        """Evaluate one (Cluster)Role against a verb+resource pair.
+
+        Stored ClusterRole rules win (the finer-role case VERDICT r2
+        weak #2 calls out); the name-based tiers are the fallback for
+        the aggregated-role deployment where role objects aren't
+        materialized in the store.
+        """
+        role = self.try_get("ClusterRole", role_name)
+        if role is not None and role.get("rules") is not None:
+            for rule in role["rules"]:
+                resources = rule.get("resources") or []
+                verbs = rule.get("verbs") or []
+                if (("*" in resources or resource in resources)
+                        and ("*" in verbs or verb in verbs)):
+                    return True
+            return False
+        if role_name in ("kubeflow-admin", "kubeflow-edit", "admin",
+                         "edit"):
+            return True
+        if role_name in ("kubeflow-view", "view"):
+            return verb in self.READ_VERBS
+        return False
+
+    @staticmethod
+    def _binding_has_subject(binding: dict, user: str,
+                             binding_ns: str | None) -> bool:
+        """User subjects match the identity-header name; ServiceAccount
+        subjects ONLY match the ``system:serviceaccount:<ns>:<name>``
+        rendering (as a real SubjectAccessReview would) — a request
+        whose userid header is literally "default-editor" must NOT
+        inherit that SA's grants."""
+        for s in binding.get("subjects") or []:
+            kind, name = s.get("kind"), s.get("name")
+            if kind == "User" and name == user:
+                return True
+            if kind == "ServiceAccount":
+                sa_ns = s.get("namespace") or binding_ns
+                if user == f"system:serviceaccount:{sa_ns}:{name}":
+                    return True
+        return False
+
+    # ---- ResourceQuota enforcement (kube-apiserver built-in) ---------
+    def _enforce_quota(self, pod: dict) -> None:
+        # scan(): read-only references — list() would deep-copy every
+        # pod in the namespace per admission, turning an N-pod spawn
+        # burst into O(N²) copies
+        ns = namespace_of(pod)
+        quotas = self.scan("ResourceQuota", ns)
+        if not quotas:
+            return
+        pods = [p for p in self.scan("Pod", ns)
+                if not p["metadata"].get("deletionTimestamp")]
+
+        def pod_resource(p: dict, resource: str, kind: str) -> float:
+            """kind='requests': requests, defaulting to limits (kube
+            defaulting); kind='limits': limits only."""
+            total = 0.0
+            for c in deep_get(p, "spec", "containers", default=[]) or []:
+                if kind == "limits":
+                    amount = deep_get(c, "resources", "limits", resource)
+                else:
+                    amount = deep_get(c, "resources", "requests", resource)
+                    if amount is None:
+                        amount = deep_get(c, "resources", "limits", resource)
+                if amount is not None:
+                    total += parse_quantity(amount)
+            return total
+
+        for quota in quotas:
+            hard = deep_get(quota, "spec", "hard", default={}) or {}
+            for resource, limit in hard.items():
+                limit_v = parse_quantity(limit)
+                if resource == "pods":
+                    used = float(len(pods))
+                    requested = 1.0
+                else:
+                    rname, rkind = resource, "requests"
+                    if rname.startswith("requests."):
+                        rname = rname[len("requests."):]
+                    elif rname.startswith("limits."):
+                        rname = rname[len("limits."):]
+                        rkind = "limits"
+                    used = sum(pod_resource(p, rname, rkind) for p in pods)
+                    requested = pod_resource(pod, rname, rkind)
+                if requested and used + requested > limit_v:
+                    raise AdmissionDenied(
+                        f"exceeded quota {name_of(quota)}: requested "
+                        f"{resource}={requested:g}, used {used:g}, "
+                        f"limited {limit_v:g}"
+                    )

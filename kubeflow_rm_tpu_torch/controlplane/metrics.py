@@ -1,7 +1,9 @@
-"""The control-plane metrics the port feeds, on the standard library
-alone (the JAX control plane's are ``prometheus_client`` metrics in
+"""The control plane's metrics, on the standard library alone (the JAX
+control plane's are ``prometheus_client`` metrics in
 ``kubeflow_rm_tpu/controlplane/metrics.py``, a package the card's
-machine does not have).
+machine does not have): the seams', the serving fleet's, and the spawn
+path's (apiserver watch fan-out, work queues, reconciles, the scheduler
+cache), each under JAX's series name.
 
 A metric is labelled like ``prometheus_client``'s: ``.labels(...)``
 (label values by name or in ``labelnames`` order) gives the child
@@ -382,6 +384,185 @@ SERVING_TIER_OCCUPANCY = Gauge(
     "fraction of READY prefill replicas' queue+work; decode: active "
     "slot fraction of READY decode replicas)",
     ["tier"],
+)
+
+
+# ---- the control plane's spawn path: apiserver, workqueue, runtime,
+# scheduler, chaos and the notebook/StatefulSet controllers (JAX:
+# controlplane/metrics.py, the same names)
+NOTEBOOK_RUNNING = Gauge(
+    "notebook_running",
+    "Current number of notebooks with at least one ready replica",
+)
+NOTEBOOK_CREATE_TOTAL = Counter(
+    "notebook_create_total",
+    "Total notebook StatefulSets created",
+)
+NOTEBOOK_CREATE_FAILED_TOTAL = Counter(
+    "notebook_create_failed_total",
+    "Total notebook StatefulSet creations that failed",
+)
+RECONCILE_ERRORS_TOTAL = Counter(
+    "reconcile_errors_total",
+    "Total reconcile errors across controllers",
+    ["controller"],
+)
+TPU_CHIPS_REQUESTED = Gauge(
+    "tpu_chips_requested",
+    "TPU chips currently requested by scheduled notebook pods",
+)
+WORKQUEUE_DEPTH = Gauge(
+    "workqueue_depth",
+    "Items waiting in a controller's work queue",
+    ["name"],
+)
+WORKQUEUE_NAMESPACE_DEPTH = Gauge(
+    "workqueue_namespace_depth",
+    "Pending work-queue items broken down by the namespace they "
+    "reconcile — the hot-namespace signal the shard autoscaler's "
+    "carve-off reads; drained namespaces are zeroed, not dropped, so "
+    "federated last-value sums never hold stale depth",
+    ["name", "namespace"],
+)
+WORKQUEUE_ADDS_TOTAL = Counter(
+    "workqueue_adds_total",
+    "Total items added to a controller's work queue (pre-dedup)",
+    ["name"],
+)
+WORKQUEUE_REQUEUES_TOTAL = Counter(
+    "workqueue_requeues_total",
+    "Total rate-limited (backoff) requeues per work queue",
+    ["name"],
+)
+WORKQUEUE_RETRIES_EXHAUSTED_TOTAL = Counter(
+    "workqueue_retries_exhausted_total",
+    "Items dropped after exhausting their retry budget",
+    ["name"],
+)
+WORKQUEUE_QUEUE_SECONDS = Histogram(
+    "workqueue_queue_duration_seconds",
+    "Time items spend waiting in a work queue before hand-out",
+    ["name"],
+    buckets=(0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 30.0),
+)
+WATCH_FANOUT_QUEUE_DEPTH = Gauge(
+    "watch_fanout_queue_depth",
+    "Events waiting in a watcher's fanout queue (kube-apiserver's "
+    "apiserver_watch_cache_events_dispatched analogue, per consumer)",
+    ["watcher"],
+)
+WATCH_FANOUT_OVERFLOWS_TOTAL = Counter(
+    "watch_fanout_overflows_total",
+    "Times a watcher's bounded queue overflowed and was collapsed to a "
+    "TOO_OLD sentinel forcing that watcher to relist (410 Gone analogue)",
+    ["watcher"],
+)
+WATCH_FANOUT_DELIVERED_TOTAL = Counter(
+    "watch_fanout_delivered_total",
+    "Events delivered to a watcher callback by its dispatch thread",
+    ["watcher"],
+)
+WATCH_FANOUT_DISPATCH_LAG = Gauge(
+    "watch_fanout_dispatch_lag_seconds",
+    "Enqueue-to-delivery latency of the most recent event per watcher",
+    ["watcher"],
+)
+RECONCILE_PHASE_SECONDS = Histogram(
+    "reconcile_phase_duration_seconds",
+    "Per-reconcile phase timing (render / child_writes / status / "
+    "events) — attributes the provisioning write chain per controller",
+    ["controller", "phase"],
+    buckets=(0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 30.0),
+)
+BULK_CREATE_BATCHES_TOTAL = Counter(
+    "bulk_create_batches_total",
+    "create_many batches accepted by the apiserver, per kind",
+    ["kind"],
+)
+BULK_CREATE_OBJECTS_TOTAL = Counter(
+    "bulk_create_objects_total",
+    "Objects submitted through create_many by kind and per-item result",
+    ["kind", "result"],
+)
+SCHEDULE_LATENCY_SECONDS = Histogram(
+    "schedule_latency_seconds",
+    "Gang-bind latency per scheduling attempt: node selection + "
+    "capacity check + assume, over the incremental usage cache "
+    "(kube-scheduler's scheduling_attempt_duration_seconds analogue); "
+    "result=bound|unschedulable",
+    ["result"],
+    buckets=(0.0001, 0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0,
+             5.0),
+)
+SCHEDULER_ASSUMED_PODS = Gauge(
+    "scheduler_assumed_pods",
+    "Pods assumed (bound in the usage cache, bind write not yet "
+    "confirmed by its watch event) — kube-scheduler's assumed-pod set",
+)
+SCHEDULER_CACHE_EVENTS_TOTAL = Counter(
+    "scheduler_cache_events_total",
+    "Pod/Node watch events folded into the scheduler's usage cache "
+    "(the O(Δ) accounting replacing the per-reconcile full Pod scan)",
+    ["kind"],
+)
+SCHEDULER_CACHE_REBUILDS_TOTAL = Counter(
+    "scheduler_cache_rebuilds_total",
+    "Full usage-cache rebuilds from a fresh snapshot (initial prime + "
+    "TOO_OLD relists)",
+)
+SCHEDULER_FREE_CHIPS = Gauge(
+    "scheduler_free_chips",
+    "Unclaimed TPU chips across the tracked node fleet (capacity minus "
+    "charged usage in the scheduler cache)",
+)
+SCHEDULER_LARGEST_FREE_GANG = Gauge(
+    "scheduler_largest_free_gang_chips",
+    "Largest slice placeable as one gang of identical hosts given the "
+    "current free-chip distribution (ParvaGPU's largest allocatable "
+    "unit) — free_chips minus this is stranded capacity",
+)
+SCHEDULER_FRAGMENTATION = Gauge(
+    "scheduler_fragmentation",
+    "Bin-packing fragmentation gauge: 1 - largest_free_gang/free_chips "
+    "(0 = all free capacity gang-placeable, 1 = fully stranded)",
+)
+SCHEDULER_FREE_HBM_GIB = Gauge(
+    "scheduler_free_hbm_gib",
+    "Unclaimed predicted-HBM (GiB) across the tracked node fleet — the "
+    "second gang-packing axis under --hbm-packing; unlike chips this "
+    "axis is never overcommitted, so free approaching 0 is the true "
+    "admission ceiling for declared workloads",
+)
+PROVISION_LATENCY_SECONDS = Histogram(
+    "provision_latency_seconds",
+    "Notebook provision latency observed in-platform: CR "
+    "creationTimestamp to the status mirror first seeing readyReplicas "
+    "reach desired — the SLI behind the provision-p50 SLO (the "
+    "conformance harness measures the same edge from the client side)",
+    buckets=(0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
+             120.0),
+)
+CHAOS_FAULTS_INJECTED_TOTAL = Counter(
+    "chaos_faults_injected_total",
+    "Faults injected by the seeded chaos engine, by fault kind — the "
+    "attribution counter every chaos-matrix artifact asserts against "
+    "(each injection also lands in the plan ledger and, when a flight "
+    "recorder is attached, a chaos_<fault> incident bundle)",
+    ["fault"],
+)
+PREEMPT_SKIPPED_TOTAL = Counter(
+    "preempt_skipped_total",
+    "try_preempt opportunities that could not be served, by reason "
+    "(oversubscribe_off | not_notebook_owner | legacy_scan | "
+    "no_viable_victims) — makes the TPUJob-vs-TPUJob preemption gap "
+    "(ROADMAP item 5) a visible counter instead of a silent skip",
+    ["reason"],
+)
+HARVESTED_CHIPS = Gauge(
+    "harvested_chips",
+    "TPU chips currently on loan to the serving fleet under harvest "
+    "leases (charges marked harvested=true in the scheduler cache) — "
+    "capacity a notebook resume reclaims instantly",
 )
 
 

@@ -1,5 +1,6 @@
-"""Request tracing for the serving gateway (counterpart of the parts of
-``kubeflow_rm_tpu/controlplane/tracing.py`` the gateway calls).
+"""Request tracing for the serving gateway and the control plane
+(counterpart of the parts of ``kubeflow_rm_tpu/controlplane/tracing.py``
+they call).
 
 W3C-traceparent contexts (trace id, span id, parent id) carried across
 an HTTP hop (``parse_traceparent`` of the ``traceparent`` header) and a
@@ -7,6 +8,11 @@ thread (a thread-local current span that ``start_span`` parents new
 spans on); ``record_span`` stamps an interval measured elsewhere (the
 gateway's drain thread, submit to done). Spans land in one in-memory
 ``SpanCollector`` per process, a bounded ring.
+
+Across the control plane's asynchronous hops (write → watch → work
+queue → reconcile) the context rides the object: ``stamp`` writes it
+under ``TRACE_ANNOTATION`` at create, ``context_of`` reads it back off a
+watch event, and ``attach`` adopts it on another thread.
 
 Tracing is off by default, and then ``start_span`` returns one shared
 no-op context manager after a boolean check.
@@ -22,6 +28,10 @@ from collections import deque
 from kubeflow_rm_tpu_torch.analysis.lockgraph import make_lock
 
 _tls = threading.local()
+
+#: the annotation a persisted object carries its creating request's
+#: traceparent under (watch consumers resume the trace from it)
+TRACE_ANNOTATION = "tpu.kubeflow.org/trace"
 
 
 def new_trace_id() -> str:
@@ -243,3 +253,62 @@ def record_span(name: str, *, start: float, end: float,
     span.end = end
     _collector.add(span)
     return span.context()
+
+
+class attach:
+    """Adopt a remote context as the thread-local current WITHOUT
+    opening a span — the workqueue worker uses this so annotation
+    stamping inside the reconcile inherits the right trace even before
+    the reconcile span opens."""
+
+    __slots__ = ("_ctx", "_prev")
+
+    def __init__(self, ctx: SpanContext | str | None):
+        if isinstance(ctx, str):
+            ctx = parse_traceparent(ctx)
+        self._ctx = ctx
+        self._prev = None
+
+    def __enter__(self):
+        self._prev = getattr(_tls, "span", None)
+        if self._ctx is not None:
+            # a context is not a Span; wrap it in an uncollected stub
+            # that only exists to parent children
+            _tls.span = Span("(attached)", trace_id=self._ctx.trace_id,
+                             span_id=self._ctx.span_id, parent_id=None)
+        return self._ctx
+
+    def __exit__(self, *exc):
+        _tls.span = self._prev
+        return False
+
+
+# ---------------------------------------------------------------------------
+# annotation plumbing (async causality across watch/workqueue hops)
+# ---------------------------------------------------------------------------
+
+def stamp(obj: dict) -> None:
+    """Write the live context into ``metadata.annotations`` of an
+    object about to be persisted, so watch consumers can resume the
+    trace. No-op when tracing is off or no span is open."""
+    if not _enabled:
+        return
+    tp = current_traceparent()
+    if tp is None:
+        return
+    md = obj.setdefault("metadata", {})
+    ann = md.get("annotations")
+    if ann is None:
+        ann = md["annotations"] = {}
+    # first cause wins: an object stamped at creation keeps that
+    # context for life — later writers extend the SAME trace via their
+    # own spans, they don't rewrite history
+    ann.setdefault(TRACE_ANNOTATION, tp)
+
+
+def context_of(obj: dict | None) -> SpanContext | None:
+    """Read a stamped context back off an object (watch event)."""
+    if not obj:
+        return None
+    ann = (obj.get("metadata") or {}).get("annotations") or {}
+    return parse_traceparent(ann.get(TRACE_ANNOTATION))

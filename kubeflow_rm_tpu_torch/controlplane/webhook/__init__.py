@@ -1,2 +1,3 @@
-"""Admission seams of the port (counterpart of
-``kubeflow_rm_tpu/controlplane/webhook``): :mod:`.admission_pricer`."""
+"""Admission webhooks of the port (counterpart of
+``kubeflow_rm_tpu/controlplane/webhook``): :mod:`.admission_pricer` and
+:mod:`.gpu_inject` (JAX's ``tpu_inject``)."""

@@ -186,15 +186,20 @@ def test_unknown_accelerator_and_cpu_workloads_are_not_priced(monkeypatch):
 
 
 def test_gpu_table():
-    assert sorted(gpu.TOPOLOGIES) == ["h100-80gb-1", "h100-80gb-4",
+    assert sorted(gpu.TOPOLOGIES) == ["h100-80gb-1", "h100-80gb-2x4",
+                                      "h100-80gb-2x8", "h100-80gb-4",
                                       "h100-80gb-8"]
     for name, t in gpu.TOPOLOGIES.items():
-        assert t.cards == int(name.rsplit("-", 1)[1])
-        assert (t.hosts, t.cards_per_host) == (1, t.cards)
+        shape = name.rsplit("-", 1)[1]
+        hosts, per_host = (1, int(shape)) if "x" not in shape else map(
+            int, shape.split("x"))
+        assert (t.hosts, t.cards_per_host) == (hosts, per_host)
+        assert t.cards == hosts * per_host
+        assert t.topology == str(per_host)
         assert t.gke_accelerator == "nvidia-h100-80gb"
         assert t.card_flops_bf16 == 989e12
         assert t.hbm_gib_per_chip == 79.1787109375
-        assert not t.multihost
+        assert t.multihost == (hosts > 1)
     with pytest.raises(gpu.UnknownAcceleratorType):
         gpu.lookup("v5litepod-8")
 

@@ -81,6 +81,16 @@ def test_port_files_exist():
     assert {"kubeflow_rm_tpu_torch/controlplane/shard",
             "kubeflow_rm_tpu_torch/controlplane/deploy",
             "kubeflow_rm_tpu_torch/controlplane/webapps"} <= packages
+    # the control plane's spawn path, each at the JAX module's path
+    # (the TPU injector's counterpart is webhook/gpu_inject.py)
+    assert {f"kubeflow_rm_tpu_torch/controlplane/{f}" for f in (
+        "__init__.py", "api/meta.py", "api/gpu.py", "api/notebook.py",
+        "api/tpujob.py", "metrics.py", "chaos.py", "ha/__init__.py",
+        "ha/workqueue.py", "apiserver.py", "runtime.py", "scheduler.py",
+        "suspend.py", "webhook/gpu_inject.py", "controllers/__init__.py",
+        "controllers/notebook.py", "controllers/statefulset.py")} <= names
+    assert {"kubeflow_rm_tpu_torch/controlplane/ha",
+            "kubeflow_rm_tpu_torch/controlplane/controllers"} <= packages
 
 
 def test_default_device_raises_without_cuda(monkeypatch):

@@ -1,0 +1,271 @@
+"""Helpers of the control-plane parity tests: the same spawn-path stack
+built from each package's public classes, one script of API calls run
+on both, the whole object graph dumped from each server, and the fixed
+TPU→GPU key map that is the only intended difference between them.
+
+The JAX side runs its documented ``--no-oversubscribe`` arm (the port
+has only that arm until suspend/resume is ported), and both sides write
+children serially (``runtime.set_serial_writes(True)``): the parallel
+fan-out hands out uids and resourceVersions in thread order, so only
+the serial arm is comparable byte for byte. Every switch and the uid
+counters are set through ``monkeypatch``-style restores, and every
+watch-fanout thread a stack started is joined before the test ends.
+"""
+
+from __future__ import annotations
+
+import itertools
+import json
+
+import pytest
+
+from kubeflow_rm_tpu.controlplane import apiserver as jax_apiserver
+from kubeflow_rm_tpu.controlplane import runtime as jax_runtime
+from kubeflow_rm_tpu.controlplane import scheduler as jax_scheduler
+from kubeflow_rm_tpu.controlplane import suspend as jax_suspend
+from kubeflow_rm_tpu.controlplane.api import meta as jax_meta
+from kubeflow_rm_tpu.controlplane.api import tpu as tpu_api
+from kubeflow_rm_tpu_torch.controlplane import apiserver as port_apiserver
+from kubeflow_rm_tpu_torch.controlplane import runtime as port_runtime
+from kubeflow_rm_tpu_torch.controlplane import scheduler as port_scheduler
+from kubeflow_rm_tpu_torch.controlplane import suspend as port_suspend
+from kubeflow_rm_tpu_torch.controlplane.api import gpu as gpu_api
+from kubeflow_rm_tpu_torch.controlplane.api import meta as port_meta
+
+from tests.cp_fixtures import FakeClock
+
+NS = "user1"
+
+# ---- the key map ------------------------------------------------------
+
+#: slice types: JAX's → the port's, same card count per host and hosts
+SLICE_MAP = {
+    "v5litepod-1": "h100-80gb-1",
+    "v5p-8": "h100-80gb-4",
+    "v5litepod-8": "h100-80gb-8",
+    "v5p-16": "h100-80gb-2x4",
+}
+#: resource and node-label keys
+KEY_MAP = {
+    tpu_api.GOOGLE_TPU_RESOURCE: gpu_api.NVIDIA_GPU_RESOURCE,
+    tpu_api.GOOGLE_TPU_HBM_RESOURCE: gpu_api.NVIDIA_GPU_MEMORY_RESOURCE,
+    tpu_api.NODE_LABEL_ACCELERATOR: gpu_api.NODE_LABEL_ACCELERATOR,
+    tpu_api.NODE_LABEL_TOPOLOGY: gpu_api.NODE_LABEL_TOPOLOGY,
+}
+
+
+def _value_maps() -> tuple[dict, dict]:
+    """(exact string values, memory quantities by host): the slice
+    types, the GKE accelerator and topology label values, and each
+    host's memory quantity."""
+    values, memory = dict(SLICE_MAP), {}
+    for jname, pname in SLICE_MAP.items():
+        j, p = tpu_api.lookup(jname), gpu_api.lookup(pname)
+        assert (j.chips, j.hosts) == (p.cards, p.hosts), (jname, pname)
+        values[j.gke_accelerator] = p.gke_accelerator
+        values.setdefault(j.topology, p.topology)
+        assert values[j.topology] == p.topology
+        memory[str(j.hbm_gib_per_host)] = str(p.hbm_gib_per_host)
+    return values, memory
+
+
+VALUE_MAP, MEMORY_MAP = _value_maps()
+
+
+def key_map(obj):
+    """A JAX object (or dump) as the port renders it: resource and label
+    keys, slice-type/label values, the memory quantity under the memory
+    key, and the resource name inside Event messages."""
+    if isinstance(obj, dict):
+        out = {}
+        for k, v in obj.items():
+            nk = KEY_MAP.get(k, k)
+            if k == tpu_api.GOOGLE_TPU_HBM_RESOURCE and isinstance(v, str):
+                out[nk] = MEMORY_MAP[v]
+            else:
+                out[nk] = key_map(v)
+        return out
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(key_map(v) for v in obj)
+    if isinstance(obj, str):
+        if obj in VALUE_MAP:
+            return VALUE_MAP[obj]
+        if obj[:1] in ("[", "{"):
+            # a JSON-valued annotation (a gang's roles): mapped inside,
+            # written back in the controllers' compact form
+            try:
+                parsed = json.loads(obj)
+            except ValueError:
+                parsed = None
+            if parsed is not None and key_map(parsed) != parsed:
+                return json.dumps(key_map(parsed), separators=(",", ":"))
+        return obj.replace(f"free {tpu_api.GOOGLE_TPU_RESOURCE} ",
+                           f"free {gpu_api.NVIDIA_GPU_RESOURCE} ")
+    return obj
+
+
+# ---- the two stacks -------------------------------------------------
+
+
+class Side:
+    """One package's spawn-path stack (no pricer: JAX's walks no 7B on
+    jax 0.9, so neither side wires one), plus the names a script needs."""
+
+    def __init__(self, pkg: str, *, cached: bool = False,
+                 global_lock: bool = False, auto_ready: bool = True):
+        self.pkg = pkg
+        self.clock = FakeClock()
+        if pkg == "jax":
+            from kubeflow_rm_tpu.controlplane.api import notebook as nb
+            from kubeflow_rm_tpu.controlplane.api import tpujob as tj
+            from kubeflow_rm_tpu.controlplane.apiserver import APIServer
+            from kubeflow_rm_tpu.controlplane.controllers import (
+                notebook as nbc,
+            )
+            from kubeflow_rm_tpu.controlplane.controllers import (
+                statefulset as stc,
+            )
+            from kubeflow_rm_tpu.controlplane.runtime import Manager
+            from kubeflow_rm_tpu.controlplane.webhook.tpu_inject import (
+                TpuInjectWebhook as Inject,
+            )
+            self.make_node = stc.make_tpu_node
+            self.acc = {v: k for k, v in SLICE_MAP.items()}
+            self.topo = tpu_api.lookup
+            self.card_key = tpu_api.GOOGLE_TPU_RESOURCE
+        else:
+            from kubeflow_rm_tpu_torch.controlplane.api import notebook as nb
+            from kubeflow_rm_tpu_torch.controlplane.api import tpujob as tj
+            from kubeflow_rm_tpu_torch.controlplane.apiserver import (
+                APIServer,
+            )
+            from kubeflow_rm_tpu_torch.controlplane.controllers import (
+                notebook as nbc,
+            )
+            from kubeflow_rm_tpu_torch.controlplane.controllers import (
+                statefulset as stc,
+            )
+            from kubeflow_rm_tpu_torch.controlplane.runtime import Manager
+            from kubeflow_rm_tpu_torch.controlplane.webhook.gpu_inject import (
+                GpuInjectWebhook as Inject,
+            )
+            self.make_node = stc.make_gpu_node
+            self.acc = {v: v for v in SLICE_MAP.values()}
+            self.topo = gpu_api.lookup
+            self.card_key = gpu_api.NVIDIA_GPU_RESOURCE
+        self.nb_api, self.tj_api = nb, tj
+        self.api = APIServer(self.clock, global_lock=global_lock)
+        self.api.register_validator(nb.KIND, nb.validate)
+        self.api.register_validator(tj.KIND, tj.validate)
+        Inject(self.api).register()
+        if cached:
+            from kubeflow_rm_tpu.controlplane.cache import CachedAPI
+            self.mgr = Manager(CachedAPI(self.api))
+        else:
+            self.mgr = Manager(self.api)
+        self.mgr.add(nbc.NotebookController())
+        self.mgr.add(stc.StatefulSetController(auto_ready=auto_ready))
+        self.mgr.add(stc.DeploymentController(auto_ready=auto_ready))
+
+    def slice(self, port_type: str) -> str:
+        """This side's name of a slice type (given by its port name)."""
+        return self.acc[port_type]
+
+    def node(self, name: str, port_type: str) -> dict:
+        return self.api.create(self.make_node(name, self.slice(port_type)))
+
+    def notebook(self, name: str, port_type: str | None = None, **kw):
+        return self.nb_api.make_notebook(
+            name, NS, accelerator_type=port_type and self.slice(port_type),
+            **kw)
+
+    def run(self) -> int:
+        return self.mgr.run_until_idle()
+
+    def dump(self) -> dict:
+        """Every object of every kind, as the server lists them."""
+        self.api.drain_watchers()
+        kinds = sorted(set(self.api._by_kind))
+        return {k: self.api.list(k) for k in kinds}
+
+    def close(self) -> None:
+        stop_fanout(self.api)
+
+
+def stop_fanout(api) -> None:
+    """Join every watch-fanout thread of ``api`` (each exits at once
+    when its idle wait is set to zero and it is woken)."""
+    for ch in list(getattr(api, "_channels", ())):
+        ch.IDLE_EXIT_S = 0.0
+        with ch._cond:
+            thread = ch._thread
+            ch._cond.notify_all()
+        if thread is not None:
+            thread.join(timeout=30)
+            assert not thread.is_alive(), f"fanout thread {ch.name} lives"
+
+
+def isolate(monkeypatch) -> None:
+    """Fresh uid counters on both sides (both servers hand out the same
+    uids for the same script), JAX's --no-oversubscribe arm, and serial
+    child writes on both sides; every change undone at teardown."""
+    monkeypatch.setattr(jax_meta, "_uid_counter", itertools.count(1))
+    monkeypatch.setattr(port_meta, "_uid_counter", itertools.count(1))
+    monkeypatch.setattr(jax_suspend, "_oversubscribe", False)
+    monkeypatch.setattr(jax_runtime, "_serial_writes", True)
+    monkeypatch.setattr(port_runtime, "_serial_writes", True)
+
+
+@pytest.fixture
+def parity(monkeypatch):
+    """:func:`isolate`, and each package's lazily built thread pools
+    (bulk admission, child fan-out) private to the test: any the test
+    built are shut down, and the process's own put back, at teardown."""
+    isolate(monkeypatch)
+    pools = ((jax_apiserver, "_admission_pool"),
+             (port_apiserver, "_admission_pool"),
+             (jax_runtime, "_child_pool"), (port_runtime, "_child_pool"))
+    for mod, attr in pools:
+        monkeypatch.setattr(mod, attr, None)
+    yield monkeypatch
+    for mod, attr in pools:
+        pool = getattr(mod, attr)
+        if pool is not None:
+            pool.shutdown(wait=True)
+
+
+def reset_uids(monkeypatch) -> None:
+    """Both uid counters back to 1 (before the next side's script)."""
+    monkeypatch.setattr(jax_meta, "_uid_counter", itertools.count(1))
+    monkeypatch.setattr(port_meta, "_uid_counter", itertools.count(1))
+
+
+def jax_switch_defaults() -> dict:
+    """JAX's process-wide switches, which no port test may leave
+    changed."""
+    from kubeflow_rm_tpu.controlplane import chaos, tracing
+    return {
+        "oversubscribe": jax_suspend.oversubscribe(),
+        "hbm_packing": jax_scheduler.hbm_packing(),
+        "legacy_scan": jax_scheduler.legacy_scan(),
+        "serial_writes": jax_runtime.serial_writes(),
+        "chaos_plan": chaos.active(),
+        "tracing": tracing.enabled(),
+        "port_oversubscribe": port_suspend.oversubscribe(),
+        "port_hbm_packing": port_scheduler.hbm_packing(),
+        "port_legacy_scan": port_scheduler.legacy_scan(),
+        "port_serial_writes": port_runtime.serial_writes(),
+    }
+
+
+#: what :func:`jax_switch_defaults` reads in a fresh process
+DEFAULT_SWITCHES = {
+    "oversubscribe": True, "hbm_packing": False, "legacy_scan": False,
+    "serial_writes": False, "chaos_plan": None, "tracing": False,
+    "port_oversubscribe": False, "port_hbm_packing": False,
+    "port_legacy_scan": False, "port_serial_writes": False,
+}
+
+
+def canon(obj) -> str:
+    return json.dumps(obj, sort_keys=True, indent=1)
