@@ -80,25 +80,39 @@ prints one JSON line per phase:
    byte-identical after, the adapters trained, the kernels launched as in
    the train phase.
 
-12. controlplane — the control plane's spawn path with the card as its
-   node (run after the 7B tree is dropped, so the pod has the card to
-   itself): ``make_gpu_node("gpu-0", "h100-80gb-1")`` (the table's
-   memory equal to the card's), ``make_control_plane(cache=False)``, and
-   a Notebook declaring the train phase's LoRA workload at 3 steps: it
-   must be priced ``fit``, its StatefulSet rendered with one replica,
-   its pod bound to ``gpu-0`` with ``nvidia.com/gpu: "1"``, the
-   accelerator selector and the injected env (``TPU_WORKER_ID=0``,
-   ``TPU_WORKER_HOSTNAMES`` the pod's headless DNS name), the Notebook
-   Ready. Then the pod's container runs as a child process with the
-   pod's own env (``MASTER_ADDR=127.0.0.1`` the one substitution: no
-   cluster DNS here; ``CUDA_VISIBLE_DEVICES`` the device plugin's
-   allocation): ``launcher.torchrun`` joins a one-rank NCCL world and
-   ``finetune`` runs Llama-2-7B at full width and depth, LoRA r16 on
-   wq/wv, 2 × 2048, 3 steps: finite losses, the kernels launched 3 × 64
-   / 32 / 32, the peak within ``CP_PEAK_RTOL`` of the pod's predicted-
-   memory annotation. Last the stop annotation (replicas 0, the pod
-   gone, the card free in the scheduler) and the delete (the children
-   collected).
+12. controlplane — the control plane with the card as its node (run
+   after the 7B tree is dropped, so the pod has the card to itself), in
+   two arms. Arm A, the raw read path (``make_control_plane(cache=
+   False)``): ``make_gpu_node("gpu-0", "h100-80gb-1")`` (the table's
+   memory equal to the card's) and a Notebook declaring the train
+   phase's LoRA workload, priced ``fit``, one replica, its pod bound to
+   ``gpu-0`` with ``nvidia.com/gpu: "1"``, the accelerator selector and
+   the injected env (``TPU_WORKER_ID=0``, ``TPU_WORKER_HOSTNAMES`` the
+   pod's headless DNS name), Ready; stopped (replicas 0, no pod, the
+   card free) and deleted (the children collected). Arm B, JAX's
+   defaults (the informer cache, every webhook and controller, the
+   culler on the phase's settable clock probing a standard-library
+   server on 127.0.0.1 through ``default_probe(base_url=)``): a Profile
+   with a one-card quota (the Namespace, ``default-editor``, the owner's
+   RoleBinding, ``kf-resource-quota``); the ``notebook-images``
+   ConfigMap and a PodDefault; the notebook ``ft`` with a short image
+   name and the inject-oauth annotation (the reconciliation lock stamped
+   then released, the image resolved, the oauth proxy and the auth
+   companion's objects, the card on the notebook's container, the
+   PodDefault's variable in the env). Then the pod's container runs as
+   a child process with the pod's own env (``MASTER_ADDR=127.0.0.1``
+   the one substitution: no cluster DNS here; ``CUDA_VISIBLE_DEVICES``
+   the device plugin's allocation): ``launcher.torchrun`` joins a
+   one-rank NCCL world and ``finetune`` runs Llama-2-7B at full width
+   and depth, LoRA r16 on wq/wv, 2 × 2048, 3 steps: finite losses, the
+   kernels launched 3 × 64 / 32 / 32, the peak within ``CP_PEAK_RTOL``
+   of the pod's predicted-memory annotation, the PodDefault's variable
+   seen. Then a second notebook is refused by the quota (no pod; the
+   apiserver's quota admission names ``kf-resource-quota``); the pod
+   reported Failed is re-created and bound again; the notebook, idle
+   for 11 minutes on the clock, is culled (replicas 0, the card free,
+   ``notebook_cull_total`` + 1); a TPUJob of one worker binds the freed
+   card; the teardown leaves nothing of the profile's namespace.
 13. moe    — Mixtral 8x7B at full width and 16 of its 32 layers (bf16,
    47 GB; the 7B tree is dropped first): the forward at (1, 2048) with
    one ``flash_fwd`` launch a layer and a router aux loss in [1, 8];
@@ -4606,58 +4620,117 @@ def pod_workload() -> int:
         step_ms=[h.step_time_ms for h in history], wall_s=wall,
         peak_gb=(torch.cuda.max_memory_allocated() / 1e9 if on_card
                  else None),
-        launches=launches, world=world)}), flush=True)
+        launches=launches, world=world,
+        poddefault=os.environ.get("KFRM_PODDEFAULT"))}), flush=True)
     return rc
 
 
-def phase_controlplane(card, train_ref=None, device: str = "cuda",
-                       decl=None, steps: int = CP_STEPS):
-    """The control plane's spawn path on the card (module docstring,
-    phase 12); ``train_ref`` (the train phase's) puts the pod's step
-    beside the train phase's. ``device="cpu"`` rehearses it without a
-    card (the table's own memory, gloo, a small declaration such as
-    ``{"preset": "tiny", ...}``; no kernel launches, no peak)."""
-    import os
+# the controlplane phase's node (the card) and arm B's objects
+# (``make_control_plane`` with JAX's defaults: the informer cache, every
+# webhook and controller, the culler)
+CP_NS, CP_ACC = "smoke", "h100-80gb-1"
+CP_OWNER = "smoke@example.com"
+CP_IMAGE = "jupyter-torch-cuda"
+CP_IMAGE_REF = "registry.example.com/kubeflow/jupyter-torch-cuda:2026.10"
+CP_POD_LABEL = {"kfrm-smoke": "poddefault"}
+CP_CULL = {"cull_idle_minutes": 10, "check_period_minutes": 1}
 
+
+class SettableClock:
+    """The control plane's injected clock, moved by hand: the culler's
+    idle time passes without the phase waiting for it."""
+
+    def __init__(self):
+        import datetime
+
+        self.now = datetime.datetime(2026, 1, 1,
+                                     tzinfo=datetime.timezone.utc)
+
+    def __call__(self):
+        return self.now
+
+    def advance(self, **timedelta_kwargs) -> None:
+        import datetime
+
+        self.now = self.now + datetime.timedelta(**timedelta_kwargs)
+
+
+class JupyterStandIn:
+    """A standard-library HTTP server on 127.0.0.1 standing in for the
+    pod's Jupyter server: ``/api/kernels`` answers ``kernels`` (set by
+    the phase), ``/api/terminals`` none. The culler's ``default_probe``
+    reaches it through ``base_url``; :meth:`close` stops it."""
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler, HTTPServer
+
+        stand_in = self
+        self.kernels: list = []
+        self.gets = 0
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_GET(self):
+                stand_in.gets += 1
+                if self.path.endswith("/api/kernels"):
+                    body = stand_in.kernels
+                elif self.path.endswith("/api/terminals"):
+                    body = []
+                else:
+                    self.send_error(404)
+                    return
+                data = json.dumps(body).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def log_message(self, *args):
+                pass
+
+        self.server = HTTPServer(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       name="jupyter-stand-in", daemon=True)
+        self.thread.start()
+        self.base_url = f"http://127.0.0.1:{self.server.server_address[1]}/api"
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(30)
+
+
+def _cp_check_node(device: str):
+    """The node this card is: the table's memory equal to the card's,
+    and as many cards on the machine as the slice type has."""
     import torch
 
-    from kubeflow_rm_tpu_torch.controlplane import make_control_plane
-    from kubeflow_rm_tpu_torch.controlplane import scheduler
     from kubeflow_rm_tpu_torch.controlplane.api import gpu
-    from kubeflow_rm_tpu_torch.controlplane.api import notebook as nb_api
-    from kubeflow_rm_tpu_torch.controlplane.controllers.statefulset import (
-        make_gpu_node,
-    )
-    from kubeflow_rm_tpu_torch.models.llama import LlamaConfig
 
-    decl = decl or CP_DECLARATION
-    ns, acc = "smoke", "h100-80gb-1"
-    t_phase = time.perf_counter()
-    # 1. the node: this card, as the table describes it
-    topo = gpu.lookup(acc)
-    node = make_gpu_node("gpu-0", acc)
+    topo = gpu.lookup(CP_ACC)
     card_gib = (torch.cuda.get_device_properties(0).total_memory / 2 ** 30
                 if device == "cuda" else topo.hbm_gib_per_chip)
     cards_here = torch.cuda.device_count() if device == "cuda" else 1
     check(topo.hbm_gib_per_chip == card_gib,
-          f"{acc}'s memory {topo.hbm_gib_per_chip} GiB is not the card's "
+          f"{CP_ACC}'s memory {topo.hbm_gib_per_chip} GiB is not the card's "
           f"{card_gib} GiB")
     check(topo.cards <= cards_here,
-          f"{acc} has {topo.cards} cards, the machine {cards_here}")
+          f"{CP_ACC} has {topo.cards} cards, the machine {cards_here}")
+    return topo, card_gib
 
-    # 2. the notebook: admitted, priced, rendered, bound, injected
-    api, mgr = make_control_plane(cache=False)
-    api.ensure_namespace(ns)
-    api.create(node)
-    t0 = time.perf_counter()
-    api.create(nb_api.make_notebook(
-        "ft", ns, accelerator_type=acc,
-        annotations={gpu.DECLARED_WORKLOAD_ANNOTATION: json.dumps(decl)}))
-    reconciles = mgr.run_until_idle()
-    spawn_s = time.perf_counter() - t0
-    nb = api.get(nb_api.KIND, "ft", ns)
-    sts = api.get("StatefulSet", "ft", ns)
-    pods = api.list("Pod", ns)
+
+def _cp_spawned(api, ns, name, topo):
+    """The gates a spawned notebook of one card meets in both arms: the
+    admission verdict and its annotations, one replica, the pod bound to
+    ``gpu-0`` with one card, the accelerator selector and the injected
+    env, the Notebook Ready. Returns (nb, pod, env)."""
+    from kubeflow_rm_tpu_torch.controlplane.api import gpu
+    from kubeflow_rm_tpu_torch.controlplane.api import notebook as nb_api
+
+    nb = api.get(nb_api.KIND, name, ns)
+    sts = api.get("StatefulSet", name, ns)
+    pods = [p for p in api.list("Pod", ns) if (p["metadata"].get(
+        "labels") or {}).get(nb_api.NOTEBOOK_NAME_LABEL) == name]
     adm = (nb.get("status") or {}).get("admission") or {}
     check(adm.get("verdict") == "fit", f"admission: {adm}")
     ann = nb["metadata"].get("annotations") or {}
@@ -4666,7 +4739,7 @@ def phase_controlplane(card, train_ref=None, device: str = "cuda",
         gpu.PREDICTED_FLOPS_ANNOTATION) == str(adm["flops_per_step"]),
         f"the pricer's annotations: {ann}")
     check(sts["spec"]["replicas"] == 1, f"replicas {sts['spec']['replicas']}")
-    check([p["metadata"]["name"] for p in pods] == ["ft-0"],
+    check([p["metadata"]["name"] for p in pods] == [f"{name}-0"],
           f"pods {[p['metadata']['name'] for p in pods]}")
     pod = pods[0]
     c0 = pod["spec"]["containers"][0]
@@ -4679,16 +4752,67 @@ def phase_controlplane(card, train_ref=None, device: str = "cuda",
           f"the pod's binding: {pod['spec'].get('nodeName')} "
           f"{c0['resources']} {pod['spec'].get('nodeSelector')}")
     check(env.get("TPU_WORKER_ID") == "0" and env.get(
-        "TPU_WORKER_HOSTNAMES") == f"ft-0.ft-workers.{ns}.svc.cluster.local",
+        "TPU_WORKER_HOSTNAMES") ==
+        f"{name}-0.{name}-workers.{ns}.svc.cluster.local",
         f"the injected env: {env}")
     check(nb["status"].get("readyReplicas") == 1, f"status {nb['status']}")
-    sched = scheduler.cache_for(api)
-    bound = sched.stats()
-    check(bound["free_chips"] == 0.0, f"scheduler after the bind: {bound}")
-    predicted = float(pod["metadata"]["annotations"][
-        gpu.PREDICTED_HBM_ANNOTATION])
+    return nb, pod, env
 
-    # 3. the pod's container: its own env, in a child process
+
+def _cp_raw_arm(topo, decl) -> dict:
+    """Arm A: ``make_control_plane(cache=False)`` (the raw read path):
+    spawn (price, bind, inject), stop, delete; no child process."""
+    from kubeflow_rm_tpu_torch.controlplane import make_control_plane
+    from kubeflow_rm_tpu_torch.controlplane import scheduler
+    from kubeflow_rm_tpu_torch.controlplane.api import gpu
+    from kubeflow_rm_tpu_torch.controlplane.api import notebook as nb_api
+    from kubeflow_rm_tpu_torch.controlplane.controllers.statefulset import (
+        make_gpu_node,
+    )
+
+    ns = "raw"
+    api, mgr = make_control_plane(cache=False)
+    check(mgr.api is api, "arm A's manager reads through a cache")
+    api.ensure_namespace(ns)
+    api.create(make_gpu_node("gpu-0", CP_ACC))
+    t0 = time.perf_counter()
+    api.create(nb_api.make_notebook(
+        "ft", ns, accelerator_type=CP_ACC,
+        annotations={gpu.DECLARED_WORKLOAD_ANNOTATION: json.dumps(decl)}))
+    reconciles = mgr.run_until_idle()
+    spawn_s = time.perf_counter() - t0
+    _cp_spawned(api, ns, "ft", topo)
+    sched = scheduler.cache_for(api)
+    bound = sched.stats()["free_chips"]
+    check(bound == 0.0, f"free cards after the bind: {bound}")
+    nb = api.get(nb_api.KIND, "ft", ns)
+    nb["metadata"]["annotations"][nb_api.STOP_ANNOTATION] = "smoke"
+    api.update(nb)
+    t0 = time.perf_counter()
+    stop_reconciles = mgr.run_until_idle()
+    stop_s = time.perf_counter() - t0
+    stopped = dict(replicas=api.get("StatefulSet", "ft", ns)["spec"][
+        "replicas"], pods=len(api.list("Pod", ns)),
+        free_cards=sched.stats()["free_chips"])
+    check(stopped == dict(replicas=0, pods=0, free_cards=1.0),
+          f"arm A after the stop: {stopped}")
+    api.delete(nb_api.KIND, "ft", ns)
+    mgr.run_until_idle()
+    left = {k: len(api.list(k, ns)) for k in (
+        "StatefulSet", "Service", "VirtualService", "Pod")}
+    check(not any(left.values()), f"arm A left after the delete: {left}")
+    return dict(spawn_s=spawn_s, reconciles=reconciles, stop_s=stop_s,
+                stop_reconciles=stop_reconciles, stopped=stopped,
+                left_after_delete=left)
+
+
+def _cp_child(env, decl, steps, device):
+    """The pod's container: a child process with the pod's own env
+    (``MASTER_ADDR=127.0.0.1`` the one substitution: no cluster DNS
+    here; ``CUDA_VISIBLE_DEVICES`` the device plugin's allocation).
+    Returns (result, seconds, the substitution)."""
+    import os
+
     here = os.path.dirname(os.path.abspath(__file__))
     child_env = dict(os.environ)
     child_env.update(env)
@@ -4697,7 +4821,6 @@ def phase_controlplane(card, train_ref=None, device: str = "cuda",
     child_env.update(CP_DECLARATION=json.dumps(decl), CP_STEPS=str(steps),
                      CP_DEVICE=device)
     if device == "cuda":
-        # the device plugin's allocation of the pod's one card
         child_env["CUDA_VISIBLE_DEVICES"] = "0"
     print(f"controlplane: the pod's env {sorted(env)} with "
           f"{substituted} (no cluster DNS on this machine)", flush=True)
@@ -4715,6 +4838,250 @@ def phase_controlplane(card, train_ref=None, device: str = "cuda",
         print(child.stdout[-4000:], child.stderr[-8000:], file=sys.stderr)
     check(child.returncode == 0 and result is not None,
           f"the pod's workload exited {child.returncode}")
+    return result, child_s, substituted
+
+
+def phase_controlplane(card, train_ref=None, device: str = "cuda",
+                       decl=None, steps: int = CP_STEPS):
+    """The control plane on the card (module docstring, phase 12): arm A
+    on the raw read path, then arm B, JAX's defaults, through a
+    notebook's life with the pod's fine-tune in a child process.
+    ``train_ref`` (the train phase's) puts the pod's step beside the
+    train phase's. ``device="cpu"`` rehearses it without a card (the
+    table's own memory, gloo, a small declaration such as ``{"preset":
+    "tiny", ...}``; no kernel launches, no peak)."""
+    import functools
+
+    from kubeflow_rm_tpu_torch.controlplane import make_control_plane
+    from kubeflow_rm_tpu_torch.controlplane import metrics, scheduler
+    from kubeflow_rm_tpu_torch.controlplane.api import gpu
+    from kubeflow_rm_tpu_torch.controlplane.api import notebook as nb_api
+    from kubeflow_rm_tpu_torch.controlplane.api import tpujob as tj_api
+    from kubeflow_rm_tpu_torch.controlplane.api.meta import make_object
+    from kubeflow_rm_tpu_torch.controlplane.api.poddefault import (
+        make_poddefault,
+    )
+    from kubeflow_rm_tpu_torch.controlplane.api.profile import (
+        DEFAULT_EDITOR, QUOTA_NAME, make_profile,
+    )
+    from kubeflow_rm_tpu_torch.controlplane.apiserver import APIError
+    from kubeflow_rm_tpu_torch.controlplane.controllers.authcompanion import (
+        OAUTH_INJECT_ANNOTATION,
+    )
+    from kubeflow_rm_tpu_torch.controlplane.controllers.culling import (
+        default_probe,
+    )
+    from kubeflow_rm_tpu_torch.controlplane.controllers.statefulset import (
+        make_gpu_node,
+    )
+    from kubeflow_rm_tpu_torch.controlplane.webhook.notebook import (
+        IMAGE_CONFIGMAP, IMAGE_CONFIGMAP_NAMESPACE, LOCK_VALUE,
+    )
+    from kubeflow_rm_tpu_torch.models.llama import LlamaConfig
+
+    decl = decl or CP_DECLARATION
+    ns = CP_NS
+    t_phase = time.perf_counter()
+    topo, card_gib = _cp_check_node(device)
+    arm_a = _cp_raw_arm(topo, decl)
+
+    # arm B: JAX's defaults on the phase's own clock; the culler probes
+    # the stand-in server through the default probe
+    clock, jupyter = SettableClock(), JupyterStandIn()
+    steps_s, reconciles = {}, {}
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        reconciles[name] = mgr.run_until_idle()
+        steps_s[name] = time.perf_counter() - t0
+        return out
+
+    def reads():
+        return {f"{v}_{r}": metrics.CACHE_READS_TOTAL.get(verb=v, result=r)
+                for v in ("get", "list", "scan") for r in ("hit", "miss")}
+
+    try:
+        api, mgr = make_control_plane(
+            clock=clock, enable_culling=True, culler_config=dict(
+                CP_CULL, probe_fn=functools.partial(
+                    default_probe, base_url=jupyter.base_url)))
+        check(type(mgr.api).__name__ == "CachedAPI",
+              f"arm B's manager reads through {type(mgr.api).__name__}")
+        reads0 = reads()
+        culls0 = metrics.NOTEBOOK_CULL_TOTAL.get()
+        api.create(make_gpu_node("gpu-0", CP_ACC))
+        sched = scheduler.cache_for(api)
+
+        # 1. the profile: its namespace, RBAC and a one-card quota
+        step("profile", lambda: api.create(make_profile(
+            ns, CP_OWNER, quota_hard={gpu.NVIDIA_GPU_RESOURCE: "1"})))
+        ns_obj = api.get("Namespace", ns)
+        rb = api.try_get("RoleBinding", "namespaceAdmin", ns)
+        quota = api.try_get("ResourceQuota", QUOTA_NAME, ns)
+        check((ns_obj["metadata"].get("annotations") or {}).get("owner")
+              == CP_OWNER
+              and api.try_get("ServiceAccount", DEFAULT_EDITOR, ns)
+              and rb and rb["subjects"][0]["name"] == CP_OWNER
+              and quota and quota["spec"]["hard"] == {
+                  gpu.NVIDIA_GPU_RESOURCE: "1"},
+              f"the profile's objects: {ns_obj['metadata']} {rb} {quota}")
+
+        # 2. the image table and 3. a PodDefault for the notebook's pod
+        def images_and_poddefault():
+            api.ensure_namespace(IMAGE_CONFIGMAP_NAMESPACE)
+            cm = make_object("v1", "ConfigMap", IMAGE_CONFIGMAP,
+                             IMAGE_CONFIGMAP_NAMESPACE)
+            cm["data"] = {CP_IMAGE: CP_IMAGE_REF}
+            api.create(cm)
+            api.create(make_poddefault(
+                "smoke", ns, selector={"matchLabels": dict(CP_POD_LABEL)},
+                env=[{"name": "KFRM_PODDEFAULT", "value": "smoke"}]))
+        step("images_poddefault", images_and_poddefault)
+
+        # 4. the notebook: locked, resolved, priced, bound, injected, and
+        # given the oauth proxy and the auth companion's objects
+        made = step("spawn", lambda: api.create(nb_api.make_notebook(
+            "ft", ns, image=CP_IMAGE, accelerator_type=CP_ACC,
+            labels=dict(CP_POD_LABEL),
+            annotations={gpu.DECLARED_WORKLOAD_ANNOTATION: json.dumps(decl),
+                         OAUTH_INJECT_ANNOTATION: "true"})))
+        check(made["metadata"]["annotations"].get(
+            nb_api.STOP_ANNOTATION) == LOCK_VALUE,
+            f"the lock at admission: {made['metadata']['annotations']}")
+        nb, pod, env = _cp_spawned(api, ns, "ft", topo)
+        adm = nb["status"]["admission"]
+        check(nb_api.STOP_ANNOTATION not in nb["metadata"]["annotations"],
+              "the reconciliation lock was not released")
+        names = [c["name"] for c in pod["spec"]["containers"]]
+        check(pod["spec"]["containers"][0]["image"] == CP_IMAGE_REF
+              and names == ["ft", "oauth-proxy"]
+              and pod["spec"].get("serviceAccountName") == "ft",
+              f"the pod's containers: {names} "
+              f"{pod['spec']['containers'][0]['image']}")
+        companion = {
+            "ServiceAccount": ["ft", "default-editor", "default-viewer"],
+            "Service": ["ft", "ft-tls", "ft-workers"],
+            "Secret": ["ft-oauth-config"], "Route": ["ft"],
+            "NetworkPolicy": ["ft-ctrl-np", "ft-oauth-np"],
+            "RoleBinding": ["default-editor", "default-viewer",
+                            "elyra-pipelines-ft", "namespaceAdmin"]}
+        have = {k: sorted(o["metadata"]["name"] for o in api.list(k, ns))
+                for k in companion}
+        check(have == {k: sorted(v) for k, v in companion.items()},
+              f"the auth companion's objects: {have}")
+        route = api.get("Route", "ft", ns)["spec"]
+        check(route["to"]["name"] == "ft-tls"
+              and route["tls"]["termination"] == "reencrypt",
+              f"the oauth route: {route}")
+        check(env.get("KFRM_PODDEFAULT") == "smoke",
+              f"the PodDefault's variable: {env.get('KFRM_PODDEFAULT')}")
+        check(sched.stats()["free_chips"] == 0.0, "free cards after the bind")
+        predicted = float(pod["metadata"]["annotations"][
+            gpu.PREDICTED_HBM_ANNOTATION])
+
+        # 5. the pod's container
+        result, child_s, substituted = _cp_child(env, decl, steps, device)
+
+        # 6. the quota: a second notebook of one card is refused whole
+        def second():
+            api.create(nb_api.make_notebook(
+                "ft2", ns, image=CP_IMAGE, accelerator_type=CP_ACC))
+        step("quota", second)
+        refusals = [e["message"] for e in api.events_for(
+            api.get("StatefulSet", "ft2", ns))
+            if e["reason"] == "SliceAdmissionFailed"]
+        direct = api.get("Pod", "ft-0", ns)
+        direct["metadata"] = {"name": "direct", "namespace": ns}
+        direct["spec"].pop("nodeName", None)
+        direct.pop("status", None)
+        try:
+            api.create(direct)
+            denied = None
+        except APIError as e:
+            denied = str(e)
+        check(api.try_get("Pod", "ft2-0", ns) is None
+              and refusals == ["namespace quota cannot admit all 1 hosts "
+                               "of the slice; rejecting whole (slice "
+                               "admission is all-or-nothing)"]
+              and denied is not None
+              and denied.startswith(f"exceeded quota {QUOTA_NAME}:"),
+              f"the quota's refusal: {refusals} {denied}")
+        check(api.get("Pod", "ft-0", ns)["spec"]["nodeName"] == "gpu-0",
+              "ft-0 lost its card to the refused notebook")
+        step("quota_delete", lambda: api.delete(nb_api.KIND, "ft2", ns))
+
+        # 7. slice health: the kubelet reports the pod Failed, as after
+        # an Xid error or an OOM kill
+        uid = api.get("Pod", "ft-0", ns)["metadata"]["uid"]
+
+        def fail():
+            pod = api.get("Pod", "ft-0", ns)
+            pod["status"] = {"phase": "Failed"}
+            api.update_status(pod)
+        step("slice_health", fail)
+        pod = api.get("Pod", "ft-0", ns)
+        restarted = dict(new_uid=pod["metadata"]["uid"] != uid,
+                         node=pod["spec"].get("nodeName"),
+                         phase=pod["status"].get("phase"),
+                         free_cards=sched.stats()["free_chips"])
+        check(restarted == dict(new_uid=True, node="gpu-0",
+                                phase="Running", free_cards=0.0),
+              f"after the failure: {restarted}")
+
+        # 8. culling: one idle kernel, then eleven minutes of nothing
+        jupyter.kernels = [{"id": "k0", "execution_state": "idle",
+                            "last_activity": clock().isoformat()}]
+
+        def idle():
+            clock.advance(minutes=11)
+        step("cull", idle)
+        nb = api.get(nb_api.KIND, "ft", ns)
+        culled = dict(
+            stopped_at=nb["metadata"]["annotations"].get(
+                nb_api.STOP_ANNOTATION),
+            replicas=api.get("StatefulSet", "ft", ns)["spec"]["replicas"],
+            pods=len(api.list("Pod", ns)),
+            free_cards=sched.stats()["free_chips"],
+            culls=metrics.NOTEBOOK_CULL_TOTAL.get() - culls0,
+            probe_gets=jupyter.gets)
+        check(culled["stopped_at"] == clock().isoformat()
+              and culled["replicas"] == 0 and culled["pods"] == 0
+              and culled["free_cards"] == 1.0 and culled["culls"] == 1,
+              f"after the idle time: {culled}")
+
+        # 9. a TPUJob of one worker on the freed card
+        step("tpujob", lambda: api.create(tj_api.make_tpujob(
+            "job", ns, roles=[{"name": "worker", "replicas": 1,
+                               "tpu": {"acceleratorType": CP_ACC}}])))
+        job = api.get(tj_api.KIND, "job", ns)
+        jpod = api.get("Pod", "job-worker-0", ns)
+        jenv = {e["name"]: e.get("value")
+                for e in jpod["spec"]["containers"][0].get("env") or []}
+        check(jpod["spec"].get("nodeName") == "gpu-0"
+              and jenv.get("TPU_WORKER_ID") == "0"
+              and job["status"]["phase"] == tj_api.RUNNING_PHASE
+              and job["status"]["readyPods"] == 1,
+              f"the TPUJob: {job['status']} {jpod['spec'].get('nodeName')}")
+        step("tpujob_delete", lambda: api.delete(tj_api.KIND, "job", ns))
+        check(api.list("Pod", ns) == [] and sched.stats()[
+            "free_chips"] == 1.0, "the TPUJob's pod was not collected")
+
+        # 10. teardown: the notebook, then the profile and its namespace
+        def teardown():
+            api.delete(nb_api.KIND, "ft", ns)
+            api.delete("Profile", ns)
+        step("teardown", teardown)
+        left = {k: len(api.list(k, ns)) for k in sorted(api._by_kind)
+                if api.list(k, ns)}
+        check(not left and api.try_get("Profile", ns) is None
+              and api.try_get("Namespace", ns) is None,
+              f"left after the teardown: {left}")
+        store = mgr.api.store.stats()
+        reads1 = reads()
+    finally:
+        jupyter.close()
+
     losses, launches = result["losses"], result["launches"]
     layers = getattr(LlamaConfig, decl["preset"])().n_layers
     want = ({"flash_fwd": 2 * layers * steps,
@@ -4726,30 +5093,25 @@ def phase_controlplane(card, train_ref=None, device: str = "cuda",
     # the first record holds the start-up sync (as in the train phase)
     step_ms = statistics.median(result["step_ms"][1:] or result["step_ms"])
     train_ms = train_ref and train_ref["step_ms"]
-
-    # 4. stop, then delete
-    nb = api.get(nb_api.KIND, "ft", ns)
-    nb["metadata"]["annotations"][nb_api.STOP_ANNOTATION] = "smoke"
-    api.update(nb)
-    mgr.run_until_idle()
-    stopped = dict(replicas=api.get("StatefulSet", "ft", ns)["spec"][
-        "replicas"], pods=len(api.list("Pod", ns)),
-        free_cards=sched.stats()["free_chips"])
-    api.delete(nb_api.KIND, "ft", ns)
-    mgr.run_until_idle()
-    left = {k: len(api.list(k, ns)) for k in (
-        "StatefulSet", "Service", "VirtualService", "Pod")}
+    cache = {k: reads1[k] - reads0[k] for k in reads0}
+    hits = sum(v for k, v in cache.items() if k.endswith("_hit"))
     emit("controlplane", card=card, node_gib=topo.hbm_gib_per_chip,
-         card_gib=card_gib, reconciles=reconciles, spawn_s=spawn_s,
+         card_gib=card_gib, arm_a=arm_a,
+         arm_b=dict(steps_s=steps_s, reconciles=reconciles,
+                    cache_reads=cache,
+                    cache_hit_ratio=hits / max(1, sum(cache.values())),
+                    informer=store, culled=culled, restarted=restarted,
+                    quota_refusal=refusals, quota_denied=denied),
          admission={k: adm.get(k) for k in (
              "verdict", "predicted_peak_gb", "budget_per_chip_gb", "binds",
              "flops_per_step", "workload")},
          pod_env=env, substituted=substituted, child_s=child_s,
          pod_workload=result, pod_step_ms=step_ms, train_step_ms=train_ms,
          pod_over_train=train_ms and step_ms / train_ms,
-         predicted_pod_gb=predicted,
-         peak_rel_err=peak_err, stopped=stopped, left_after_delete=left,
+         predicted_pod_gb=predicted, peak_rel_err=peak_err,
          phase_s=time.perf_counter() - t_phase)
+    check(result.get("poddefault") == "smoke",
+          f"the child saw KFRM_PODDEFAULT={result.get('poddefault')}")
     check(all(math.isfinite(x) for x in losses) and len(losses) == steps,
           f"the pod's losses: {losses}")
     check(result["world"]["size"] == 1 and result["world"]["backend"] == (
@@ -4761,9 +5123,6 @@ def phase_controlplane(card, train_ref=None, device: str = "cuda",
     check(peak_err is None or abs(peak_err) <= CP_PEAK_RTOL,
           f"the pod's peak {result['peak_gb']} GB vs its predicted "
           f"{predicted} GB")
-    check(stopped == dict(replicas=0, pods=0, free_cards=1.0),
-          f"after the stop: {stopped}")
-    check(not any(left.values()), f"left after the delete: {left}")
     return launches
 
 

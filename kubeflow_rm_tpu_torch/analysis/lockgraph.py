@@ -77,11 +77,38 @@ def _held_list() -> list:
 #: the port's lock families (the ``make_lock`` label) -> level. A
 #: thread may take only a lock whose level is strictly above every lock
 #: it holds (a ranked same-name family ties with itself and orders its
-#: instances by ``rank``). The serving levels are the JAX package's
-#: (``analysis/hierarchy.py``): the fleet routes INTO gateways, and the
-#: store sits above the gateway because promote-on-evict fires inside
-#: an engine step, under the owning gateway's lock.
+#: instances by ``rank``). The levels are the JAX package's
+#: (``analysis/hierarchy.py``) for every family both packages have: the
+#: control plane's apiserver, scheduler, runtime and cache locks; the
+#: fleet routes INTO gateways, and the store sits above the gateway
+#: because promote-on-evict fires inside an engine step, under the
+#: owning gateway's lock.
 LOCK_HIERARCHY: dict[str, int] = {
+    # -- the control plane: coarse, outermost --------------------------
+    "apiserver.global": 10,         # the --global-lock arm's verb lock
+    "scheduler.registry": 20,       # per-backend cache registry
+    "scheduler.relist": 30,         # rebuild vs bind-commit exclusion
+    "scheduler.nodes_map": 40,      # node-map membership
+    "scheduler.node": 50,           # ranked family: sorted by node name
+    "scheduler.pods_map": 60,       # pod -> entry accounting map
+    # -- the apiserver's write path --------------------------------------
+    "apiserver.kind": 110,          # per-kind verb locks (DAG inside)
+    "apiserver.kind_locks_map": 120,
+    "apiserver.event_seq": 130,     # atomic Event name counter
+    "apiserver.write_log": 140,     # write audit append
+    "apiserver.pod_logs": 140,      # kubelet stdout store
+    "apiserver.rv": 145,            # atomic resourceVersion counter
+    "apiserver.admission_pool": 150,
+    "apiserver.watch_channel": 160,  # per-watcher fanout condvar
+    # taken inside publish (under watch_channel); takes nothing while held
+    "chaos.plan": 165,
+    # -- the controller runtime and the informer cache ------------------
+    "runtime.queue": 210,
+    "runtime.child_pool": 220,
+    "workqueue": 230,
+    "informer.prime": 250,
+    "cache.store": 260,             # ObjectStore RLock + its condvar
+    # -- transport, serving, the auditor --------------------------------
     "kubeclient.token_bucket": 310,
     "serving.fleet": 435,
     "serving.gateway": 440,

@@ -2,30 +2,36 @@
 (counterpart of ``kubeflow_rm_tpu/controlplane``, each module at the JAX
 module's path and name).
 
-Ported so far is the spawn path: a Notebook CR is validated, priced at
-admission (:mod:`.webhook.admission_pricer`), rendered to a card-slice
-StatefulSet and its Services (:mod:`.controllers.notebook`), realised
-into ordinal Pods that the rendezvous webhook injects
-(:mod:`.webhook.gpu_inject`) and the fake kubelet gang-binds onto GPU
-nodes (:mod:`.controllers.statefulset` over :mod:`.scheduler`), all on
-the in-memory apiserver (:mod:`.apiserver`) and the controller runtime
-(:mod:`.runtime`, :mod:`.ha.workqueue`). Beside it: the seams into the
-compute path (the pricer, :mod:`.obs.slo`), the serving gateway and
-fleet (:mod:`.webapps.serving`, :mod:`.serving_fleet`), and the
-standard-library :mod:`.metrics` and :mod:`.tracing`.
+Ported: the Notebook/Profile/PodDefault/Tensorboard/PVCViewer/TPUJob
+resource model; the admission chain (the notebook webhook's
+reconciliation lock, image resolution and no-restart guard, the pricer
+(:mod:`.webhook.admission_pricer`), the PodDefault merge and the
+card-slice rendezvous injection (:mod:`.webhook.gpu_inject`)); the
+reconcilers that render card-slice StatefulSets (:mod:`.controllers.notebook`),
+the auth companion, slice health, profiles with their card quotas,
+idle culling, TensorBoard, the PVC viewer and TPUJob gangs; the fake
+kubelet that gang-binds pods onto GPU nodes
+(:mod:`.controllers.statefulset` over :mod:`.scheduler`); the in-memory
+apiserver (:mod:`.apiserver`), the controller runtime (:mod:`.runtime`,
+:mod:`.ha.workqueue`) and the shared informer cache (:mod:`.cache`).
+Beside it: the seams into the compute path (the pricer, :mod:`.obs.slo`),
+the serving gateway and fleet (:mod:`.webapps.serving`,
+:mod:`.serving_fleet`), and the standard-library :mod:`.metrics` and
+:mod:`.tracing`.
 
 The rendered objects equal JAX's up to the accelerator vocabulary of
 :mod:`.api.gpu` (``nvidia.com/gpu`` for ``google.com/tpu``, the GKE GPU
-node labels, the ``h100-80gb-*`` slice types). The env contract the pods
+node labels, the ``h100-80gb-*`` slice types), the slice-health Event's
+wording and a multi-host slice's NetworkPolicy (its pods reach one
+another on every port: NCCL's are ephemeral). The env contract the pods
 get is JAX's, names included (``TPU_WORKER_ID``, ``MEGASCALE_*``): the
 port's launcher reads it.
 
-Not ported yet, and refused where the spawn path meets them: the
-informer cache (``make_control_plane(cache=True)``), culling,
-suspend/resume (``enable_suspend``, ``suspend.set_oversubscribe(True)``),
-the WAL and shards (``APIServer(wal_dir=, shard=)``), leader election,
-the notebook/PodDefault webhooks, the profile, slice-health and TPUJob
-controllers and the web apps (ROADMAP slices 7b-7f).
+Not ported yet, and refused where the control plane meets them:
+suspend/resume (``enable_suspend``, ``suspend.set_oversubscribe(True)``,
+a TPUJob's whole-gang suspend), the WAL and shards
+(``APIServer(wal_dir=, shard=)``), leader election, the kube adapter
+with ``make_cluster_manager`` and the web apps (ROADMAP slices 7d-7f).
 """
 
 from __future__ import annotations
@@ -39,26 +45,47 @@ def make_control_plane(clock=None, *, auto_ready: bool = True,
                        global_lock: bool = False,
                        enable_suspend: bool = False,
                        suspend_config=None):
-    """Build (api, manager) with the spawn path's controllers and
-    webhooks wired.
+    """Build (api, manager) with every controller and webhook wired.
 
-    ``clock`` is injectable for deterministic tests; ``auto_ready=False``
-    leaves scheduled pods un-Ready for status tests; ``global_lock=True``
-    restores the single-RLock apiserver with synchronous watch delivery.
-    ``cache=True`` (JAX's default: the manager reads through the informer
-    cache), ``enable_culling`` and ``enable_suspend`` raise
-    ``NotImplementedError`` until their slices land: pass ``cache=False``.
+    ``clock`` is injectable for deterministic culling tests;
+    ``auto_ready=False`` leaves scheduled pods un-Ready for status tests;
+    ``cache=False`` runs the manager on the raw verb surface (the A/B
+    baseline arm of ``spawn_conformance --no-cache``);
+    ``global_lock=True`` restores the pre-r08 single-RLock apiserver
+    with synchronous watch delivery (the ``--global-lock`` A/B arm);
+    ``enable_suspend=True`` raises ``NotImplementedError`` until
+    suspend/resume is ported (ROADMAP slice 7d).
     """
     from kubeflow_rm_tpu_torch.controlplane.api import notebook as nb_api
+    from kubeflow_rm_tpu_torch.controlplane.api import poddefault as pd_api
     from kubeflow_rm_tpu_torch.controlplane.api import tpujob as tj_api
+    from kubeflow_rm_tpu_torch.controlplane.controllers.culling import (
+        CullingController,
+    )
     from kubeflow_rm_tpu_torch.controlplane.controllers.notebook import (
         NotebookController,
+    )
+    from kubeflow_rm_tpu_torch.controlplane.controllers.profile import (
+        ProfileController,
+    )
+    from kubeflow_rm_tpu_torch.controlplane.controllers.pvcviewer import (
+        PVCViewerController,
     )
     from kubeflow_rm_tpu_torch.controlplane.controllers.statefulset import (
         DeploymentController,
         StatefulSetController,
     )
+    from kubeflow_rm_tpu_torch.controlplane.controllers.tensorboard import (
+        TensorboardController,
+    )
     from kubeflow_rm_tpu_torch.controlplane.runtime import Manager
+    from kubeflow_rm_tpu_torch.controlplane.webhook.notebook import (
+        LockReleaseController,
+        NotebookWebhook,
+    )
+    from kubeflow_rm_tpu_torch.controlplane.webhook.poddefault import (
+        PodDefaultWebhook,
+    )
     from kubeflow_rm_tpu_torch.controlplane.webhook.gpu_inject import (
         GpuInjectWebhook,
     )
@@ -66,15 +93,6 @@ def make_control_plane(clock=None, *, auto_ready: bool = True,
         AdmissionPricer,
     )
 
-    if cache:
-        raise NotImplementedError(
-            "make_control_plane(cache=True): the informer cache "
-            "(controlplane/cache) is not ported yet — ROADMAP slice 7c; "
-            "pass cache=False (the manager on the raw verb surface)")
-    if enable_culling:
-        raise NotImplementedError(
-            "make_control_plane(enable_culling=True): idle culling is not "
-            "ported yet — ROADMAP slice 7b")
     if enable_suspend:
         raise NotImplementedError(
             "make_control_plane(enable_suspend=True): suspend/resume is "
@@ -83,16 +101,45 @@ def make_control_plane(clock=None, *, auto_ready: bool = True,
     api = APIServer(global_lock=global_lock,
                     **({"clock": clock} if clock else {}))
     api.register_validator(nb_api.KIND, nb_api.validate)
+    api.register_validator(pd_api.KIND, pd_api.validate)
     api.register_validator(tj_api.KIND, tj_api.validate)
 
-    # admission order: the pricer on Notebooks; on pods, card injection
-    # (the notebook and PodDefault webhooks that run around them in JAX's
-    # chain wait for slice 7b)
+    # admission order: notebook webhook on Notebooks (the pricer runs
+    # after it so a priced status survives the lock injection); for
+    # pods, the PodDefault merge runs before card injection (injection
+    # must see the final container set, sidecars included)
+    NotebookWebhook(api).register()
     AdmissionPricer(api).register()
+    PodDefaultWebhook(api).register()
     GpuInjectWebhook(api).register()
 
-    manager = Manager(api)
+    from kubeflow_rm_tpu_torch.controlplane.controllers.authcompanion import (
+        AuthCompanionController,
+    )
+    from kubeflow_rm_tpu_torch.controlplane.controllers.slicehealth import (
+        SliceHealthController,
+    )
+
+    # the Manager (and through it every controller) reads through the
+    # shared informer cache; the raw api is returned so tests and web
+    # apps keep their direct handle on the backing store. The informer
+    # registers its watcher BEFORE the Manager's, so the store is
+    # already updated when a reconcile fires for an event.
+    from kubeflow_rm_tpu_torch.controlplane.cache import CachedAPI
+    from kubeflow_rm_tpu_torch.controlplane.controllers.tpujob import (
+        TPUJobController,
+    )
+    manager = Manager(CachedAPI(api) if cache else api)
     manager.add(NotebookController())
+    manager.add(TPUJobController())
+    manager.add(LockReleaseController())
+    manager.add(AuthCompanionController())
+    manager.add(SliceHealthController())
     manager.add(StatefulSetController(auto_ready=auto_ready))
     manager.add(DeploymentController(auto_ready=auto_ready))
+    manager.add(ProfileController())
+    manager.add(TensorboardController())
+    manager.add(PVCViewerController())
+    if enable_culling:
+        manager.add(CullingController(**(culler_config or {})))
     return api, manager

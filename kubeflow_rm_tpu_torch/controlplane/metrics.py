@@ -3,7 +3,8 @@ control plane's are ``prometheus_client`` metrics in
 ``kubeflow_rm_tpu/controlplane/metrics.py``, a package the card's
 machine does not have): the seams', the serving fleet's, and the spawn
 path's (apiserver watch fan-out, work queues, reconciles, the scheduler
-cache), each under JAX's series name.
+cache) and the rest of the control plane's (culling, profiles, TPUJobs,
+the informer cache), each under JAX's series name.
 
 A metric is labelled like ``prometheus_client``'s: ``.labels(...)``
 (label values by name or in ``labelnames`` order) gives the child
@@ -565,6 +566,66 @@ HARVESTED_CHIPS = Gauge(
     "capacity a notebook resume reclaims instantly",
 )
 
+
+
+# ---- the rest of the control plane: culling, profiles, TPUJobs and the
+# informer cache (JAX: controlplane/metrics.py, the same names)
+NOTEBOOK_CULL_TOTAL = Counter(
+    "notebook_cull_total",
+    "Total notebooks culled for idleness",
+)
+PROFILE_CREATE_TOTAL = Counter(
+    "profile_create_total",
+    "Total profiles reconciled into namespaces",
+)
+CACHE_READS_TOTAL = Counter(
+    "cache_reads_total",
+    "Read verbs against the CachedAPI by verb and whether the shared "
+    "informer store served them (hit) or they fell through (miss)",
+    ["verb", "result"],
+)
+CACHE_SUPPRESSED_WRITES_TOTAL = Counter(
+    "cache_suppressed_writes_total",
+    "Writes dropped by no-op suppression (desired object semantically "
+    "equal to the cached current one after normalization)",
+    ["verb"],
+)
+CACHE_CONFLICT_FASTPATH_TOTAL = Counter(
+    "cache_conflict_fastpath_total",
+    "Conflict resolutions attempted from the cache: noop (write already "
+    "reflected in latest), rebased (disjoint three-way rebase retried), "
+    "fallthrough (re-raised for the caller's retry loop)",
+    ["result"],
+)
+INFORMER_EVENTS_TOTAL = Counter(
+    "informer_events_total",
+    "Watch events folded into the shared informer store, per kind",
+    ["kind"],
+)
+INFORMER_SYNCED_KINDS = Gauge(
+    "informer_synced_kinds",
+    "Kinds whose initial list completed (serving reads from memory)",
+)
+INFORMER_LAST_EVENT_TIMESTAMP = Gauge(
+    "informer_last_event_timestamp_seconds",
+    "Wall time the informer last folded an event in (staleness proxy)",
+)
+TPUJOB_RUNNING = Gauge(
+    "tpujob_running",
+    "TPUJobs whose whole heterogeneous gang (every role) is Running",
+)
+TPUJOB_READY_PODS = Gauge(
+    "tpujob_ready_pods",
+    "Ready gang pods across all TPUJobs, by role name (learner slice "
+    "hosts vs CPU actors)",
+    ["role"],
+)
+TPUJOB_PHASE_TRANSITIONS_TOTAL = Counter(
+    "tpujob_phase_transitions_total",
+    "TPUJob phase-ladder transitions (Pending -> Provisioning -> "
+    "Running -> Succeeded/Failed, plus Suspended), by entered phase",
+    ["phase"],
+)
 
 def swallowed(module: str, context: str = "") -> None:
     """Account for an intentionally absorbed exception. Call from inside

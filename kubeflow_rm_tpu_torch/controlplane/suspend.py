@@ -7,7 +7,10 @@ defragmentation are not ported yet (ROADMAP slice 7d). Until they are,
 the port runs JAX's ``--no-oversubscribe`` arm, pin-for-lifetime: the
 switch is off and cannot be turned on, and each hook the StatefulSet
 controller calls takes the early return JAX's takes with the switch
-off (``try_preempt`` counts the skip and returns None).
+off (``try_preempt`` counts the skip and returns None). The TPUJob
+controller's drain hook, ``kick_pending_pods``, has no early return in
+JAX: it raises, and only a job carrying the suspend annotations reaches
+it.
 """
 
 from __future__ import annotations
@@ -42,6 +45,14 @@ def set_oversubscribe(enabled: bool) -> None:
 
 def oversubscribe() -> bool:
     return _oversubscribe
+
+
+def kick_pending_pods(api: APIServer, *, now: str) -> None:
+    """Requeue the slices waiting for cards after a drain: a drain is
+    part of suspend/resume, so the port's TPUJob controller reaches this
+    only through a job carrying the suspend annotations."""
+    raise NotImplementedError(
+        f"kick_pending_pods (the whole-gang suspend of a TPUJob): {_LATER}")
 
 
 # ---- fragmentation-triggered live migration (compaction) -------------

@@ -1,0 +1,54 @@
+"""The smoke's ``controlplane`` phase rehearsed on the CPU at a tiny
+declaration: arm A on the raw read path (spawn, stop, delete) and arm B
+on ``make_control_plane``'s defaults — a profile with a one-card quota,
+the image table, a PodDefault, the notebook (the lock, the resolved
+image, the oauth sidecar, the auth companion's objects, the card and
+the PodDefault's variable), the pod's fine-tune in a child process on a
+one-rank gloo world, the quota's refusal, a failed pod restarted, the
+idle notebook culled through the default probe against a standard-
+library server, a TPUJob on the freed card, and the teardown. Every gate
+of the phase holds, as on the card."""
+
+import json
+import socket
+
+from tests.torch_cp_parity import DEFAULT_SWITCHES, jax_switch_defaults
+
+TINY = {"preset": "tiny", "optim": "adamw", "batch": 2, "grad_accum": 1,
+        "remat": "dots", "seq": 128, "lora_rank": 4}
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_controlplane_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
+    import chip_smoke
+
+    # the child's rendezvous port: one of its own, beside other worlds
+    monkeypatch.setenv("MASTER_PORT", str(_free_port()))
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    launches = chip_smoke.phase_controlplane("cpu", device="cpu",
+                                             decl=TINY, steps=2)
+    assert launches == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                        "flash_bwd_dkv": 0}
+    (line,) = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+               if ln.startswith('{"phase": "controlplane"')]
+    a, b = line["arm_a"], line["arm_b"]
+    assert a["stopped"] == {"replicas": 0, "pods": 0, "free_cards": 1.0}
+    assert list(b["steps_s"]) == [
+        "profile", "images_poddefault", "spawn", "quota", "quota_delete",
+        "slice_health", "cull", "tpujob", "tpujob_delete", "teardown"]
+    assert b["culled"]["culls"] == 1 and b["culled"]["probe_gets"] > 0
+    assert b["restarted"] == {"new_uid": True, "node": "gpu-0",
+                              "phase": "Running", "free_cards": 0.0}
+    assert b["cache_hit_ratio"] > 0.9
+    assert line["pod_workload"]["poddefault"] == "smoke"
+    assert line["pod_workload"]["world"]["backend"] == "gloo"
+
+
+def test_zz_jax_switches_hold_defaults():
+    """Run last in this file: no test above left a switch changed."""
+    assert jax_switch_defaults() == DEFAULT_SWITCHES

@@ -76,10 +76,11 @@ def test_env_round_trip(parity, acc, slices):
 
 
 def test_refused_arms_name_their_slice():
-    with pytest.raises(NotImplementedError, match="7c"):
-        make_control_plane()                    # JAX's default: cache=True
-    with pytest.raises(NotImplementedError, match="7b"):
-        make_control_plane(cache=False, enable_culling=True)
+    """Suspend (7d) and durability, shards and leases (7e) still refuse;
+    the cache and culling (7b, 7c) are checked positively in
+    ``test_torch_cp_cache.py`` and ``test_torch_cp_controllers.py``."""
+    with pytest.raises(NotImplementedError, match="7d"):
+        make_control_plane(enable_suspend=True)  # JAX's default cache
     with pytest.raises(NotImplementedError, match="7d"):
         make_control_plane(cache=False, enable_suspend=True)
     with pytest.raises(NotImplementedError, match="7d"):

@@ -1,7 +1,9 @@
-"""Helpers of the control-plane parity tests: the same spawn-path stack
-built from each package's public classes, one script of API calls run
-on both, the whole object graph dumped from each server, and the fixed
-TPU→GPU key map that is the only intended difference between them.
+"""Helpers of the control-plane parity tests: the same stack built from
+each package's public classes (the spawn path alone, or — the ``full``
+arm — each package's own ``make_control_plane`` with the same clock and
+culling probe), one script of API calls run on both, the whole object
+graph dumped from each server, and the fixed TPU→GPU key map that is
+the only intended difference between them.
 
 The JAX side runs its documented ``--no-oversubscribe`` arm (the port
 has only that arm until suspend/resume is ported), and both sides write
@@ -14,8 +16,10 @@ watch-fanout thread a stack started is joined before the test ends.
 
 from __future__ import annotations
 
+import importlib
 import itertools
 import json
+import secrets
 
 import pytest
 
@@ -72,10 +76,28 @@ def _value_maps() -> tuple[dict, dict]:
 VALUE_MAP, MEMORY_MAP = _value_maps()
 
 
+#: Event text: JAX's words → the port's
+TEXT_MAP = {
+    f"free {tpu_api.GOOGLE_TPU_RESOURCE} ":
+        f"free {gpu_api.NVIDIA_GPU_RESOURCE} ",
+    "TPU slice unhealthy (": "GPU slice unhealthy (",
+}
+
+
+def _slice_policy(np_obj: dict) -> None:
+    """A multi-host slice's NetworkPolicy as the port renders it: JAX's
+    opens the TPU's ICI/``jax.distributed`` ports (8471, 8476) between
+    the slice's pods; the port's admits them on every port (NCCL's are
+    ephemeral), so its rule has no ``ports`` list."""
+    for rule in (np_obj.get("spec") or {}).get("ingress") or []:
+        rule.pop("ports", None)
+
+
 def key_map(obj):
     """A JAX object (or dump) as the port renders it: resource and label
     keys, slice-type/label values, the memory quantity under the memory
-    key, and the resource name inside Event messages."""
+    key, the words of Event messages (:data:`TEXT_MAP`) and a slice's
+    NetworkPolicy (:func:`_slice_policy`)."""
     if isinstance(obj, dict):
         out = {}
         for k, v in obj.items():
@@ -84,6 +106,10 @@ def key_map(obj):
                 out[nk] = MEMORY_MAP[v]
             else:
                 out[nk] = key_map(v)
+        if out.get("kind") == "NetworkPolicy" and str(
+                (out.get("metadata") or {}).get("name", "")).endswith(
+                    "-slice-np"):
+            _slice_policy(out)
         return out
     if isinstance(obj, (list, tuple)):
         return type(obj)(key_map(v) for v in obj)
@@ -99,22 +125,54 @@ def key_map(obj):
                 parsed = None
             if parsed is not None and key_map(parsed) != parsed:
                 return json.dumps(key_map(parsed), separators=(",", ":"))
-        return obj.replace(f"free {tpu_api.GOOGLE_TPU_RESOURCE} ",
-                           f"free {gpu_api.NVIDIA_GPU_RESOURCE} ")
+        for old, new in TEXT_MAP.items():
+            obj = obj.replace(old, new)
+        return obj
     return obj
 
 
 # ---- the two stacks -------------------------------------------------
 
 
+class FakeJupyter:
+    """The culler's injectable ``/api/kernels`` probe (one a side, on
+    that side's clock); ``kernels = None`` plays both endpoints
+    unreachable."""
+
+    def __init__(self, clock):
+        self.clock = clock
+        self.kernels = []
+
+    def activity(self, when=None, busy=False):
+        ts = (when or self.clock()).isoformat()
+        self.kernels = [{"execution_state": "busy" if busy else "idle",
+                         "last_activity": ts}]
+
+    def __call__(self, notebook, pod0):
+        if self.kernels is None:
+            return None
+        return {"kernels": list(self.kernels), "terminals": []}
+
+
 class Side:
-    """One package's spawn-path stack (no pricer: JAX's walks no 7B on
-    jax 0.9, so neither side wires one), plus the names a script needs."""
+    """One package's stack plus the names a script needs. The default is
+    the spawn path alone (no pricer: JAX's walks no 7B on jax 0.9, so
+    neither side wires one). ``full=True`` is each package's own
+    ``make_control_plane(clock, cache=cached)`` — every webhook and
+    controller, the pricer inert without a declared workload — and
+    ``culling`` (the culler's settings) adds the culler with this
+    side's :class:`FakeJupyter` as its probe. ``cached`` puts the
+    manager on the informer cache (JAX's ``Manager(CachedAPI(api))``
+    on the spawn path)."""
 
     def __init__(self, pkg: str, *, cached: bool = False,
-                 global_lock: bool = False, auto_ready: bool = True):
+                 global_lock: bool = False, auto_ready: bool = True,
+                 full: bool = False, culling: dict | None = None):
         self.pkg = pkg
+        self.root = ("kubeflow_rm_tpu" if pkg == "jax"
+                     else "kubeflow_rm_tpu_torch")
         self.clock = FakeClock()
+        self.jupyter = FakeJupyter(self.clock)
         if pkg == "jax":
             from kubeflow_rm_tpu.controlplane.api import notebook as nb
             from kubeflow_rm_tpu.controlplane.api import tpujob as tj
@@ -154,6 +212,15 @@ class Side:
             self.topo = gpu_api.lookup
             self.card_key = gpu_api.NVIDIA_GPU_RESOURCE
         self.nb_api, self.tj_api = nb, tj
+        if full:
+            make = self.m("").make_control_plane
+            self.api, self.mgr = make(
+                self.clock, auto_ready=auto_ready, cache=cached,
+                global_lock=global_lock,
+                enable_culling=culling is not None,
+                culler_config=culling and dict(culling,
+                                               probe_fn=self.jupyter))
+            return
         self.api = APIServer(self.clock, global_lock=global_lock)
         self.api.register_validator(nb.KIND, nb.validate)
         self.api.register_validator(tj.KIND, tj.validate)
@@ -166,6 +233,12 @@ class Side:
         self.mgr.add(nbc.NotebookController())
         self.mgr.add(stc.StatefulSetController(auto_ready=auto_ready))
         self.mgr.add(stc.DeploymentController(auto_ready=auto_ready))
+
+    def m(self, name: str):
+        """This side's ``controlplane`` module ``name`` (dotted, e.g.
+        ``"api.profile"``; ``""`` for the package)."""
+        return importlib.import_module(
+            f"{self.root}.controlplane" + (f".{name}" if name else ""))
 
     def slice(self, port_type: str) -> str:
         """This side's name of a slice type (given by its port name)."""
@@ -207,13 +280,17 @@ def stop_fanout(api) -> None:
 
 def isolate(monkeypatch) -> None:
     """Fresh uid counters on both sides (both servers hand out the same
-    uids for the same script), JAX's --no-oversubscribe arm, and serial
-    child writes on both sides; every change undone at teardown."""
+    uids for the same script), JAX's --no-oversubscribe arm, serial
+    child writes on both sides, and a fixed OAuth cookie secret (the
+    auth companion draws one from ``secrets``); every change undone at
+    teardown."""
     monkeypatch.setattr(jax_meta, "_uid_counter", itertools.count(1))
     monkeypatch.setattr(port_meta, "_uid_counter", itertools.count(1))
     monkeypatch.setattr(jax_suspend, "_oversubscribe", False)
     monkeypatch.setattr(jax_runtime, "_serial_writes", True)
     monkeypatch.setattr(port_runtime, "_serial_writes", True)
+    monkeypatch.setattr(secrets, "token_urlsafe",
+                        lambda nbytes=None: "cookie-secret")
 
 
 @pytest.fixture
@@ -269,3 +346,41 @@ DEFAULT_SWITCHES = {
 
 def canon(obj) -> str:
     return json.dumps(obj, sort_keys=True, indent=1)
+
+
+def run_full(monkeypatch, script, *, culling=None, arms=("cached",),
+             global_lock=False):
+    """Run ``script(S)`` on each package's full stack with the same uids:
+    the port's once for each of ``arms`` (``"cached"``: the informer
+    cache, JAX's default; ``"raw"``: ``cache=False``), JAX's on its
+    default cached arm; every port arm's result and object graph must
+    equal JAX's after the key map. Returns (the port's result, its
+    dump). ``monkeypatch`` is the ``parity`` fixture's. ``global_lock``
+    runs both on the apiserver's synchronous-delivery arm: a script that
+    deletes and re-creates a pod inside one drain needs it, since JAX's
+    cache drops the re-created pod when the old one's delete reaches it
+    late (C11) and the port's keeps it, so the order in which the watch
+    thread delivers would decide whether the graphs agree."""
+    sides, outs = [], []
+    try:
+        for pkg, arm in [("port", a) for a in arms] + [("jax", "cached")]:
+            reset_uids(monkeypatch)
+            S = Side(pkg, full=True, cached=arm == "cached",
+                     culling=culling, global_lock=global_lock)
+            sides.append(S)
+            out = script(S)
+            dump = S.dump()
+            if pkg == "jax":
+                out, dump = key_map(out), key_map(dump)
+            outs.append((pkg, arm, out, dump))
+        _, _, want_out, want_dump = outs[-1]
+        for pkg, arm, out, dump in outs[:-1]:
+            assert out == want_out, arm
+            assert sorted(dump) == sorted(want_dump), arm
+            for kind in want_dump:
+                assert canon(dump[kind]) == canon(want_dump[kind]), \
+                    (arm, kind)
+        return outs[0][2], outs[0][3]
+    finally:
+        for S in sides:
+            S.close()
