@@ -112,7 +112,28 @@ prints one JSON line per phase:
    reported Failed is re-created and bound again; the notebook, idle
    for 11 minutes on the clock, is culled (replicas 0, the card free,
    ``notebook_cull_total`` + 1); a TPUJob of one worker binds the freed
-   card; the teardown leaves nothing of the profile's namespace.
+   card; the teardown leaves nothing of the profile's namespace. Arm C,
+   JAX's defaults with ``enable_suspend=True`` and a
+   ``CheckpointerStateStore`` over the port's ``Checkpointer`` on the
+   pod's checkpoint directory (a temporary one, removed after), in a
+   namespace whose quota admits two one-card notebooks: ``ft``
+   (priority ``low``, the same declaration, priced ``fit``) runs the
+   fine-tune in a child that saves step 2 and holds, idle like a
+   notebook between bursts, in step 3's callback (before step 3's save);
+   its losses of steps 1-2 are arm B's bit for bit. ``hp`` (priority
+   ``high``) then preempts it: ``ft`` suspended with reason
+   ``preempted`` and the checkpoint token ``{"step": 2}``, its pod
+   deleted, ``hp`` bound to ``gpu-0``; the smoke, as the kubelet,
+   SIGKILLs the child (a SIGTERM would let ``fit`` save step 3). A
+   resume of ``ft`` while ``hp`` holds the card leaves it parked;
+   suspending ``hp`` re-binds ``ft`` to ``gpu-0`` with
+   ``restored-step`` 2 and a ``Resumed`` event, and the new pod's child
+   runs exactly one step, step 3: its loss bit-equal to arm B's step 3,
+   64 / 32 / 32 launches, its peak within ``CP_PEAK_RTOL`` of the
+   prediction. ``notebook_preempt_total`` and ``notebook_resume_total``
+   move by one; drain, rebind and restore are observed; the checkpoint's
+   bytes and save/restore seconds and each child's wall time are
+   printed; the teardown leaves nothing.
 13. moe    — Mixtral 8x7B at full width and 16 of its 32 layers (bf16,
    47 GB; the 7B tree is dropped first): the forward at (1, 2048) with
    one ``flash_fwd`` launch a layer and a router aux loss in [1, 8];
@@ -4574,7 +4595,11 @@ def pod_workload() -> int:
     (``phase_controlplane``): the launcher turns the injected rendezvous
     env into torchrun's and joins the process group, then ``finetune``
     runs the declared workload. Prints one JSON line: the losses, the
-    step times, the peak, the kernels' launches and the world."""
+    step times, the peak, the kernels' launches, the checkpoint's save
+    and restore seconds and the world. With ``CP_CKPT_DIR`` it checkpoints
+    there (and resumes from it), every ``CP_CKPT_EVERY`` steps; with
+    ``CP_HOLD_STEP`` it prints the line (as ``pod_held``) from that
+    step's callback and holds until it is killed."""
     import os
 
     import torch
@@ -4583,10 +4608,16 @@ def pod_workload() -> int:
     from kubeflow_rm_tpu_torch import finetune
     from kubeflow_rm_tpu_torch.launcher.torchrun import init_distributed
     from kubeflow_rm_tpu_torch.training import loop
+    from kubeflow_rm_tpu_torch.training.checkpoint import Checkpointer
 
     decl = json.loads(os.environ["CP_DECLARATION"])
     device = os.environ.get("CP_DEVICE", "cuda")
     steps = int(os.environ["CP_STEPS"])
+    # arm C: the pod's checkpoint directory, the save period and the step
+    # whose callback holds the process (before that step's save)
+    ckpt_dir = os.environ.get("CP_CKPT_DIR")
+    ckpt_every = int(os.environ.get("CP_CKPT_EVERY", "0"))
+    hold = int(os.environ.get("CP_HOLD_STEP", "0"))
     init_distributed(device=device,
                      **({} if device == "cuda" else {"cards_per_host": 1}))
     world = dict(backend=dist.get_backend(), size=dist.get_world_size(),
@@ -4594,16 +4625,50 @@ def pod_workload() -> int:
                  master=os.environ["MASTER_ADDR"],
                  torchrun={k: os.environ[k] for k in (
                      "RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_PORT")})
-    history = []
+    history, seen = [], []
     fit = loop.fit
+    on_card = device == "cuda"
+    ckpt_s = {"save": [], "restore": []}
+    for verb in ckpt_s:
+        def timed(*a, _fn=getattr(Checkpointer, verb), _verb=verb, **k):
+            t = time.perf_counter()
+            out = _fn(*a, **k)
+            ckpt_s[_verb].append(time.perf_counter() - t)
+            return out
+        setattr(Checkpointer, verb, timed)
+
+    def report(key, rc, losses, records):
+        print(json.dumps({key: dict(
+            rc=rc, losses=losses,
+            step_ms=[h.step_time_ms for h in records],
+            steps=[h.step for h in records],
+            wall_s=time.perf_counter() - t0,
+            peak_gb=(torch.cuda.max_memory_allocated() / 1e9 if on_card
+                     else None),
+            launches=read_launches(), world=world, checkpoint_s=ckpt_s,
+            poddefault=os.environ.get("KFRM_PODDEFAULT"))}), flush=True)
+
+    def held(rec):
+        seen.append(rec)
+        if rec.step == hold:
+            # idle between bursts: the step's loss is known, its save has
+            # not run; only a SIGKILL ends this process now
+            report("pod_held", None, [h.loss for h in seen], seen)
+            threading.Event().wait()
 
     def recorded_fit(*args, **kwargs):
+        if ckpt_every:
+            args = (args[0], args[1],
+                    replace(args[2], checkpoint_every=ckpt_every),
+                    *args[3:])
+        if hold:
+            kwargs["callbacks"] = tuple(kwargs.get("callbacks", ())) + (
+                held,)
         state, hist = fit(*args, **kwargs)
         history.extend(hist)
         return state, hist
 
     loop.fit = recorded_fit
-    on_card = device == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -4612,16 +4677,9 @@ def pod_workload() -> int:
         ["--preset", decl["preset"], "--lora-rank", str(decl["lora_rank"]),
          "--batch", str(decl["batch"]), "--seq-len", str(decl["seq"]),
          "--grad-accum", str(decl["grad_accum"]), "--steps", str(steps),
-         "--no-sample"] + (["--device", device] if device != "cuda" else []))
-    wall = time.perf_counter() - t0
-    launches = read_launches()
-    print(json.dumps({"pod_workload": dict(
-        rc=rc, losses=[h.loss for h in history],
-        step_ms=[h.step_time_ms for h in history], wall_s=wall,
-        peak_gb=(torch.cuda.max_memory_allocated() / 1e9 if on_card
-                 else None),
-        launches=launches, world=world,
-        poddefault=os.environ.get("KFRM_PODDEFAULT"))}), flush=True)
+         "--no-sample"] + (["--device", device] if device != "cuda" else [])
+        + (["--checkpoint-dir", ckpt_dir] if ckpt_dir else []))
+    report("pod_workload", rc, [h.loss for h in history], history)
     return rc
 
 
@@ -4806,30 +4864,48 @@ def _cp_raw_arm(topo, decl) -> dict:
                 left_after_delete=left)
 
 
-def _cp_child(env, decl, steps, device):
-    """The pod's container: a child process with the pod's own env
-    (``MASTER_ADDR=127.0.0.1`` the one substitution: no cluster DNS
-    here; ``CUDA_VISIBLE_DEVICES`` the device plugin's allocation).
-    Returns (result, seconds, the substitution)."""
+def _cp_child_env(env, decl, steps, device, extra=None, workload=None):
+    """The pod's container's environment: the pod's own env
+    (``MASTER_ADDR=127.0.0.1`` substituted: no cluster DNS here, and
+    ``extra``'s entries; ``CUDA_VISIBLE_DEVICES`` the device plugin's
+    allocation) and the workload's settings (``workload``: arm C's
+    ``CP_CKPT_*``/``CP_HOLD_STEP``). Returns (env, the
+    substitutions)."""
     import os
 
-    here = os.path.dirname(os.path.abspath(__file__))
     child_env = dict(os.environ)
     child_env.update(env)
-    substituted = {"MASTER_ADDR": "127.0.0.1"}
+    substituted = {"MASTER_ADDR": "127.0.0.1", **(extra or {})}
     child_env.update(substituted)
     child_env.update(CP_DECLARATION=json.dumps(decl), CP_STEPS=str(steps),
-                     CP_DEVICE=device)
+                     CP_DEVICE=device, **(workload or {}))
     if device == "cuda":
         child_env["CUDA_VISIBLE_DEVICES"] = "0"
     print(f"controlplane: the pod's env {sorted(env)} with "
           f"{substituted} (no cluster DNS on this machine)", flush=True)
+    return child_env, substituted
+
+
+_POD_CMD = [sys.executable, "-c",
+            "import sys, chip_smoke; sys.exit(chip_smoke.pod_workload())"]
+
+
+def _here() -> str:
+    import os
+
+    return os.path.dirname(os.path.abspath(__file__))
+
+
+def _cp_child(env, decl, steps, device, extra=None, workload=None):
+    """The pod's container run to its end in a child process (see
+    :func:`_cp_child_env`). Returns (result, seconds, the
+    substitutions)."""
+    child_env, substituted = _cp_child_env(env, decl, steps, device, extra,
+                                           workload)
     t0 = time.perf_counter()
-    child = subprocess.run(
-        [sys.executable, "-c",
-         "import sys, chip_smoke; sys.exit(chip_smoke.pod_workload())"],
-        cwd=here, env=child_env, capture_output=True, text=True,
-        timeout=CP_CHILD_TIMEOUT_S)
+    child = subprocess.run(_POD_CMD, cwd=_here(), env=child_env,
+                           capture_output=True, text=True,
+                           timeout=CP_CHILD_TIMEOUT_S)
     child_s = time.perf_counter() - t0
     lines = [ln for ln in child.stdout.splitlines()
              if ln.startswith('{"pod_workload"')]
@@ -4841,11 +4917,308 @@ def _cp_child(env, decl, steps, device):
     return result, child_s, substituted
 
 
+class HeldChild:
+    """The pod's container in a child process that holds at a step
+    (``CP_HOLD_STEP``): :meth:`held` waits for its ``pod_held`` line,
+    :meth:`kill` is the kubelet's SIGKILL. Its output goes to a reader
+    thread (stdout) and a file (stderr), so no pipe fills."""
+
+    def __init__(self, env, decl, steps, device, extra, workload):
+        import tempfile
+
+        child_env, self.substituted = _cp_child_env(env, decl, steps,
+                                                    device, extra, workload)
+        self.err = tempfile.TemporaryFile(mode="w+")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(_POD_CMD, cwd=_here(), env=child_env,
+                                     stdout=subprocess.PIPE,
+                                     stderr=self.err, text=True)
+        self.lines: list[str] = []
+        self.result = None
+        self._held = threading.Event()
+        self._reader = threading.Thread(target=self._read, daemon=True,
+                                        name="held-child-stdout")
+        self._reader.start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            self.lines.append(line)
+            if line.startswith('{"pod_held"'):
+                self.result = json.loads(line)["pod_held"]
+                self._held.set()
+        self._held.set()           # the child ended (or was killed)
+
+    def held(self) -> dict:
+        """The child's report from its holding step, and the seconds it
+        took to get there."""
+        check(self._held.wait(CP_CHILD_TIMEOUT_S),
+              "the pod's workload never reached its holding step")
+        if self.result is None:
+            self.err.seek(0)
+            print("".join(self.lines)[-4000:], self.err.read()[-8000:],
+                  file=sys.stderr)
+        check(self.result is not None,
+              f"the pod's workload exited {self.proc.poll()} before it "
+              "held")
+        return self.result, time.perf_counter() - self.t0
+
+    def kill(self) -> int:
+        """SIGKILL (no ``finally`` runs, so no save either); returns the
+        exit code."""
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGKILL)
+        rc = self.proc.wait(60)
+        self._reader.join(60)
+        self.err.close()
+        return rc
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _tree_bytes(path) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _pod_launches(decl, steps, device) -> dict:
+    """The kernels' launches of ``steps`` LoRA steps of ``decl`` (remat
+    on: the forward twice a layer, each backward kernel once); none on
+    the CPU."""
+    from kubeflow_rm_tpu_torch.models.llama import LlamaConfig
+
+    layers = getattr(LlamaConfig, decl["preset"])().n_layers
+    n = steps if device == "cuda" else 0
+    return {"flash_fwd": 2 * layers * n, "flash_bwd_dq": layers * n,
+            "flash_bwd_dkv": layers * n}
+
+
+def _cp_suspend_arm(topo, decl, steps, device, ref_losses) -> dict:
+    """Arm C: JAX's defaults with the suspend/resume lifecycle on a
+    ``CheckpointerStateStore`` over the pod's checkpoint directory. The
+    low-priority ``ft`` checkpoints step ``steps - 1`` and holds in step
+    ``steps``; the high-priority ``hp`` preempts it; the kubelet SIGKILLs
+    its container; ``ft`` resumes once ``hp`` is suspended, and its new
+    container runs step ``steps`` alone. ``ref_losses`` are arm B's
+    (every step of an uninterrupted run)."""
+    import os
+    import shutil
+    import tempfile
+
+    from kubeflow_rm_tpu_torch.controlplane import make_control_plane
+    from kubeflow_rm_tpu_torch.controlplane import metrics, scheduler
+    from kubeflow_rm_tpu_torch.controlplane import suspend
+    from kubeflow_rm_tpu_torch.controlplane.api import gpu
+    from kubeflow_rm_tpu_torch.controlplane.api import notebook as nb_api
+    from kubeflow_rm_tpu_torch.controlplane.api.profile import make_profile
+    from kubeflow_rm_tpu_torch.controlplane.controllers.statefulset import (
+        make_gpu_node,
+    )
+    from kubeflow_rm_tpu_torch.training.checkpoint import Checkpointer
+
+    ns, durable = "resume", steps - 1
+    ckpt_dir = tempfile.mkdtemp(prefix="kfrm-smoke-ckpt-")
+    store = suspend.CheckpointerStateStore(
+        lambda namespace, name: Checkpointer(ckpt_dir))
+    steps_s, held = {}, None
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        mgr.run_until_idle()
+        steps_s[name] = time.perf_counter() - t0
+        return out
+
+    def counters():
+        rv = metrics.registry_value
+        return dict(
+            preempt=rv("notebook_preempt_total"),
+            resume=rv("notebook_resume_total"),
+            suspend_preempted=rv("notebook_suspend_total",
+                                 {"reason": "preempted"}),
+            **{f"{p}_n": rv("suspend_resume_phase_seconds_count",
+                            {"phase": p})
+               for p in ("drain", "rebind", "restore")},
+            **{f"{p}_s": rv("suspend_resume_phase_seconds_sum",
+                            {"phase": p})
+               for p in ("drain", "rebind", "restore")})
+
+    def notebook(name, priority):
+        return nb_api.make_notebook(
+            name, ns, accelerator_type=CP_ACC, priority_class=priority,
+            annotations={gpu.DECLARED_WORKLOAD_ANNOTATION: json.dumps(decl)})
+
+    def ann(name):
+        return api.get(nb_api.KIND, name, ns)["metadata"].get(
+            "annotations") or {}
+
+    def peak_err(result, predicted):
+        return (None if result["peak_gb"] is None
+                else (result["peak_gb"] - predicted) / predicted)
+
+    # the module's store serves the verbs (a preemption's suspend), the
+    # controller's the resume; both the pod's checkpoints
+    before = suspend.state_store()
+    suspend.set_state_store(store)
+    try:
+        c0 = counters()
+        api, mgr = make_control_plane(
+            clock=SettableClock(), enable_suspend=True,
+            suspend_config={"store": store, "check_period_minutes": 1.0})
+        check([type(c).__name__ for c in mgr.controllers][-2:] == [
+            "SuspendController", "ReplicaFailoverController"],
+            "arm C's manager has no suspend controllers")
+        check(suspend.oversubscribe(), "arm C runs with oversubscription off")
+        api.create(make_gpu_node("gpu-0", CP_ACC))
+        sched = scheduler.cache_for(api)
+        # 1. a namespace whose quota admits two one-card notebooks
+        step("profile", lambda: api.create(make_profile(
+            ns, CP_OWNER, quota_hard={gpu.NVIDIA_GPU_RESOURCE: "2"})))
+        step("spawn", lambda: api.create(notebook("ft", "low")))
+        _, pod, env = _cp_spawned(api, ns, "ft", topo)
+        predicted = float(pod["metadata"]["annotations"][
+            gpu.PREDICTED_HBM_ANNOTATION])
+        # 2. the pod's container saves step `durable`, holds in `steps`
+        held = HeldChild(env, decl, steps, device,
+                         {"MASTER_PORT": str(_free_port())},
+                         {"CP_CKPT_DIR": ckpt_dir,
+                          "CP_CKPT_EVERY": str(durable),
+                          "CP_HOLD_STEP": str(steps)})
+        first, first_s = held.held()
+        check(first["steps"] == list(range(1, steps + 1))
+              and first["losses"][:durable] == ref_losses[:durable],
+              f"the first container's losses {first['losses']} vs arm "
+              f"B's {ref_losses}")
+        check(first["launches"] == _pod_launches(decl, steps, device),
+              f"the first container's launches {first['launches']}")
+        check(Checkpointer(ckpt_dir).all_steps() == [durable],
+              f"checkpoints before the preemption: "
+              f"{Checkpointer(ckpt_dir).all_steps()}")
+        ckpt_bytes = _tree_bytes(os.path.join(ckpt_dir, str(durable)))
+        # 3. the high-priority notebook preempts ft at its durable step
+        step("preempt", lambda: api.create(notebook("hp", "high")))
+        a = ann("ft")
+        hp_pod = api.get("Pod", "hp-0", ns)
+        preempted = dict(
+            reason=a.get(nb_api.SUSPEND_REASON_ANNOTATION),
+            token=json.loads(a.get(nb_api.SUSPEND_CHECKPOINT_ANNOTATION)
+                             or "null"),
+            drained=nb_api.SUSPEND_DRAINED_ANNOTATION in a,
+            ft_pod=api.try_get("Pod", "ft-0", ns),
+            hp_node=hp_pod["spec"].get("nodeName"),
+            hp_limits=hp_pod["spec"]["containers"][0]["resources"][
+                "limits"],
+            hp_phase=hp_pod["status"].get("phase"))
+        check(preempted == dict(
+            reason="preempted", token={"step": durable}, drained=True,
+            ft_pod=None, hp_node="gpu-0",
+            hp_limits={gpu.NVIDIA_GPU_RESOURCE: "1"}, hp_phase="Running"),
+            f"the preemption: {preempted}")
+        # 4. the kubelet: ft's pod is gone, so its container is killed —
+        # SIGKILL, or fit's finally would save step `steps`
+        killed_rc = held.kill()
+        check(killed_rc == -9, f"the held container exited {killed_rc}")
+        check(Checkpointer(ckpt_dir).all_steps() == [durable],
+              "the killed container saved a checkpoint")
+        # 5. a resume while hp holds the card: ft stays parked
+        step("resume_parked", lambda: suspend.request_resume(
+            api, api.get(nb_api.KIND, "ft", ns)))
+        parked = dict(
+            ft_ready=api.get(nb_api.KIND, "ft", ns).get("status", {}).get(
+                "readyReplicas"),
+            ft_node=(api.try_get("Pod", "ft-0", ns) or {}).get(
+                "spec", {}).get("nodeName"),
+            hp_node=api.get("Pod", "hp-0", ns)["spec"].get("nodeName"))
+        check(not parked["ft_ready"] and parked["ft_node"] is None
+              and parked["hp_node"] == "gpu-0", f"while hp runs: {parked}")
+        # 6. hp suspends: ft re-binds to the card with its step restored
+        step("rebind", lambda: suspend.initiate_suspend(
+            api, api.get(nb_api.KIND, "hp", ns), reason="api"))
+        nb, pod, env = _cp_spawned(api, ns, "ft", topo)
+        a = nb["metadata"].get("annotations") or {}
+        reasons = [e["reason"] for e in api.events_for(nb)]
+        check(a.get(nb_api.RESTORED_STEP_ANNOTATION) == str(durable)
+              and "Resumed" in reasons
+              and api.get(nb_api.KIND, "hp", ns)["status"]["phase"]
+              == nb_api.SUSPENDED_PHASE
+              and api.try_get("Pod", "hp-0", ns) is None,
+              f"the resume: {a} {reasons}")
+        predicted2 = float(pod["metadata"]["annotations"][
+            gpu.PREDICTED_HBM_ANNOTATION])
+        # 7. the new pod's container resumes at `durable`: one step
+        resumed, resumed_s, _ = _cp_child(
+            env, decl, steps, device, {"MASTER_PORT": str(_free_port())},
+            {"CP_CKPT_DIR": ckpt_dir})
+        check(resumed["steps"] == [steps]
+              and resumed["losses"] == ref_losses[durable:],
+              f"the resumed container's losses {resumed['losses']} at "
+              f"steps {resumed['steps']} vs arm B's {ref_losses}")
+        check(resumed["launches"] == _pod_launches(decl, 1, device),
+              f"the resumed container's launches {resumed['launches']}")
+        errs = [peak_err(first, predicted), peak_err(resumed, predicted2)]
+        check(all(e is None or abs(e) <= CP_PEAK_RTOL for e in errs),
+              f"the containers' peaks {first['peak_gb']} and "
+              f"{resumed['peak_gb']} GB vs the predicted {predicted} GB")
+        check(Checkpointer(ckpt_dir).all_steps() == [durable, steps],
+              "the resumed container did not save its step")
+        resumed_bytes = _tree_bytes(os.path.join(ckpt_dir, str(steps)))
+        # 8. the counters
+        c1 = counters()
+        moved = {k: c1[k] - c0[k] for k in c0}
+        check(moved["preempt"] == 1 and moved["resume"] == 1
+              and moved["suspend_preempted"] == 1
+              and all(moved[f"{p}_n"] >= 1
+                      for p in ("drain", "rebind", "restore")),
+              f"the lifecycle's counters moved {moved}")
+        # 9. teardown
+        def teardown():
+            for name in ("ft", "hp"):
+                api.delete(nb_api.KIND, name, ns)
+            api.delete("Profile", ns)
+        step("teardown", teardown)
+        left = {k: len(api.list(k, ns)) for k in sorted(api._by_kind)
+                if api.list(k, ns)}
+        check(not left and api.try_get("Namespace", ns) is None
+              and sched.stats()["free_chips"] == 1.0,
+              f"arm C left after the teardown: {left}")
+    finally:
+        suspend.set_state_store(before)
+        if held is not None:
+            held.kill()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    check(not os.path.exists(ckpt_dir), f"{ckpt_dir} was not removed")
+    launches = {k: first["launches"][k] + resumed["launches"][k]
+                for k in first["launches"]}
+    return dict(steps_s=steps_s, preempted=preempted, parked=parked,
+                restored_step=a.get(nb_api.RESTORED_STEP_ANNOTATION),
+                counters=moved, checkpoint_bytes={
+                    str(durable): ckpt_bytes, str(steps): resumed_bytes},
+                checkpoint_save_s=first["checkpoint_s"]["save"]
+                + resumed["checkpoint_s"]["save"],
+                checkpoint_restore_s=resumed["checkpoint_s"]["restore"],
+                first_child=dict(first, to_hold_s=first_s),
+                resumed_child=dict(resumed, wall_s_parent=resumed_s),
+                predicted_pod_gb=[predicted, predicted2], peak_rel_err=errs,
+                killed_rc=killed_rc, launches=launches)
+
+
 def phase_controlplane(card, train_ref=None, device: str = "cuda",
                        decl=None, steps: int = CP_STEPS):
     """The control plane on the card (module docstring, phase 12): arm A
     on the raw read path, then arm B, JAX's defaults, through a
-    notebook's life with the pod's fine-tune in a child process.
+    notebook's life with the pod's fine-tune in a child process, then
+    arm C, the fine-tune preempted at its checkpoint and resumed there
+    (:func:`_cp_suspend_arm`). Returns the launches of all three
+    containers.
     ``train_ref`` (the train phase's) puts the pod's step beside the
     train phase's. ``device="cpu"`` rehearses it without a card (the
     table's own memory, gloo, a small declaration such as ``{"preset":
@@ -4877,7 +5250,6 @@ def phase_controlplane(card, train_ref=None, device: str = "cuda",
     from kubeflow_rm_tpu_torch.controlplane.webhook.notebook import (
         IMAGE_CONFIGMAP, IMAGE_CONFIGMAP_NAMESPACE, LOCK_VALUE,
     )
-    from kubeflow_rm_tpu_torch.models.llama import LlamaConfig
 
     decl = decl or CP_DECLARATION
     ns = CP_NS
@@ -5083,11 +5455,8 @@ def phase_controlplane(card, train_ref=None, device: str = "cuda",
         jupyter.close()
 
     losses, launches = result["losses"], result["launches"]
-    layers = getattr(LlamaConfig, decl["preset"])().n_layers
-    want = ({"flash_fwd": 2 * layers * steps,
-             "flash_bwd_dq": layers * steps,
-             "flash_bwd_dkv": layers * steps} if device == "cuda"
-            else dict.fromkeys(launches, 0))
+    want = _pod_launches(decl, steps, device)
+    arm_c = _cp_suspend_arm(topo, decl, steps, device, losses)
     peak_err = (None if result["peak_gb"] is None
                 else (result["peak_gb"] - predicted) / predicted)
     # the first record holds the start-up sync (as in the train phase)
@@ -5108,7 +5477,7 @@ def phase_controlplane(card, train_ref=None, device: str = "cuda",
          pod_env=env, substituted=substituted, child_s=child_s,
          pod_workload=result, pod_step_ms=step_ms, train_step_ms=train_ms,
          pod_over_train=train_ms and step_ms / train_ms,
-         predicted_pod_gb=predicted, peak_rel_err=peak_err,
+         predicted_pod_gb=predicted, peak_rel_err=peak_err, arm_c=arm_c,
          phase_s=time.perf_counter() - t_phase)
     check(result.get("poddefault") == "smoke",
           f"the child saw KFRM_PODDEFAULT={result.get('poddefault')}")
@@ -5123,7 +5492,7 @@ def phase_controlplane(card, train_ref=None, device: str = "cuda",
     check(peak_err is None or abs(peak_err) <= CP_PEAK_RTOL,
           f"the pod's peak {result['peak_gb']} GB vs its predicted "
           f"{predicted} GB")
-    return launches
+    return {k: launches[k] + arm_c["launches"][k] for k in launches}
 
 
 def main() -> int:

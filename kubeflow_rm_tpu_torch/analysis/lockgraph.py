@@ -91,6 +91,11 @@ LOCK_HIERARCHY: dict[str, int] = {
     "scheduler.nodes_map": 40,      # node-map membership
     "scheduler.node": 50,           # ranked family: sorted by node name
     "scheduler.pods_map": 60,       # pod -> entry accounting map
+    # suspend's per-notebook checkpoint guard is held across the state-
+    # store call AND its annotation CAS, so it sits below every
+    # apiserver verb lock; the registry hands out the per-key instances
+    "suspend.store_registry": 70,
+    "suspend.store": 80,            # ranked family: by "ns/name" key
     # -- the apiserver's write path --------------------------------------
     "apiserver.kind": 110,          # per-kind verb locks (DAG inside)
     "apiserver.kind_locks_map": 120,
@@ -106,10 +111,14 @@ LOCK_HIERARCHY: dict[str, int] = {
     "runtime.queue": 210,
     "runtime.child_pool": 220,
     "workqueue": 230,
+    "leases.elector": 240,
     "informer.prime": 250,
     "cache.store": 260,             # ObjectStore RLock + its condvar
     # -- transport, serving, the auditor --------------------------------
     "kubeclient.token_bucket": 310,
+    # the lease table only: every gang_bind and fleet drain runs after
+    # it is released, but it logically precedes routing into the fleet
+    "harvest.controller": 433,
     "serving.fleet": 435,
     "serving.gateway": 440,
     "serving.store": 445,
@@ -122,6 +131,9 @@ LOCK_HIERARCHY: dict[str, int] = {
     "torchcheck.hostsync": 540,
     "torchcheck.recompile": 550,
     "kernels.build": 560,
+    # -- persistence, innermost -------------------------------------------
+    "persistence.snapshot_guard": 610,
+    "wal.cv": 620,                  # group-commit condvar; leaf
     # metrics are set from under every lock above; leaves
     "metrics.family": 700,
     "metrics.series": 710,

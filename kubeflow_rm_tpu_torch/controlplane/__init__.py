@@ -12,8 +12,13 @@ the auth companion, slice health, profiles with their card quotas,
 idle culling, TensorBoard, the PVC viewer and TPUJob gangs; the fake
 kubelet that gang-binds pods onto GPU nodes
 (:mod:`.controllers.statefulset` over :mod:`.scheduler`); the in-memory
-apiserver (:mod:`.apiserver`), the controller runtime (:mod:`.runtime`,
-:mod:`.ha.workqueue`) and the shared informer cache (:mod:`.cache`).
+apiserver (:mod:`.apiserver`) with its write-ahead log and snapshots
+(:mod:`.persistence`), the controller runtime (:mod:`.runtime`,
+:mod:`.ha.workqueue`) with leader election (:mod:`.ha.leases`), the
+shared informer cache (:mod:`.cache`) and Notebook/TPUJob version
+conversion (:mod:`.api.conversion`); the suspend/resume lifecycle with
+preemption, replica failover and compaction (:mod:`.suspend`), and card
+harvesting for the serving fleet (:mod:`.harvest`).
 Beside it: the seams into the compute path (the pricer, :mod:`.obs.slo`),
 the serving gateway and fleet (:mod:`.webapps.serving`,
 :mod:`.serving_fleet`), and the standard-library :mod:`.metrics` and
@@ -27,11 +32,9 @@ another on every port: NCCL's are ephemeral). The env contract the pods
 get is JAX's, names included (``TPU_WORKER_ID``, ``MEGASCALE_*``): the
 port's launcher reads it.
 
-Not ported yet, and refused where the control plane meets them:
-suspend/resume (``enable_suspend``, ``suspend.set_oversubscribe(True)``,
-a TPUJob's whole-gang suspend), the WAL and shards
-(``APIServer(wal_dir=, shard=)``), leader election, the kube adapter
-with ``make_cluster_manager`` and the web apps (ROADMAP slices 7d-7f).
+Not ported yet: shards (``APIServer(shard=)`` refuses, ROADMAP slice
+7e-3), the kube adapter with ``make_cluster_manager`` (7e-2), ``obs/``
+beyond its seams (7f-1) and the web apps (7f-2).
 """
 
 from __future__ import annotations
@@ -53,8 +56,10 @@ def make_control_plane(clock=None, *, auto_ready: bool = True,
     baseline arm of ``spawn_conformance --no-cache``);
     ``global_lock=True`` restores the pre-r08 single-RLock apiserver
     with synchronous watch delivery (the ``--global-lock`` A/B arm);
-    ``enable_suspend=True`` raises ``NotImplementedError`` until
-    suspend/resume is ported (ROADMAP slice 7d).
+    ``enable_suspend=True`` adds the suspend/resume lifecycle
+    controller (``suspend_config`` → ``SuspendController`` kwargs, e.g.
+    ``{"suspend_idle_minutes": 30}`` to park idle slices) and the
+    replica failover controller, which shares its state store.
     """
     from kubeflow_rm_tpu_torch.controlplane.api import notebook as nb_api
     from kubeflow_rm_tpu_torch.controlplane.api import poddefault as pd_api
@@ -92,11 +97,6 @@ def make_control_plane(clock=None, *, auto_ready: bool = True,
     from kubeflow_rm_tpu_torch.controlplane.webhook.admission_pricer import (
         AdmissionPricer,
     )
-
-    if enable_suspend:
-        raise NotImplementedError(
-            "make_control_plane(enable_suspend=True): suspend/resume is "
-            "not ported yet — ROADMAP slice 7d")
 
     api = APIServer(global_lock=global_lock,
                     **({"clock": clock} if clock else {}))
@@ -142,4 +142,15 @@ def make_control_plane(clock=None, *, auto_ready: bool = True,
     manager.add(PVCViewerController())
     if enable_culling:
         manager.add(CullingController(**(culler_config or {})))
+    if enable_suspend:
+        from kubeflow_rm_tpu_torch.controlplane.suspend import (
+            ReplicaFailoverController,
+            SuspendController,
+        )
+        manager.add(SuspendController(**(suspend_config or {})))
+        # replicated kernels ride the same suspend/resume primitive:
+        # failover = demand-resume from the warm checkpoint, so the
+        # controller ships (and shares a store) with the lifecycle
+        manager.add(ReplicaFailoverController(
+            store=(suspend_config or {}).get("store")))
     return api, manager

@@ -12,10 +12,10 @@ through the same verbs they would use against a cluster.
 Cluster-scoped kinds are stored with namespace ``None``. Time is
 injected (``clock``) so culling/idleness tests are deterministic.
 
-(The port's copy of ``kubeflow_rm_tpu/controlplane/apiserver.py``. The
-store is in-memory only: ``wal_dir=`` and ``shard=`` raise
-``NotImplementedError`` until the WAL and shards are ported, ROADMAP
-slice 7e.)
+(The port's copy of ``kubeflow_rm_tpu/controlplane/apiserver.py``.
+``wal_dir=`` makes the store durable through :mod:`.persistence`;
+``shard=`` raises ``NotImplementedError`` until shards are ported,
+ROADMAP slice 7e-3.)
 """
 
 from __future__ import annotations
@@ -286,15 +286,10 @@ class APIServer:
                  wal_dir: str | None = None, wal_fsync: bool = True,
                  wal_snapshot_every: int = 4096,
                  shard: str | None = None):
-        if wal_dir:
-            raise NotImplementedError(
-                "APIServer(wal_dir=...): the WAL and snapshots "
-                "(controlplane/persistence) are not ported yet — "
-                "ROADMAP slice 7e; the port's store is in-memory only")
         if shard:
             raise NotImplementedError(
                 "APIServer(shard=...): sharded apiservers are not ported "
-                "yet — ROADMAP slice 7e")
+                "yet — ROADMAP slice 7e-3")
         self.clock = clock
         # shard identity ("" outside sharded deployments) — labels this
         # process's per-shard metric series and the /debug surfaces
@@ -369,6 +364,32 @@ class APIServer:
         # between populate and publish. Durable next to the WAL.
         self._tombstones: set[str] = set()
         self.tombstone_purged = 0
+        if wal_dir:
+            from kubeflow_rm_tpu_torch.controlplane.persistence import (
+                Persistence,
+            )
+            self._persistence = Persistence(
+                wal_dir, fsync=wal_fsync,
+                snapshot_every=wal_snapshot_every, shard=self.shard)
+            self._tombstones = self._load_tombstones()
+            rec = self._persistence.recover(CLUSTER_SCOPED_KINDS)
+            for key, obj in rec.objects.items():
+                self._by_kind.setdefault(key[0], {})[key] = obj
+            if self._tombstones:
+                self._purge_tombstoned()
+            for kind in self._by_kind:
+                self._publish(kind)
+            self._rv = rec.rv
+            self._write_seq = rec.seq
+            # the event-name sequence must also resume, or the first
+            # post-restart record_event collides with a replayed Event
+            for (_, _, name) in self._by_kind.get("Event", _EMPTY):
+                try:
+                    self._event_seq = max(
+                        self._event_seq,
+                        int(str(name).rsplit(".", 1)[1], 16))
+                except (IndexError, ValueError):
+                    pass
 
     # ---- wiring ------------------------------------------------------
     def register_admission(self, kind_pattern: str, fn: Callable) -> None:

@@ -26,9 +26,8 @@ reconciler owns:
 (The port's copy of ``kubeflow_rm_tpu/controlplane/controllers/tpujob.py``:
 the slice's vocabulary is :mod:`..api.gpu`'s — ``nvidia.com/gpu`` card
 limits, the GKE GPU node labels, ``cards_per_host``. The whole-gang
-suspend's drain ends in ``suspend.kick_pending_pods``, which raises
-``NotImplementedError`` until suspend/resume is ported, ROADMAP slice
-7d; a TPUJob without the suspend annotations never reaches it.)
+suspend's drain ends in ``suspend.kick_pending_pods``, which requeues
+every gang still waiting for cards.)
 """
 
 from __future__ import annotations

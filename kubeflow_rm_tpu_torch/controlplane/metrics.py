@@ -4,7 +4,9 @@ control plane's are ``prometheus_client`` metrics in
 machine does not have): the seams', the serving fleet's, and the spawn
 path's (apiserver watch fan-out, work queues, reconciles, the scheduler
 cache) and the rest of the control plane's (culling, profiles, TPUJobs,
-the informer cache), each under JAX's series name.
+the informer cache, suspend/resume, harvesting, the WAL and leader
+election), each under JAX's series name. :func:`registry_value` reads a
+sample back by its scraped name, as JAX's does.
 
 A metric is labelled like ``prometheus_client``'s: ``.labels(...)``
 (label values by name or in ``labelnames`` order) gives the child
@@ -55,6 +57,9 @@ class _Series:
     def lines(self, name: str, labels: dict) -> list[str]:
         return [f"{name}{_labels(labels)} {_format(self.get())}"]
 
+    def samples(self, name: str, labels: dict) -> list[tuple]:
+        return [(name, labels, self.get())]
+
 
 class _HistogramSeries:
     """Cumulative bucket counts, the sum and the count of observations."""
@@ -90,6 +95,18 @@ class _HistogramSeries:
             out.append(f"{name}_bucket{le} {_format(run)}")
         out.append(f"{name}_count{_labels(labels)} {_format(run)}")
         out.append(f"{name}_sum{_labels(labels)} {_format(total)}")
+        return out
+
+    def samples(self, name: str, labels: dict) -> list[tuple]:
+        with self._lock:
+            counts, total = list(self._counts), self._sum
+        out, run = [], 0
+        for bound, n in zip(self.bounds, counts):
+            run += n
+            out.append((f"{name}_bucket", {**labels, "le": _format(bound)},
+                        float(run)))
+        out.append((f"{name}_count", labels, float(run)))
+        out.append((f"{name}_sum", labels, total))
         return out
 
 
@@ -147,6 +164,17 @@ class _Metric:
 
     def series_name(self) -> str:
         return self.name
+
+    def samples(self) -> list[tuple]:
+        """Every sample of the family as ``(sample name, labels,
+        value)``, under the names :meth:`render_lines` writes."""
+        name = self.series_name()
+        with self._lock:
+            items = list(self._series.items())
+        out = []
+        for key, series in items:
+            out.extend(series.samples(name, dict(zip(self.labelnames, key))))
+        return out
 
     def render_lines(self) -> list[str]:
         name = self.series_name()
@@ -235,6 +263,22 @@ def render(registry: list | None = None) -> str:
 def scrape() -> bytes:
     """:func:`render` as the bytes of a ``/metrics`` response."""
     return render().encode()
+
+
+def registry_value(sample_name: str,
+                   labels: dict[str, str] | None = None) -> float:
+    """The sum of every sample named ``sample_name`` (a counter's with its
+    ``_total``, a histogram's ``_count``/``_sum``/``_bucket``) whose
+    labels include ``labels`` — JAX's ``metrics.registry_value``."""
+    total = 0.0
+    for family in REGISTRY:
+        for name, lab, value in family.samples():
+            if name != sample_name:
+                continue
+            if labels and any(lab.get(k) != v for k, v in labels.items()):
+                continue
+            total += value
+    return total
 
 
 DECLARED_HBM_DRIFT_RATIO = Gauge(
@@ -626,6 +670,114 @@ TPUJOB_PHASE_TRANSITIONS_TOTAL = Counter(
     "Running -> Succeeded/Failed, plus Suspended), by entered phase",
     ["phase"],
 )
+
+# ---- suspend/resume, preemption, failover and migration (JAX:
+# controlplane/metrics.py, the same names and labels)
+NOTEBOOK_SUSPEND_TOTAL = Counter(
+    "notebook_suspend_total",
+    "Notebooks driven to Suspended, by reason (idle | preempted | api)",
+    ["reason"],
+)
+NOTEBOOK_RESUME_TOTAL = Counter(
+    "notebook_resume_total",
+    "Suspended notebooks resumed back to Running with state restored",
+)
+NOTEBOOK_PREEMPT_TOTAL = Counter(
+    "notebook_preempt_total",
+    "Victim slices suspended by the preemptive gang-bind path so a "
+    "higher-priority slice could bind all-or-nothing",
+)
+SUSPEND_RESUME_SECONDS = Histogram(
+    "suspend_resume_phase_seconds",
+    "Suspend/resume lifecycle latency per phase: drain (suspend "
+    "decision -> slice fully scaled to zero), rebind (resume request "
+    "-> slice ready again), restore (state-store restore call)",
+    ["phase"],
+    buckets=(0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 30.0, 120.0),
+)
+NOTEBOOK_FAILOVER_TOTAL = Counter(
+    "notebook_failover_total",
+    "Active-replica deaths that promoted a warm standby via "
+    "demand-resume (NotebookOS replicated-kernel failover)",
+)
+NOTEBOOK_FAILOVER_SECONDS = Histogram(
+    "notebook_failover_seconds",
+    "Active-replica death detection to the promoted standby fully "
+    "ready (state restored, chips re-bound through gang_bind) — the "
+    "latency that must beat cold provisioning by >=10x",
+    buckets=(0.005, 0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
+             30.0),
+)
+NOTEBOOK_MIGRATION_TOTAL = Counter(
+    "notebook_migration_total",
+    "Live migrations (checkpoint -> drain -> re-bind on different "
+    "nodes) by trigger (api | fragmentation)",
+    ["trigger"],
+)
+
+# ---- harvesting: serving on idle notebook cards -------------------------
+HARVEST_GRANTS_TOTAL = Counter(
+    "harvest_grants_total",
+    "Harvest leases granted: an idle/suspended notebook's slice "
+    "checkpointed, drained, and re-bound as a serving replica gang",
+)
+HARVEST_RECLAIMS_TOTAL = Counter(
+    "harvest_reclaims_total",
+    "Harvest leases reclaimed, by trigger (resume | preempt | "
+    "idle_giveback | chaos) — resume means a notebook demanded its "
+    "chips back and outranked serving",
+    ["trigger"],
+)
+HARVEST_RECLAIM_SECONDS = Histogram(
+    "harvest_reclaim_seconds",
+    "Demand-resume reclaim latency: resume request observed to the "
+    "harvested replica drained and its lease released — must fit "
+    "inside the r15 failover SLO (notebook_failover_seconds envelope)",
+    buckets=(0.005, 0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
+             30.0),
+)
+
+# ---- durability and leader election ---------------------------------------
+WAL_FSYNC_SECONDS = Histogram(
+    "wal_fsync_seconds",
+    "Group-commit flush latency: buffered frames written + fsynced in "
+    "one batch (etcd's wal_fsync_duration_seconds analogue)",
+    ["shard"],
+    buckets=(0.0001, 0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0),
+)
+WAL_BYTES_TOTAL = Counter(
+    "wal_bytes",
+    "Bytes appended to the write-ahead log (CRC frame headers included)",
+    ["shard"],
+)
+SNAPSHOT_DURATION_SECONDS = Histogram(
+    "snapshot_duration_seconds",
+    "Compacting-snapshot write latency: cut under the write lock, "
+    "serialize, fsync, rename, drop compacted WAL segments",
+    ["shard"],
+    buckets=(0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0),
+)
+LEADER_IS_LEADER = Gauge(
+    "leader_is_leader",
+    "1 while this identity holds the controller-manager lease "
+    "(controller-runtime's leader_election_master_status)",
+    ["identity"],
+)
+
+# the shard identity this process reports under — "" outside sharded
+# deployments so single-process metrics stay label-stable
+_SHARD = ""
+
+
+def set_shard(name: str) -> None:
+    """Tag this process's per-shard metric series."""
+    global _SHARD
+    _SHARD = name
+
+
+def shard_label() -> str:
+    return _SHARD
+
 
 def swallowed(module: str, context: str = "") -> None:
     """Account for an intentionally absorbed exception. Call from inside

@@ -13,8 +13,8 @@ until nothing changes, which is exactly the level-triggered semantics
 the reference relies on for failure recovery (SURVEY.md §5).
 
 (The port's copy of ``kubeflow_rm_tpu/controlplane/runtime.py``;
-``run_forever(elector=...)`` raises until leader election is ported,
-ROADMAP slice 7e.)
+``run_forever(elector=...)`` gates reconciling on
+:class:`~.ha.leases.LeaderElector`.)
 """
 
 from __future__ import annotations
@@ -308,11 +308,6 @@ class Manager:
         import logging
         import threading
         import time as _time
-        if elector is not None:
-            raise NotImplementedError(
-                "Manager.run_forever(elector=...): leader election "
-                "(controlplane/ha/leases.py) is not ported yet — ROADMAP "
-                "slice 7e")
         stop = stop or threading.Event()
         logger = logging.getLogger("kubeflow_rm_tpu_torch.manager")
 

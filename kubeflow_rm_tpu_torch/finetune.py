@@ -149,28 +149,32 @@ def main(argv=None) -> int:
     cfg = TrainConfig(model=model_cfg, optim=OptimConfig(
         train_only="lora" if args.lora_rank else None,
         total_steps=args.steps))
-    gen = torch.Generator(device=device).manual_seed(0)
-    if params is None and bits:
-        # no checkpoint: the base is built directly in quantized form,
-        # leaf by leaf, so its full-precision copy never exists
-        params = init_params_quantized(model_cfg, gen, device, bits=bits,
-                                       mesh=mesh)
-    else:
-        if params is None:
-            params = init_params(model_cfg, gen, device, mesh=mesh)
-        if bits:
-            params = quantize_params(params, bits=bits)
-        if mesh is not None:
-            params = shard_params(params, mesh, device)
-    if args.lora_rank:
-        params = add_lora(params, args.lora_rank,
-                          generator=torch.Generator(device=device)
-                          .manual_seed(1), mesh=mesh)
-    # fit restores the latest checkpoint when there is one; otherwise it
-    # starts from these weights, the moments built on this rank's slices
+    # fit restores the latest checkpoint when there is one, weights and
+    # all: a resume draws no base (it would only be freed again before
+    # the restore); otherwise fit starts from these weights, the moments
+    # built on this rank's slices
     state = None
-    if (args.checkpoint_dir is None
-            or Checkpointer(args.checkpoint_dir).latest_step() is None):
+    resume = (args.checkpoint_dir is not None
+              and Checkpointer(args.checkpoint_dir).latest_step()
+              is not None)
+    if not resume:
+        gen = torch.Generator(device=device).manual_seed(0)
+        if params is None and bits:
+            # the base is built directly in quantized form, leaf by
+            # leaf, so its full-precision copy never exists
+            params = init_params_quantized(model_cfg, gen, device,
+                                           bits=bits, mesh=mesh)
+        else:
+            if params is None:
+                params = init_params(model_cfg, gen, device, mesh=mesh)
+            if bits:
+                params = quantize_params(params, bits=bits)
+            if mesh is not None:
+                params = shard_params(params, mesh, device)
+        if args.lora_rank:
+            params = add_lora(params, args.lora_rank,
+                              generator=torch.Generator(device=device)
+                              .manual_seed(1), mesh=mesh)
         state = init_train_state(cfg, params=params, mesh=mesh)
     del params
 

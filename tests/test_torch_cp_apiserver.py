@@ -202,11 +202,22 @@ def test_verbs_events_and_errors_match(parity, global_lock):
                                              "op": "CREATE"}
 
 
-def test_refused_arms_name_their_slice():
-    with pytest.raises(NotImplementedError, match="7e"):
-        port_apiserver.APIServer(wal_dir="/nonexistent")
-    with pytest.raises(NotImplementedError, match="7e"):
+def test_refused_arms_name_their_slice(tmp_path):
+    """Only shards (7e-3) still refuse; ``wal_dir`` (7e-1) recovers the
+    store and the resourceVersion (``test_torch_cp_wal.py`` holds it to
+    JAX's log byte for byte)."""
+    with pytest.raises(NotImplementedError, match="7e-3"):
         port_apiserver.APIServer(shard="shard-0")
+    api = port_apiserver.APIServer(wal_dir=str(tmp_path))
+    api.ensure_namespace("d")
+    rv = api._rv
+    api.close_persistence()
+    again = port_apiserver.APIServer(wal_dir=str(tmp_path))
+    try:
+        assert again.try_get("Namespace", "d") is not None
+        assert again._rv == rv
+    finally:
+        again.close_persistence()
 
 
 def test_zz_jax_switches_hold_defaults():

@@ -427,7 +427,8 @@ def test_steady_state_reconcile_issues_zero_writes(parity, pkg):
 def test_make_control_plane_wires_jax_order():
     """Defaults: validators, the admission chain and the controllers in
     JAX's order, the manager on the informer cache; culling adds the
-    culler; only suspend (7d) still refuses."""
+    culler; ``enable_suspend`` adds the suspend and failover controllers
+    after it, in JAX's order."""
     from kubeflow_rm_tpu.controlplane import make_control_plane as jmake
     from kubeflow_rm_tpu_torch.controlplane import (
         make_control_plane as pmake,
@@ -436,7 +437,8 @@ def test_make_control_plane_wires_jax_order():
     names = {}
     for pkg, make in (("jax", jmake), ("port", pmake)):
         api, mgr = make(FakeClock(), enable_culling=True,
-                        culler_config={"probe_fn": lambda nb, pod: None})
+                        culler_config={"probe_fn": lambda nb, pod: None},
+                        enable_suspend=True)
         try:
             names[pkg] = dict(
                 cache=type(mgr.api).__name__,
@@ -455,9 +457,9 @@ def test_make_control_plane_wires_jax_order():
     assert [n for k, n in names["port"]["admission"]] == [
         "NotebookWebhook", "AdmissionPricer", "AdmissionPricer",
         "PodDefaultWebhook", "GpuInjectWebhook"]
-    assert names["port"]["controllers"][-1] == "CullingController"
-    with pytest.raises(NotImplementedError, match="7d"):
-        pmake(enable_suspend=True)
+    assert names["port"]["controllers"][-3:] == [
+        "CullingController", "SuspendController",
+        "ReplicaFailoverController"]
 
 
 def test_zz_jax_switches_hold_defaults():

@@ -24,6 +24,7 @@ Events included — compared after the key map
 ``test_slicehealth.py``, ``test_culling.py`` and ``test_tpujob.py``.)
 """
 
+import importlib
 import json
 import threading
 from http.server import BaseHTTPRequestHandler, HTTPServer
@@ -32,8 +33,10 @@ import pytest
 
 from kubeflow_rm_tpu_torch.controlplane import metrics as port_metrics
 
+from tests.cp_fixtures import FakeClock
 from tests.torch_cp_parity import (
-    DEFAULT_SWITCHES, NS, jax_switch_defaults, parity, run_full,
+    DEFAULT_SWITCHES, NS, jax_switch_defaults, parity, reset_uids,
+    run_full, stop_fanout,
 )
 
 CULL = {"cull_idle_minutes": 60.0, "check_period_minutes": 1.0}
@@ -420,28 +423,46 @@ def test_tpujob_learner_pods_get_the_card_env(parity):
 
 
 def test_tpujob_suspend_branch_is_refused(parity):
-    """The whole-gang suspend ends in ``kick_pending_pods``, which waits
-    for suspend/resume (ROADMAP slice 7d)."""
-    from kubeflow_rm_tpu_torch.controlplane.api import notebook as nb_api
-    from kubeflow_rm_tpu_torch.controlplane.api import tpujob as tj_api
-    from kubeflow_rm_tpu_torch.controlplane.apiserver import APIServer
-    from kubeflow_rm_tpu_torch.controlplane.controllers.tpujob import (
-        TPUJobController,
-    )
-    from kubeflow_rm_tpu_torch.controlplane.runtime import Request
+    """The whole-gang suspend's drain branch (once refused, ROADMAP slice
+    7d) now ends in ``kick_pending_pods``: the job is stamped drained and
+    every pod still waiting for cards gets the reschedule kick, so its
+    owner retries the gang-bind — in the port as in JAX, on one
+    script."""
+    def run(pkg):
+        root = "kubeflow_rm_tpu" if pkg == "jax" else "kubeflow_rm_tpu_torch"
+        nb_api = importlib.import_module(f"{root}.controlplane.api.notebook")
+        tj_api = importlib.import_module(f"{root}.controlplane.api.tpujob")
+        srv = importlib.import_module(f"{root}.controlplane.apiserver")
+        ctl = importlib.import_module(
+            f"{root}.controlplane.controllers.tpujob")
+        rt = importlib.import_module(f"{root}.controlplane.runtime")
+        susp = importlib.import_module(f"{root}.controlplane.suspend")
+        reset_uids(parity)
+        api = srv.APIServer(FakeClock())
+        api.register_validator(tj_api.KIND, tj_api.validate)
+        try:
+            api.ensure_namespace(NS)
+            api.create(tj_api.make_tpujob("susp", NS, roles=[
+                {"name": "actors", "replicas": 1, "cpu": "1"}],
+                annotations={nb_api.SUSPEND_ANNOTATION: "now"}))
+            api.create({"apiVersion": "v1", "kind": "Pod",
+                        "metadata": {"name": "waiting", "namespace": NS},
+                        "spec": {"containers": [{"name": "c"}]}})
+            ctl.TPUJobController().reconcile(api, rt.Request(NS, "susp"))
+            job = api.get(tj_api.KIND, "susp", NS)
+            pod = api.get("Pod", "waiting", NS)
+            return (nb_api.SUSPEND_DRAINED_ANNOTATION
+                    in job["metadata"]["annotations"],
+                    str(pod["metadata"]["annotations"][
+                        susp._KICK_ANNOTATION]),
+                    [e["reason"] for e in api.events_for(job)])
+        finally:
+            stop_fanout(api)
 
-    api = APIServer()
-    api.register_validator(tj_api.KIND, tj_api.validate)
-    try:
-        api.ensure_namespace(NS)
-        api.create(tj_api.make_tpujob("susp", NS, roles=[
-            {"name": "actors", "replicas": 1, "cpu": "1"}],
-            annotations={nb_api.SUSPEND_ANNOTATION: "now"}))
-        with pytest.raises(NotImplementedError, match="7d"):
-            TPUJobController().reconcile(api, Request(NS, "susp"))
-    finally:
-        from tests.torch_cp_parity import stop_fanout
-        stop_fanout(api)
+    port, jax = run("port"), run("jax")
+    assert port == jax
+    drained, kick, reasons = port
+    assert drained and kick.startswith("2026-01-01") and "Suspended" in reasons
 
 
 SERIES = ("NOTEBOOK_CULL_TOTAL", "PROFILE_CREATE_TOTAL",

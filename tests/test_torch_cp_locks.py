@@ -20,6 +20,7 @@ from kubeflow_rm_tpu_torch.analysis import lockgraph as tlg
 
 from tests.torch_cp_parity import (
     DEFAULT_SWITCHES, NS, Side, jax_switch_defaults, parity, reset_uids,
+    stop_fanout,
 )
 
 #: every lock family the port's control plane makes (``make_lock`` /
@@ -32,6 +33,9 @@ CONTROL_PLANE_FAMILIES = (
     "apiserver.admission_pool", "apiserver.watch_channel", "chaos.plan",
     "runtime.queue", "runtime.child_pool", "workqueue", "informer.prime",
     "cache.store",
+    # suspend/resume and harvest (7d), the WAL and leases (7e-1)
+    "suspend.store_registry", "suspend.store", "harvest.controller",
+    "leases.elector", "persistence.snapshot_guard", "wal.cv",
 )
 
 
@@ -126,6 +130,100 @@ def test_control_plane_lock_order_is_clean(parity, arm):
             "scheduler.pods_map"} <= names
     if full:
         assert {"informer.prime", "cache.store"} <= names
+
+
+class _StubFleet:
+    """The harvest controller's view of a serving fleet, without models:
+    always under pressure, replicas added and removed by name."""
+    roles = None
+
+    def __init__(self):
+        self.gateways = {}
+
+    def snapshot(self):
+        return {"replicas": {"base": {"queue_depth": 9, "state": "ready",
+                                      "role": None}}}
+
+    def add_replica(self, name, gw, role=None):
+        self.gateways[name] = gw
+
+    def remove_replica(self, name, grace_s=0.0):
+        del self.gateways[name]
+
+
+def _slice_7d_7e1(S, tmp_path) -> None:
+    """Preemption, resume and failover (the suspend store guards), a
+    harvest grant and its reclaim (the lease table), a WAL-backed
+    apiserver's writes and snapshot, and election rounds."""
+    S.api.ensure_namespace(NS)
+    for i in range(2):
+        S.node(f"n{i}", "h100-80gb-2x4")
+    S.api.create(S.notebook("low", "h100-80gb-2x4", priority_class="low"))
+    S.run()
+    S.api.create(S.notebook("high", "h100-80gb-2x4",
+                            priority_class="high"))
+    S.run()
+    S.suspend.initiate_suspend(S.api, S.api.get(S.nb_api.KIND, "high", NS),
+                               reason="api")
+    S.run()
+    ctl = S.m("harvest").ChipHarvestController(
+        S.api, _StubFleet(), gateway_factory=lambda name: object(),
+        sustain=1)
+    try:
+        assert ctl.tick() == "grant"     # both are parked and drained
+        ns, name = ctl.leases()[0]["donor"].split("/")
+        S.suspend.request_resume(S.api, S.api.get(S.nb_api.KIND, name, ns))
+        assert ctl.tick() == "reclaim"
+        S.run()
+    finally:
+        ctl.close()
+    api = S.m("apiserver").APIServer(wal_dir=str(tmp_path / S.pkg))
+    api.ensure_namespace(NS)
+    api.create(S.notebook("w", None))
+    assert api.snapshot_now()
+    el = S.m("ha").LeaderElector(api, "probe", namespace=NS)
+    el._set_leader(el.try_acquire_or_renew(), api.clock())
+    assert el.is_leader
+    api.close_persistence()
+    stop_fanout(api)
+
+
+def test_suspend_harvest_wal_and_lease_lock_order_is_clean(parity, tmp_path):
+    """The six families of slices 7d and 7e-1 (the suspend store
+    registry and its ranked per-notebook guards, the harvest lease
+    table, the elector, the snapshot guard and the WAL's condvar) are
+    taken on the script above with no cycle, no rank inversion and no
+    downhill or unranked edge — in the port as in JAX."""
+    reports = {}
+    for pkg, lg in (("port", tlg), ("jax", jlg)):
+        reset_uids(parity)
+        lg.set_enabled(True)
+        lg.reset()
+        S = None
+        try:
+            S = Side(pkg, full=True, cached=True,
+                     suspend={"check_period_minutes": 1.0})
+            # the registry's lock is made at import, before the analyser
+            # was on: a fresh one (and registry) for this test
+            parity.setattr(S.suspend, "_store_locks_guard",
+                           lg.make_lock("suspend.store_registry"))
+            parity.setattr(S.suspend, "_store_locks", {})
+            _slice_7d_7e1(S, tmp_path)
+            S.api.drain_watchers()
+            reports[pkg] = lg.report()
+        finally:
+            if S is not None:
+                S.close()
+            lg.reset()
+            lg.set_enabled(False)
+    port, jax = reports["port"], reports["jax"]
+    assert tlg.check_edges(port["edges"]) == []
+    assert jhier.check_edges(jax["edges"]) == []
+    for rep in (port, jax):
+        assert rep["cycles"] == [] and rep["order_violations"] == []
+    new = {"suspend.store_registry", "suspend.store", "harvest.controller",
+           "leases.elector", "persistence.snapshot_guard", "wal.cv"}
+    assert new <= set(port["locks"]) and new <= set(jax["locks"])
 
 
 def test_zz_jax_switches_hold_defaults():

@@ -6,8 +6,13 @@ image, the oauth sidecar, the auth companion's objects, the card and
 the PodDefault's variable), the pod's fine-tune in a child process on a
 one-rank gloo world, the quota's refusal, a failed pod restarted, the
 idle notebook culled through the default probe against a standard-
-library server, a TPUJob on the freed card, and the teardown. Every gate
-of the phase holds, as on the card."""
+library server, a TPUJob on the freed card, and the teardown; then arm C
+on the suspend/resume stack with a checkpoint store over the pod's
+directory — the fine-tune checkpoints step 2 and holds in step 3, a
+high-priority notebook preempts it at step 2, its child is SIGKILLed,
+the resume re-binds it once the other is suspended, and the new child
+runs step 3 alone, its loss equal to arm B's uninterrupted step 3 bit
+for bit. Every gate of the phase holds, as on the card."""
 
 import json
 import socket
@@ -31,7 +36,7 @@ def test_controlplane_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
     monkeypatch.setenv("MASTER_PORT", str(_free_port()))
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
     launches = chip_smoke.phase_controlplane("cpu", device="cpu",
-                                             decl=TINY, steps=2)
+                                             decl=TINY, steps=3)
     assert launches == {"flash_fwd": 0, "flash_bwd_dq": 0,
                         "flash_bwd_dkv": 0}
     (line,) = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
@@ -47,6 +52,19 @@ def test_controlplane_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
     assert b["cache_hit_ratio"] > 0.9
     assert line["pod_workload"]["poddefault"] == "smoke"
     assert line["pod_workload"]["world"]["backend"] == "gloo"
+    c, losses = line["arm_c"], line["pod_workload"]["losses"]
+    assert list(c["steps_s"]) == ["profile", "spawn", "preempt",
+                                  "resume_parked", "rebind", "teardown"]
+    assert c["preempted"]["reason"] == "preempted"
+    assert c["preempted"]["token"] == {"step": 2}
+    assert c["killed_rc"] == -9 and c["restored_step"] == "2"
+    assert c["first_child"]["losses"][:2] == losses[:2]
+    assert c["resumed_child"]["steps"] == [3]
+    assert c["resumed_child"]["losses"] == losses[2:]
+    assert c["counters"]["preempt"] == 1 and c["counters"]["resume"] == 1
+    assert len(c["checkpoint_save_s"]) == 2
+    assert len(c["checkpoint_restore_s"]) == 1
+    assert c["checkpoint_bytes"]["2"] > 0 and c["checkpoint_bytes"]["3"] > 0
 
 
 def test_zz_jax_switches_hold_defaults():

@@ -76,21 +76,47 @@ def test_env_round_trip(parity, acc, slices):
 
 
 def test_refused_arms_name_their_slice():
-    """Suspend (7d) and durability, shards and leases (7e) still refuse;
-    the cache and culling (7b, 7c) are checked positively in
+    """Only shards (7e-3) still refuse. Suspend (7d) and leases (7e-1)
+    are ported: ``enable_suspend`` adds the suspend and failover
+    controllers on either cache arm, the oversubscription switch turns
+    both ways (on by default, as JAX's), and ``run_forever(elector=)``
+    starts the election loop and hooks the queues' resync onto it. The
+    cache and culling (7b, 7c) are checked positively in
     ``test_torch_cp_cache.py`` and ``test_torch_cp_controllers.py``."""
-    with pytest.raises(NotImplementedError, match="7d"):
-        make_control_plane(enable_suspend=True)  # JAX's default cache
-    with pytest.raises(NotImplementedError, match="7d"):
-        make_control_plane(cache=False, enable_suspend=True)
-    with pytest.raises(NotImplementedError, match="7d"):
+    from kubeflow_rm_tpu_torch.controlplane.apiserver import APIServer
+
+    with pytest.raises(NotImplementedError, match="7e-3"):
+        APIServer(shard="shard-0")
+    for cache in (True, False):
+        api, mgr = make_control_plane(cache=cache, enable_suspend=True)
+        stop_fanout(api)
+        assert [type(c).__name__ for c in mgr.controllers][-2:] == [
+            "SuspendController", "ReplicaFailoverController"]
+    assert suspend.oversubscribe() is True
+    try:
+        suspend.set_oversubscribe(False)
+        assert suspend.oversubscribe() is False
+    finally:
         suspend.set_oversubscribe(True)
-    suspend.set_oversubscribe(False)
-    assert suspend.oversubscribe() is False
+
+    class Elector:
+        identity, is_leader = "probe", False
+
+        def __init__(self):
+            self.on_started_leading, self.on_stopped_leading = [], []
+            self.ran = threading.Event()
+
+        def run(self, stop):
+            self.ran.set()
+
+    el, stop = Elector(), threading.Event()
+    stop.set()
     api, mgr = make_control_plane(cache=False)
     try:
-        with pytest.raises(NotImplementedError, match="7e"):
-            mgr.run_forever(stop=threading.Event(), elector=object())
+        mgr.run_forever(stop=stop, elector=el)
+        assert el.ran.wait(30)
+        assert len(el.on_started_leading) == 1
+        assert len(el.on_stopped_leading) == 1
     finally:
         stop_fanout(api)
 

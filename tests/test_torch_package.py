@@ -91,6 +91,13 @@ def test_port_files_exist():
         "controllers/notebook.py", "controllers/statefulset.py")} <= names
     assert {"kubeflow_rm_tpu_torch/controlplane/ha",
             "kubeflow_rm_tpu_torch/controlplane/controllers"} <= packages
+    # suspend/resume and harvest (7d); the WAL and snapshots, leader
+    # election and CRD conversion (7e-1)
+    assert {f"kubeflow_rm_tpu_torch/controlplane/{f}" for f in (
+        "suspend.py", "harvest.py", "persistence/__init__.py",
+        "persistence/wal.py", "persistence/snapshot.py", "ha/leases.py",
+        "api/conversion.py")} <= names
+    assert "kubeflow_rm_tpu_torch/controlplane/persistence" in packages
 
 
 def test_default_device_raises_without_cuda(monkeypatch):

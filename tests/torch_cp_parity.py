@@ -5,11 +5,11 @@ culling probe), one script of API calls run on both, the whole object
 graph dumped from each server, and the fixed TPU→GPU key map that is
 the only intended difference between them.
 
-The JAX side runs its documented ``--no-oversubscribe`` arm (the port
-has only that arm until suspend/resume is ported), and both sides write
-children serially (``runtime.set_serial_writes(True)``): the parallel
-fan-out hands out uids and resourceVersions in thread order, so only
-the serial arm is comparable byte for byte. Every switch and the uid
+Both sides run JAX's default arm, oversubscription on (idle suspension,
+preemption and active defragmentation live), and both write children
+serially (``runtime.set_serial_writes(True)``): the parallel fan-out
+hands out uids and resourceVersions in thread order, so only the serial
+arm is comparable byte for byte. Every switch and the uid
 counters are set through ``monkeypatch``-style restores, and every
 watch-fanout thread a stack started is joined before the test ends.
 """
@@ -58,18 +58,27 @@ KEY_MAP = {
 }
 
 
+#: slice types mapped one way only (JAX's → the port's) beside
+#: :data:`SLICE_MAP`: a v5e host of 4 chips, on which a ``v5litepod-1``
+#: fits as a ``h100-80gb-1`` fits on a 4-card host (the compaction case)
+EXTRA_SLICES = {"v5litepod-4": "h100-80gb-4"}
+
+
 def _value_maps() -> tuple[dict, dict]:
     """(exact string values, memory quantities by host): the slice
     types, the GKE accelerator and topology label values, and each
     host's memory quantity."""
-    values, memory = dict(SLICE_MAP), {}
-    for jname, pname in SLICE_MAP.items():
+    both = {**SLICE_MAP, **EXTRA_SLICES}
+    values, memory = dict(both), {}
+    for jname, pname in both.items():
         j, p = tpu_api.lookup(jname), gpu_api.lookup(pname)
         assert (j.chips, j.hosts) == (p.cards, p.hosts), (jname, pname)
         values[j.gke_accelerator] = p.gke_accelerator
         values.setdefault(j.topology, p.topology)
         assert values[j.topology] == p.topology
-        memory[str(j.hbm_gib_per_host)] = str(p.hbm_gib_per_host)
+        assert memory.setdefault(str(j.hbm_gib_per_host),
+                                 str(p.hbm_gib_per_host)) == str(
+                                     p.hbm_gib_per_host), jname
     return values, memory
 
 
@@ -161,13 +170,17 @@ class Side:
     ``make_control_plane(clock, cache=cached)`` — every webhook and
     controller, the pricer inert without a declared workload — and
     ``culling`` (the culler's settings) adds the culler with this
-    side's :class:`FakeJupyter` as its probe. ``cached`` puts the
-    manager on the informer cache (JAX's ``Manager(CachedAPI(api))``
-    on the spawn path)."""
+    side's :class:`FakeJupyter` as its probe; ``suspend`` (the suspend
+    controller's settings) adds the suspend/resume and failover
+    controllers (``enable_suspend=True``), each side on a fresh
+    in-memory state store unless the settings name a ``store``.
+    ``cached`` puts the manager on the informer cache (JAX's
+    ``Manager(CachedAPI(api))`` on the spawn path)."""
 
     def __init__(self, pkg: str, *, cached: bool = False,
                  global_lock: bool = False, auto_ready: bool = True,
-                 full: bool = False, culling: dict | None = None):
+                 full: bool = False, culling: dict | None = None,
+                 suspend: dict | None = None):
         self.pkg = pkg
         self.root = ("kubeflow_rm_tpu" if pkg == "jax"
                      else "kubeflow_rm_tpu_torch")
@@ -212,14 +225,20 @@ class Side:
             self.topo = gpu_api.lookup
             self.card_key = gpu_api.NVIDIA_GPU_RESOURCE
         self.nb_api, self.tj_api = nb, tj
+        self.suspend = self.m("suspend")
         if full:
+            if suspend is not None:
+                self.suspend.set_state_store(
+                    self.suspend.InMemoryStateStore())
             make = self.m("").make_control_plane
             self.api, self.mgr = make(
                 self.clock, auto_ready=auto_ready, cache=cached,
                 global_lock=global_lock,
                 enable_culling=culling is not None,
                 culler_config=culling and dict(culling,
-                                               probe_fn=self.jupyter))
+                                               probe_fn=self.jupyter),
+                enable_suspend=suspend is not None,
+                suspend_config=suspend)
             return
         self.api = APIServer(self.clock, global_lock=global_lock)
         self.api.register_validator(nb.KIND, nb.validate)
@@ -280,13 +299,18 @@ def stop_fanout(api) -> None:
 
 def isolate(monkeypatch) -> None:
     """Fresh uid counters on both sides (both servers hand out the same
-    uids for the same script), JAX's --no-oversubscribe arm, serial
-    child writes on both sides, and a fixed OAuth cookie secret (the
-    auth companion draws one from ``secrets``); every change undone at
-    teardown."""
+    uids for the same script), both sides on the oversubscribe-on arm
+    with a fresh in-memory state store each, serial child writes on
+    both sides, and a fixed OAuth cookie secret (the auth companion
+    draws one from ``secrets``); every change undone at teardown."""
     monkeypatch.setattr(jax_meta, "_uid_counter", itertools.count(1))
     monkeypatch.setattr(port_meta, "_uid_counter", itertools.count(1))
-    monkeypatch.setattr(jax_suspend, "_oversubscribe", False)
+    monkeypatch.setattr(jax_suspend, "_oversubscribe", True)
+    monkeypatch.setattr(port_suspend, "_oversubscribe", True)
+    monkeypatch.setattr(jax_suspend, "_state_store",
+                        jax_suspend.InMemoryStateStore())
+    monkeypatch.setattr(port_suspend, "_state_store",
+                        port_suspend.InMemoryStateStore())
     monkeypatch.setattr(jax_runtime, "_serial_writes", True)
     monkeypatch.setattr(port_runtime, "_serial_writes", True)
     monkeypatch.setattr(secrets, "token_urlsafe",
@@ -339,7 +363,7 @@ def jax_switch_defaults() -> dict:
 DEFAULT_SWITCHES = {
     "oversubscribe": True, "hbm_packing": False, "legacy_scan": False,
     "serial_writes": False, "chaos_plan": None, "tracing": False,
-    "port_oversubscribe": False, "port_hbm_packing": False,
+    "port_oversubscribe": True, "port_hbm_packing": False,
     "port_legacy_scan": False, "port_serial_writes": False,
 }
 
@@ -349,7 +373,7 @@ def canon(obj) -> str:
 
 
 def run_full(monkeypatch, script, *, culling=None, arms=("cached",),
-             global_lock=False):
+             global_lock=False, suspend=None, normalize=None):
     """Run ``script(S)`` on each package's full stack with the same uids:
     the port's once for each of ``arms`` (``"cached"``: the informer
     cache, JAX's default; ``"raw"``: ``cache=False``), JAX's on its
@@ -360,16 +384,22 @@ def run_full(monkeypatch, script, *, culling=None, arms=("cached",),
     deletes and re-creates a pod inside one drain needs it, since JAX's
     cache drops the re-created pod when the old one's delete reaches it
     late (C11) and the port's keeps it, so the order in which the watch
-    thread delivers would decide whether the graphs agree."""
+    thread delivers would decide whether the graphs agree. ``suspend``
+    is :class:`Side`'s; ``normalize(dump)`` (optional) rewrites what a
+    script leaves that is not deterministic (a wall-clock time in an
+    Event message) before the graphs are compared."""
     sides, outs = [], []
     try:
         for pkg, arm in [("port", a) for a in arms] + [("jax", "cached")]:
             reset_uids(monkeypatch)
             S = Side(pkg, full=True, cached=arm == "cached",
-                     culling=culling, global_lock=global_lock)
+                     culling=culling, global_lock=global_lock,
+                     suspend=suspend)
             sides.append(S)
             out = script(S)
             dump = S.dump()
+            if normalize is not None:
+                dump = normalize(dump)
             if pkg == "jax":
                 out, dump = key_map(out), key_map(dump)
             outs.append((pkg, arm, out, dump))
