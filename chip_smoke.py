@@ -82,7 +82,7 @@ prints one JSON line per phase:
 
 12. controlplane — the control plane with the card as its node (run
    after the 7B tree is dropped, so the pod has the card to itself), in
-   two arms. Arm A, the raw read path (``make_control_plane(cache=
+   four arms. Arm A, the raw read path (``make_control_plane(cache=
    False)``): ``make_gpu_node("gpu-0", "h100-80gb-1")`` (the table's
    memory equal to the card's) and a Notebook declaring the train
    phase's LoRA workload, priced ``fit``, one replica, its pod bound to
@@ -133,7 +133,31 @@ prints one JSON line per phase:
    prediction. ``notebook_preempt_total`` and ``notebook_resume_total``
    move by one; drain, rebind and restore are observed; the checkpoint's
    bytes and save/restore seconds and each child's wall time are
-   printed; the teardown leaves nothing.
+   printed; the teardown leaves nothing. Arm D, the deployed layout
+   (``deploy/``): two shards, each ``APIServer(shard=, wal_dir=)`` with
+   the cluster's admission (validators, the notebook, PodDefault and
+   card-injection webhooks) and fake kubelet behind a ``RestServer`` on
+   127.0.0.1 (:class:`CPShard`); the platform outside it as the
+   manifests' ``controller-manager`` runs it: ``make_cluster_manager``
+   over ``ShardedKubeAPIServer``, a watch per ``WATCHED_KINDS``,
+   ``run_forever`` under a ``LeaderElector`` over the router, the arm's
+   namespace on the other shard than the lease's. ``gpu-0`` registers
+   with the owning shard. Through the router: a Profile with a one-card
+   quota, then ``ft`` declaring the workload, Ready with one replica
+   and every object on the ring's owner only; read back as ``v1beta1``
+   over REST (the slice in the annotation keys, the same object after
+   conversion back); its pod over REST on ``gpu-0`` with one card and
+   the injected env; the raw pod (the StatefulSet's template as the
+   kubelet submits it) posted as an AdmissionReview to a
+   ``WebhookServer(make_admission_handler(router))``, whose JSONPatch
+   gives the env and resources the cluster stored; the pod's container
+   for one step, its loss arm B's step 1 bit for bit, 64 / 32 / 32; the
+   owning shard stopped and restarted in place from its WAL on the same
+   port while a router read retries through it (the Notebook,
+   StatefulSet and Pod back with the same uids and resourceVersions,
+   every watched kind relisted, no pod created); the notebook deleted
+   (its children collected) and the profile torn down; the servers,
+   the manager and the watches stopped and the WAL directories removed.
 13. moe    — Mixtral 8x7B at full width and 16 of its 32 layers (bf16,
    47 GB; the 7B tree is dropped first): the forward at (1, 2048) with
    one ``flash_fwd`` launch a layer and a router aux loss in [1, 8];
@@ -5211,14 +5235,413 @@ def _cp_suspend_arm(topo, decl, steps, device, ref_losses) -> dict:
                 killed_rc=killed_rc, launches=launches)
 
 
+class CPShard:
+    """One shard of arm D's cluster: ``APIServer(shard=, wal_dir=)`` with
+    the cluster's admission (the Notebook and PodDefault validators; the
+    notebook, PodDefault and card-injection webhooks) and its fake
+    kubelet (the StatefulSet and Deployment controllers, serving on a
+    thread), behind a ``RestServer`` on 127.0.0.1 that counts the
+    requests it answers. :meth:`stop` stops the facade and the kubelet
+    and closes the store; :meth:`start` then restarts the shard in
+    place: a new apiserver recovers from the same WAL directory behind a
+    facade on the same port."""
+
+    def __init__(self, name: str, wal_dir: str):
+        self.name, self.wal_dir = name, wal_dir
+        # one entry a request: a list append is atomic, so the handler
+        # threads take no lock
+        self._answered: list = []
+        self.up = False
+        self.start(0)
+
+    @property
+    def requests(self) -> int:
+        return len(self._answered)
+
+    def start(self, port: int) -> None:
+        from kubeflow_rm_tpu_torch.controlplane.api import notebook as nb_api
+        from kubeflow_rm_tpu_torch.controlplane.api import (
+            poddefault as pd_api,
+        )
+        from kubeflow_rm_tpu_torch.controlplane.apiserver import APIServer
+        from kubeflow_rm_tpu_torch.controlplane.controllers import (
+            statefulset,
+        )
+        from kubeflow_rm_tpu_torch.controlplane.deploy.restserver import (
+            RestServer,
+        )
+        from kubeflow_rm_tpu_torch.controlplane.runtime import Manager
+        from kubeflow_rm_tpu_torch.controlplane.webhook.gpu_inject import (
+            GpuInjectWebhook,
+        )
+        from kubeflow_rm_tpu_torch.controlplane.webhook.notebook import (
+            NotebookWebhook,
+        )
+        from kubeflow_rm_tpu_torch.controlplane.webhook.poddefault import (
+            PodDefaultWebhook,
+        )
+
+        shard = self
+
+        class CountingRestServer(RestServer):
+            def _handle(self, handler):
+                shard._answered.append(None)
+                super()._handle(handler)
+
+        self.api = APIServer(shard=self.name, wal_dir=self.wal_dir)
+        self.api.register_validator(nb_api.KIND, nb_api.validate)
+        self.api.register_validator(pd_api.KIND, pd_api.validate)
+        NotebookWebhook(self.api).register()
+        PodDefaultWebhook(self.api).register()
+        GpuInjectWebhook(self.api).register()
+        self.kubelet = Manager(self.api)
+        self.kubelet.add(statefulset.StatefulSetController(auto_ready=True))
+        self.kubelet.add(statefulset.DeploymentController(auto_ready=True))
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self.kubelet.run_forever, name=f"kubelet-{self.name}",
+            kwargs=dict(stop=self._stop, poll_interval_s=0.05), daemon=True)
+        self._thread.start()
+        self.rest = CountingRestServer(self.api, port=port)
+        self.port = self.rest.start()
+        self.url = self.rest.url
+        self.up = True
+
+    def stop(self) -> None:
+        if not self.up:
+            return
+        self.up = False
+        self.rest.stop()
+        self._stop.set()
+        self.kubelet._wake.set()
+        self._thread.join(60)
+        check(not self._thread.is_alive(), f"{self.name}'s kubelet lives")
+        self.api.close_persistence()
+        _stop_fanout(self.api)
+
+
+def _stop_fanout(api) -> None:
+    """Join every watch-fanout thread of ``api`` (each exits at once when
+    its idle wait is set to zero and it is woken)."""
+    for ch in list(getattr(api, "_channels", ())):
+        ch.IDLE_EXIT_S = 0.0
+        with ch._cond:
+            thread = ch._thread
+            ch._cond.notify_all()
+        if thread is not None:
+            thread.join(timeout=30)
+
+
+def _poll(fn, timeout_s: float, what: str):
+    """Bounded poll: ``fn()``'s first true value, or a failed check at
+    the deadline."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        out = fn()
+        if out:
+            return out
+        check(time.monotonic() < deadline, f"timed out: {what}")
+        time.sleep(0.02)
+
+
+def _cp_deployed_arm(topo, decl, device, ref_loss, in_process_spawn_s):
+    """Arm D: the deployed layout. The cluster is two shards
+    (:class:`CPShard`); the platform runs outside it as the manifests'
+    ``controller-manager`` does — ``make_cluster_manager`` over the shard
+    router (``ShardedKubeAPIServer``), one watch per ``WATCHED_KINDS``,
+    ``run_forever`` under a ``LeaderElector`` over the router. Every
+    write and read goes through the router unless a gate says
+    otherwise. The notebook ``ft`` spawns on the shard that owns its
+    namespace; its pod's container runs one step of the fine-tune,
+    whose loss must be ``ref_loss`` (arm B's step 1) bit for bit; the
+    owning shard restarts in place from its WAL; the notebook is deleted
+    and the profile torn down. ``in_process_spawn_s`` is arm B's spawn,
+    printed beside this one's."""
+    import base64
+    import os
+    import shutil
+    import tempfile
+    import urllib.request
+
+    from kubeflow_rm_tpu_torch.controlplane import (
+        WATCHED_KINDS, make_cluster_manager,
+    )
+    from kubeflow_rm_tpu_torch.controlplane.api import gpu
+    from kubeflow_rm_tpu_torch.controlplane.api import notebook as nb_api
+    from kubeflow_rm_tpu_torch.controlplane.api.conversion import (
+        TPU_ACCELERATOR_ANNOTATION, convert_notebook,
+    )
+    from kubeflow_rm_tpu_torch.controlplane.api.profile import make_profile
+    from kubeflow_rm_tpu_torch.controlplane.controllers.statefulset import (
+        StatefulSetController, make_gpu_node,
+    )
+    from kubeflow_rm_tpu_torch.controlplane.deploy import kubeclient
+    from kubeflow_rm_tpu_torch.controlplane.deploy.webhook_server import (
+        WebhookServer, make_admission_handler,
+    )
+    from kubeflow_rm_tpu_torch.controlplane.ha import LeaderElector
+    from kubeflow_rm_tpu_torch.controlplane.shard.ring import HashRing
+
+    names = ("shard-0", "shard-1")
+    ring = HashRing(list(names))
+    lease_shard = ring.shard_for("kubeflow")
+    # the arm's namespace on the other shard than the elector's lease, so
+    # the restart below tests the router and not the election
+    ns = next(f"deployed-{i}" for i in range(100)
+              if ring.shard_for(f"deployed-{i}") != lease_shard)
+    owner = ring.shard_for(ns)
+    print(f"controlplane: arm D's namespace {ns} on {owner}, the lease's "
+          f"namespace kubeflow on {lease_shard}", flush=True)
+    wal_root = tempfile.mkdtemp(prefix="kfrm-smoke-wal-")
+    shards, threads, webhook = {}, [], None
+    watch_stop, mgr_stop = threading.Event(), threading.Event()
+    steps_s = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        steps_s[name] = time.perf_counter() - t0
+        return out
+
+    def live(kind, name, namespace=None):
+        """A read past the router's store: the owning shard's client."""
+        client = router._clients[router.shard_of(kind, name, namespace)]
+        return client.get(kind, name, namespace)
+
+    try:
+        for name in names:
+            shards[name] = CPShard(name, f"{wal_root}/{name}")
+        # the node registers with its own cluster: the shard that will
+        # schedule the notebook's pod (Nodes are not broadcast)
+        shards[owner].api.create(make_gpu_node("gpu-0", CP_ACC))
+        router = kubeclient.ShardedKubeAPIServer(
+            {n: s.url for n, s in shards.items()})
+        mgr = make_cluster_manager(router, enable_culling=False)
+        for kind in WATCHED_KINDS:
+            threads.append(threading.Thread(
+                target=router.watch_kind, name=f"watch-{kind}",
+                args=(kind, None, watch_stop, 60), daemon=True))
+            threads[-1].start()
+        check(router.wait_for_sync(WATCHED_KINDS, timeout=120),
+              "the router's informers never synced")
+        elector = LeaderElector(router, "smoke-manager",
+                                retry_period_s=0.5)
+        threads.append(threading.Thread(
+            target=mgr.run_forever, name="controller-manager", kwargs=dict(
+                stop=mgr_stop, elector=elector, poll_interval_s=0.05),
+            daemon=True))
+        threads[-1].start()
+        _poll(lambda: elector.is_leader, 60, "the manager's election")
+
+        # 1. the profile with a one-card quota, then the notebook
+        timed("profile", lambda: (router.create(make_profile(
+            ns, CP_OWNER, quota_hard={gpu.NVIDIA_GPU_RESOURCE: "1"})),
+            _poll(lambda: router.try_get("ResourceQuota",
+                                         "kf-resource-quota", ns),
+                  60, "the profile's quota")))
+        t0 = time.perf_counter()
+        router.create(nb_api.make_notebook(
+            "ft", ns, accelerator_type=CP_ACC,
+            annotations={gpu.DECLARED_WORKLOAD_ANNOTATION: json.dumps(decl)}))
+        _poll(lambda: (router.get(nb_api.KIND, "ft", ns).get("status")
+                       or {}).get("readyReplicas") == 1, 120,
+              "ft never went Ready over the wire")
+        steps_s["spawn"] = time.perf_counter() - t0
+        placed = {}
+        for kind, name in ((nb_api.KIND, "ft"), ("StatefulSet", "ft"),
+                           ("Pod", "ft-0"), ("Service", "ft"),
+                           ("ResourceQuota", "kf-resource-quota")):
+            placed[f"{kind}/{name}"] = sorted(
+                n for n, s in shards.items()
+                if s.api.try_get(kind, name, ns) is not None)
+        placed["Profile"] = sorted(n for n, s in shards.items()
+                                   if s.api.try_get("Profile", ns))
+        check(all(v == [owner] for v in placed.values()),
+              f"the notebook's objects by shard: {placed} (owner {owner})")
+        sts = live("StatefulSet", "ft", ns)
+        check(sts["spec"]["replicas"] == 1, f"replicas {sts['spec']}")
+
+        # 2. the notebook as v1beta1 through the facade, and back
+        sess = router._clients[owner]._session
+        base = f"{shards[owner].url}/apis/kubeflow.org"
+        beta = sess.get(f"{base}/v1beta1/namespaces/{ns}/notebooks/ft").json()
+        v1 = sess.get(f"{base}/v1/namespaces/{ns}/notebooks/ft").json()
+        check(beta["apiVersion"] == "kubeflow.org/v1beta1"
+              and "tpu" not in beta["spec"]
+              and beta["metadata"]["annotations"].get(
+                  TPU_ACCELERATOR_ANNOTATION) == CP_ACC
+              and convert_notebook(beta, "v1") == v1,
+              f"the v1beta1 read: {beta['metadata'].get('annotations')}")
+
+        # 3. the pod over REST
+        pod = live("Pod", "ft-0", ns)
+        c0 = pod["spec"]["containers"][0]
+        env = {e["name"]: e.get("value") for e in c0.get("env") or []}
+        check(pod["spec"].get("nodeName") == "gpu-0"
+              and c0["resources"]["limits"].get(gpu.NVIDIA_GPU_RESOURCE)
+              == "1" and env.get("TPU_WORKER_ID") == "0"
+              and env.get("TPU_WORKER_HOSTNAMES")
+              == f"ft-0.ft-workers.{ns}.svc.cluster.local",
+              f"the pod over REST: {pod['spec'].get('nodeName')} "
+              f"{c0['resources']} {env}")
+
+        # 4. the webhook server: the raw pod (the StatefulSet's template
+        # as the kubelet submits it) in, a JSONPatch out
+        webhook = WebhookServer(make_admission_handler(router), port=0)
+        hook_port = webhook.start()
+        raw = StatefulSetController()._render_pod(sts, 0)
+        t0 = time.perf_counter()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{hook_port}/mutate-pod",
+            data=json.dumps({"apiVersion": "admission.k8s.io/v1",
+                             "kind": "AdmissionReview", "request": {
+                                 "uid": "smoke", "operation": "CREATE",
+                                 "object": raw}}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            review = json.loads(resp.read())["response"]
+        steps_s["webhook_review"] = time.perf_counter() - t0
+        ops = json.loads(base64.b64decode(review["patch"]))
+        patched = _apply_json_patch(raw, ops)
+        p0 = patched["spec"]["containers"][0]
+        check(review["allowed"] and review["uid"] == "smoke"
+              and p0.get("env") == c0.get("env")
+              and p0.get("resources") == c0.get("resources"),
+              f"the webhook's patch: {p0.get('env')} {p0.get('resources')} "
+              f"vs the stored {c0.get('env')} {c0.get('resources')}")
+
+        # 5. the pod's container: one step, arm B's step-1 loss
+        result, child_s, substituted = _cp_child(
+            env, decl, 1, device, {"MASTER_PORT": str(_free_port())})
+        check(result["losses"] == [ref_loss],
+              f"arm D's step-1 loss {result['losses']} vs arm B's "
+              f"{ref_loss}")
+        check(result["launches"] == _pod_launches(decl, 1, device),
+              f"arm D's launches {result['launches']}")
+
+        # 6. the owning shard restarts in place from its WAL
+        before = {k: live(k, n, ns)["metadata"] for k, n in (
+            (nb_api.KIND, "ft"), ("StatefulSet", "ft"), ("Pod", "ft-0"))}
+        relists, merge = [], router._merge_shard_list
+
+        def counted(shard, kind, items):
+            relists.append((shard, kind))
+            merge(shard, kind, items)
+        router._merge_shard_list = counted
+        failed = threading.Event()
+        transient = kubeclient._is_transient
+
+        def spy(e):
+            failed.set()
+            return transient(e)
+        kubeclient._is_transient = spy
+        read = {}
+        try:
+            t0 = time.perf_counter()
+            shards[owner].stop()
+            # a read through the router while the shard is down: it
+            # retries until the shard serves again
+            reader = threading.Thread(target=lambda: read.update(
+                logs=router.pod_logs(ns, "ft-0")), daemon=True)
+            reader.start()
+            check(failed.wait(60), "the router never met the outage")
+            shards[owner].start(shards[owner].port)
+            reader.join(60)
+            restart_s = time.perf_counter() - t0
+        finally:
+            kubeclient._is_transient = transient
+        check("logs" in read, "the router's read did not get through")
+        after = {k: shards[owner].api.get(k, n, ns)["metadata"]
+                 for k, n in ((nb_api.KIND, "ft"), ("StatefulSet", "ft"),
+                              ("Pod", "ft-0"))}
+        same = {k: (after[k]["uid"], after[k]["resourceVersion"])
+                == (before[k]["uid"], before[k]["resourceVersion"])
+                for k in before}
+        check(all(same.values()), f"after the restart: {before} {after}")
+        _poll(lambda: {k for s, k in relists if s == owner}
+              >= set(WATCHED_KINDS), 120,
+              f"the manager's watches relist {owner}")
+        api1 = shards[owner].api
+
+        def quiet():
+            n = len(api1.write_log)
+            time.sleep(1.0)
+            return len(api1.write_log) == n
+        _poll(quiet, 60, "the manager settles after the relist")
+        pods = [p["metadata"]["uid"] for p in api1.list("Pod", ns)]
+        created = [w for w in api1.write_log
+                   if w["verb"] == "create" and w["kind"] == "Pod"]
+        check(pods == [before["Pod"]["uid"]] and not created,
+              f"pods after the restart: {pods}, created {created}")
+        router._merge_shard_list = merge
+
+        # 7. delete the notebook through the router; tear the profile down
+        t0 = time.perf_counter()
+        router.delete(nb_api.KIND, "ft", ns)
+        _poll(lambda: not any(api1.list(k, ns) for k in (
+            "StatefulSet", "Pod", "Service")), 120,
+            "ft's children were not collected")
+        steps_s["delete"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        router.delete("Profile", ns)
+        _poll(lambda: api1.try_get("Namespace", ns) is None, 120,
+              "the profile's namespace was not removed")
+        steps_s["teardown"] = time.perf_counter() - t0
+        left = {k: len(s.api.list(k, ns)) for s in shards.values()
+                for k in sorted(s.api._by_kind) if s.api.list(k, ns)}
+        check(not left, f"arm D left after the teardown: {left}")
+        requests = {n: s.requests for n, s in shards.items()}
+    finally:
+        mgr_stop.set()
+        watch_stop.set()
+        if webhook is not None:
+            webhook.stop()
+        for s in shards.values():
+            s.stop()
+        for t in threads:
+            t.join(60)
+        shutil.rmtree(wal_root, ignore_errors=True)
+    lives = [t.name for t in threads if t.is_alive()]
+    check(not lives, f"arm D's threads still running: {lives}")
+    check(not os.path.exists(wal_root), f"{wal_root} was not removed")
+    return dict(namespace=ns, owner=owner, lease_shard=lease_shard,
+                steps_s=steps_s, spawn_s=steps_s["spawn"],
+                in_process_spawn_s=in_process_spawn_s, placed=placed,
+                pod_env=env, substituted=substituted,
+                rest_requests=requests, restart_s=restart_s,
+                recovered=same, relisted=sorted({k for s, k in relists}),
+                child=result, child_s=child_s, launches=result["launches"])
+
+
+def _apply_json_patch(doc, ops):
+    """Apply RFC 6902 ``add``/``replace``/``remove`` operations (the ones
+    the webhook server emits) to a copy of ``doc``."""
+    import copy
+
+    doc = copy.deepcopy(doc)
+    for op in ops:
+        parts = [p.replace("~1", "/").replace("~0", "~")
+                 for p in op["path"].split("/")[1:]]
+        target = doc
+        for p in parts[:-1]:
+            target = target[p]
+        if op["op"] == "remove":
+            del target[parts[-1]]
+        else:
+            target[parts[-1]] = op["value"]
+    return doc
+
+
 def phase_controlplane(card, train_ref=None, device: str = "cuda",
                        decl=None, steps: int = CP_STEPS):
     """The control plane on the card (module docstring, phase 12): arm A
     on the raw read path, then arm B, JAX's defaults, through a
     notebook's life with the pod's fine-tune in a child process, then
     arm C, the fine-tune preempted at its checkpoint and resumed there
-    (:func:`_cp_suspend_arm`). Returns the launches of all three
-    containers.
+    (:func:`_cp_suspend_arm`), then arm D, the deployed layout: two
+    sharded apiservers behind REST facades and the manager over the
+    router (:func:`_cp_deployed_arm`). Returns the launches of all four
+    arms' containers.
     ``train_ref`` (the train phase's) puts the pod's step beside the
     train phase's. ``device="cpu"`` rehearses it without a card (the
     table's own memory, gloo, a small declaration such as ``{"preset":
@@ -5457,6 +5880,7 @@ def phase_controlplane(card, train_ref=None, device: str = "cuda",
     losses, launches = result["losses"], result["launches"]
     want = _pod_launches(decl, steps, device)
     arm_c = _cp_suspend_arm(topo, decl, steps, device, losses)
+    arm_d = _cp_deployed_arm(topo, decl, device, losses[0], steps_s["spawn"])
     peak_err = (None if result["peak_gb"] is None
                 else (result["peak_gb"] - predicted) / predicted)
     # the first record holds the start-up sync (as in the train phase)
@@ -5478,7 +5902,7 @@ def phase_controlplane(card, train_ref=None, device: str = "cuda",
          pod_workload=result, pod_step_ms=step_ms, train_step_ms=train_ms,
          pod_over_train=train_ms and step_ms / train_ms,
          predicted_pod_gb=predicted, peak_rel_err=peak_err, arm_c=arm_c,
-         phase_s=time.perf_counter() - t_phase)
+         arm_d=arm_d, phase_s=time.perf_counter() - t_phase)
     check(result.get("poddefault") == "smoke",
           f"the child saw KFRM_PODDEFAULT={result.get('poddefault')}")
     check(all(math.isfinite(x) for x in losses) and len(losses) == steps,
@@ -5492,7 +5916,8 @@ def phase_controlplane(card, train_ref=None, device: str = "cuda",
     check(peak_err is None or abs(peak_err) <= CP_PEAK_RTOL,
           f"the pod's peak {result['peak_gb']} GB vs its predicted "
           f"{predicted} GB")
-    return {k: launches[k] + arm_c["launches"][k] for k in launches}
+    return {k: launches[k] + arm_c["launches"][k] + arm_d["launches"][k]
+            for k in launches}
 
 
 def main() -> int:

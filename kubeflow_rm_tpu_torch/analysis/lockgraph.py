@@ -116,6 +116,15 @@ LOCK_HIERARCHY: dict[str, int] = {
     "cache.store": 260,             # ObjectStore RLock + its condvar
     # -- transport, serving, the auditor --------------------------------
     "kubeclient.token_bucket": 310,
+    # the kube adapter's keep-alive pool, its Event name counter and the
+    # router's per-kind listed-shards map; then the REST facade's watch
+    # registry and its accepted-socket set: each is a leaf its holder
+    # takes nothing under but metrics
+    "kubeclient.conn_pool": 320,
+    "kubeclient.events_seen": 330,
+    "kubeclient.router_listed": 340,
+    "restserver.watch_registry": 350,
+    "restserver.conns": 360,
     # the lease table only: every gang_bind and fleet drain runs after
     # it is released, but it logically precedes routing into the fleet
     "harvest.controller": 433,

@@ -32,9 +32,17 @@ another on every port: NCCL's are ephemeral). The env contract the pods
 get is JAX's, names included (``TPU_WORKER_ID``, ``MEGASCALE_*``): the
 port's launcher reads it.
 
-Not ported yet: shards (``APIServer(shard=)`` refuses, ROADMAP slice
-7e-3), the kube adapter with ``make_cluster_manager`` (7e-2), ``obs/``
-beyond its seams (7f-1) and the web apps (7f-2).
+The deployed layout (:mod:`.deploy`): the kube REST facade over an
+apiserver, the kube adapter and its shard router over the hash ring
+(:mod:`.shard.ring`; ``APIServer(shard=)`` names a shard), the admission
+webhook server, the CRDs and the manifests; :func:`make_cluster_manager`
+wires the platform's controllers over the adapter, one watch per kind of
+:data:`WATCHED_KINDS`.
+
+Not ported yet: the shard worker, its supervisor and the elastic
+split/merge (ROADMAP slice 7e-3), ``obs/`` beyond its seams (7f-1), and
+the web apps with ``controlplane/__main__.py``, the entry point the
+manifests' commands name (7f-2).
 """
 
 from __future__ import annotations
@@ -154,3 +162,90 @@ def make_control_plane(clock=None, *, auto_ready: bool = True,
         manager.add(ReplicaFailoverController(
             store=(suspend_config or {}).get("store")))
     return api, manager
+
+
+def make_cluster_manager(api, *, enable_culling: bool = True,
+                         culler_config=None,
+                         enable_suspend: bool = False,
+                         suspend_config=None):
+    """Controller wiring for a REAL cluster (``deploy.kubeclient``):
+    same reconcilers as ``make_control_plane`` minus the pieces a real
+    cluster provides itself — the StatefulSet/Deployment controllers
+    (kube-controller-manager + kubelet) and the admission webhooks
+    (served over HTTPS by ``deploy.webhook_server`` instead).
+
+    Equivalent of the reference's manager processes
+    (``notebook-controller/main.go:58-148`` + odh + profile + tb +
+    pvcviewer managers, collapsed into one here).
+    """
+    from kubeflow_rm_tpu_torch.controlplane.controllers.authcompanion import (
+        AuthCompanionController,
+    )
+    from kubeflow_rm_tpu_torch.controlplane.controllers.culling import (
+        CullingController,
+    )
+    from kubeflow_rm_tpu_torch.controlplane.controllers.notebook import (
+        NotebookController,
+    )
+    from kubeflow_rm_tpu_torch.controlplane.controllers.profile import (
+        ProfileController,
+    )
+    from kubeflow_rm_tpu_torch.controlplane.controllers.pvcviewer import (
+        PVCViewerController,
+    )
+    from kubeflow_rm_tpu_torch.controlplane.controllers.slicehealth import (
+        SliceHealthController,
+    )
+    from kubeflow_rm_tpu_torch.controlplane.controllers.tensorboard import (
+        TensorboardController,
+    )
+    from kubeflow_rm_tpu_torch.controlplane.runtime import Manager
+    from kubeflow_rm_tpu_torch.controlplane.webhook.notebook import (
+        LockReleaseController,
+    )
+
+    from kubeflow_rm_tpu_torch.controlplane.cache import CachedAPI
+    from kubeflow_rm_tpu_torch.controlplane.controllers.tpujob import (
+        TPUJobController,
+    )
+    if not isinstance(api, CachedAPI):
+        # against the kube adapter this adopts the adapter's informer-
+        # fed ObjectStore (one cache, two consumers); reads stay
+        # fall-through until the watch threads sync each kind
+        api = CachedAPI(api)
+    manager = Manager(api)
+    manager.add(NotebookController())
+    manager.add(TPUJobController())
+    manager.add(LockReleaseController())
+    manager.add(AuthCompanionController())
+    manager.add(SliceHealthController())
+    manager.add(ProfileController())
+    manager.add(TensorboardController())
+    manager.add(PVCViewerController())
+    if enable_culling:
+        manager.add(CullingController(**(culler_config or {})))
+    if enable_suspend:
+        from kubeflow_rm_tpu_torch.controlplane.suspend import (
+            ReplicaFailoverController,
+            SuspendController,
+        )
+        manager.add(SuspendController(**(suspend_config or {})))
+        manager.add(ReplicaFailoverController(
+            store=(suspend_config or {}).get("store")))
+    return manager
+
+
+# kinds the cluster manager watches (one watch thread per kind)
+WATCHED_KINDS = (
+    "Notebook", "TPUJob", "Profile", "Tensorboard", "PVCViewer",
+    "StatefulSet", "Deployment", "Service", "Pod", "Event",
+    # owned satellite kinds: controller-runtime's Owns() starts an
+    # informer per owned type, which is what lets the cached client
+    # serve reconcile_child's try_get-before-create from memory —
+    # without these, every satellite read is a live GET and the
+    # 20-way spawn storm goes apiserver-bound
+    "Secret", "ServiceAccount", "ConfigMap", "RoleBinding",
+    "NetworkPolicy", "VirtualService", "Route", "ResourceQuota",
+    "Namespace", "Node", "AuthorizationPolicy",
+    "PersistentVolumeClaim", "PodDefault",
+)

@@ -14,8 +14,10 @@ injected (``clock``) so culling/idleness tests are deterministic.
 
 (The port's copy of ``kubeflow_rm_tpu/controlplane/apiserver.py``.
 ``wal_dir=`` makes the store durable through :mod:`.persistence`;
-``shard=`` raises ``NotImplementedError`` until shards are ported,
-ROADMAP slice 7e-3.)
+``shard=`` names one shard of a sharded control plane: it labels the
+shard's metric series, and the client-side router
+(``deploy.kubeclient.ShardedKubeAPIServer``) reaches it through its REST
+facade, ``deploy.restserver``.)
 """
 
 from __future__ import annotations
@@ -286,10 +288,6 @@ class APIServer:
                  wal_dir: str | None = None, wal_fsync: bool = True,
                  wal_snapshot_every: int = 4096,
                  shard: str | None = None):
-        if shard:
-            raise NotImplementedError(
-                "APIServer(shard=...): sharded apiservers are not ported "
-                "yet — ROADMAP slice 7e-3")
         self.clock = clock
         # shard identity ("" outside sharded deployments) — labels this
         # process's per-shard metric series and the /debug surfaces

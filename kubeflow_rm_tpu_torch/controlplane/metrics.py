@@ -4,9 +4,9 @@ control plane's are ``prometheus_client`` metrics in
 machine does not have): the seams', the serving fleet's, and the spawn
 path's (apiserver watch fan-out, work queues, reconciles, the scheduler
 cache) and the rest of the control plane's (culling, profiles, TPUJobs,
-the informer cache, suspend/resume, harvesting, the WAL and leader
-election), each under JAX's series name. :func:`registry_value` reads a
-sample back by its scraped name, as JAX's does.
+the informer cache, suspend/resume, harvesting, the WAL, leader
+election and the shard ring), each under JAX's series name.
+:func:`registry_value` reads a sample back by its scraped name, as JAX's does.
 
 A metric is labelled like ``prometheus_client``'s: ``.labels(...)``
 (label values by name or in ``labelnames`` order) gives the child
@@ -756,6 +756,12 @@ SNAPSHOT_DURATION_SECONDS = Histogram(
     "serialize, fsync, rename, drop compacted WAL segments",
     ["shard"],
     buckets=(0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0),
+)
+SHARD_RING_MEMBERS = Gauge(
+    "shard_ring_members",
+    "Shards on the consistent-hash ring this process routes to (router) "
+    "or participates in (shard worker)",
+    ["shard"],
 )
 LEADER_IS_LEADER = Gauge(
     "leader_is_leader",

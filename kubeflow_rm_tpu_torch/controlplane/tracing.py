@@ -32,6 +32,9 @@ _tls = threading.local()
 #: the annotation a persisted object carries its creating request's
 #: traceparent under (watch consumers resume the trace from it)
 TRACE_ANNOTATION = "tpu.kubeflow.org/trace"
+#: the HTTP header a request carries its caller's context in (W3C trace
+#: context, version 00, sampled flag 01)
+TRACE_HEADER = "traceparent"
 
 
 def new_trace_id() -> str:

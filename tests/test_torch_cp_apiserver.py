@@ -203,11 +203,12 @@ def test_verbs_events_and_errors_match(parity, global_lock):
 
 
 def test_refused_arms_name_their_slice(tmp_path):
-    """Only shards (7e-3) still refuse; ``wal_dir`` (7e-1) recovers the
-    store and the resourceVersion (``test_torch_cp_wal.py`` holds it to
-    JAX's log byte for byte)."""
-    with pytest.raises(NotImplementedError, match="7e-3"):
-        port_apiserver.APIServer(shard="shard-0")
+    """No arm refuses any more: ``shard=`` (7e-2) names the shard as
+    JAX's does (``test_torch_cp_shard.py`` routes over two), and
+    ``wal_dir`` (7e-1) recovers the store and the resourceVersion
+    (``test_torch_cp_wal.py`` holds it to JAX's log byte for byte)."""
+    sharded = port_apiserver.APIServer(shard="shard-0")
+    assert sharded.shard == jax_apiserver.APIServer(shard="shard-0").shard
     api = port_apiserver.APIServer(wal_dir=str(tmp_path))
     api.ensure_namespace("d")
     rv = api._rv

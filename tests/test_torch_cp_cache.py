@@ -5,7 +5,8 @@
   delete tombstones, the relist merge, sync gating, read-your-writes,
   no-op suppression, the conflict fast path, the fall-through), each
   parametrised over both packages. The kube adapter's cases (its watch,
-  the 410 relist) wait for ``deploy/kubeclient`` (ROADMAP slice 7e).
+  the 410 relist, the steady state over the adapter) are in
+  ``test_torch_cp_adapter.py``.
 - The spawn path's scripts and a 20-notebook spawn on each package's
   ``make_control_plane()``: the port's cached graph equals JAX's cached
   graph and the port's raw (``cache=False``) graph, Events included.

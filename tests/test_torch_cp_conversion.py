@@ -6,7 +6,7 @@ conversion of ``tests/test_tpujob.py``. Each case converts the same
 object in both packages; the port's result must equal JAX's after the
 TPU→GPU key map (the slice types: ``v5p-16`` → ``h100-80gb-2x4``; the
 keys are JAX's in both). The cases that go through ``webhook_server``,
-``restserver`` or ``crds`` wait for ``deploy/`` (ROADMAP slice 7e-2).
+``restserver`` or ``crds`` are in ``test_torch_cp_deploy.py``.
 """
 
 import importlib

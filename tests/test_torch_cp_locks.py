@@ -36,6 +36,10 @@ CONTROL_PLANE_FAMILIES = (
     # suspend/resume and harvest (7d), the WAL and leases (7e-1)
     "suspend.store_registry", "suspend.store", "harvest.controller",
     "leases.elector", "persistence.snapshot_guard", "wal.cv",
+    # the kube adapter, its router and the REST facade (7e-2)
+    "kubeclient.conn_pool", "kubeclient.events_seen",
+    "kubeclient.router_listed", "restserver.watch_registry",
+    "restserver.conns",
 )
 
 
@@ -223,6 +227,93 @@ def test_suspend_harvest_wal_and_lease_lock_order_is_clean(parity, tmp_path):
         assert rep["cycles"] == [] and rep["order_violations"] == []
     new = {"suspend.store_registry", "suspend.store", "harvest.controller",
            "leases.elector", "persistence.snapshot_guard", "wal.cv"}
+    assert new <= set(port["locks"]) and new <= set(jax["locks"])
+
+
+def _spawn_through_router(pkg) -> None:
+    """The deployed layout at its smallest: two shards (each an
+    apiserver with the cluster's admission and kubelet behind its REST
+    facade), the platform's manager over the router with three informer
+    watches, one notebook spawned to Ready and an Event recorded."""
+    import threading
+    import time
+
+    from tests.torch_cp_parity import RestCluster, cp_module
+
+    shards = {n: RestCluster(pkg, shard=n, admission=True, kubelet=True)
+              for n in ("shard-0", "shard-1")}
+    stop, threads = threading.Event(), []
+    try:
+        for c in shards.values():
+            c.api.ensure_namespace("default")  # a resume point past rv 0
+        router = cp_module(pkg, "deploy.kubeclient").ShardedKubeAPIServer(
+            {n: c.url for n, c in shards.items()})
+        mgr = cp_module(pkg, "").make_cluster_manager(
+            router, enable_culling=False)
+        kinds = ("Notebook", "StatefulSet", "Pod")
+        for kind in kinds:
+            threads.append(threading.Thread(
+                target=router.watch_kind, args=(kind, None, stop, 30),
+                daemon=True))
+            threads[-1].start()
+        assert router.wait_for_sync(kinds, timeout=30)
+        owner = shards[router.shard_of("Pod", None, NS)]
+        stc = cp_module(pkg, "controllers.statefulset")
+        make_node = stc.make_tpu_node if pkg == "jax" else stc.make_gpu_node
+        owner.api.create(make_node("n0", "v5p-8" if pkg == "jax"
+                                   else "h100-80gb-4"))
+        router.ensure_namespace(NS)
+        nb = router.create(cp_module(pkg, "api.notebook").make_notebook(
+            "nb", NS, accelerator_type="v5p-8" if pkg == "jax"
+            else "h100-80gb-4"))
+        router.record_event(nb, "Normal", "Probe", "through the router")
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            mgr.enqueue_all()
+            mgr.run_until_idle()
+            owner.kubelet.run_until_idle()
+            got = owner.api.get("Notebook", "nb", NS)
+            if (got.get("status") or {}).get("readyReplicas") == 1:
+                break
+        else:
+            raise AssertionError(f"never Ready: {got.get('status')}")
+        assert mgr.errors == []
+    finally:
+        stop.set()
+        for c in shards.values():
+            c.close()
+        for t in threads:
+            t.join(30)
+
+
+def test_deployed_layout_lock_order_is_clean():
+    """The five families of slice 7e-2 (the adapter's connection pool
+    and Event counter, the router's listed-shards map, the facade's
+    watch registry and socket set) are taken on a spawn through the
+    router with no cycle, no rank inversion and no downhill or unranked
+    edge in the port; JAX's one downhill edge is C13's."""
+    reports = {}
+    for pkg, lg in (("port", tlg), ("jax", jlg)):
+        lg.set_enabled(True)
+        lg.reset()
+        try:
+            _spawn_through_router(pkg)
+            reports[pkg] = lg.report()
+        finally:
+            lg.reset()
+            lg.set_enabled(False)
+    port, jax = reports["port"], reports["jax"]
+    assert tlg.check_edges(port["edges"]) == []
+    # JAX's router marks a kind synced in its store (260) while it holds
+    # the listed-shards map (340); the port marks it after (C13)
+    assert jhier.check_edges(jax["edges"]) == [
+        "downhill acquisition kubeclient.router_listed (level 340) -> "
+        "cache.store (level 260): violates the canonical order"]
+    for rep in (port, jax):
+        assert rep["cycles"] == [] and rep["order_violations"] == []
+    new = {"kubeclient.conn_pool", "kubeclient.events_seen",
+           "kubeclient.router_listed", "restserver.watch_registry",
+           "restserver.conns"}
     assert new <= set(port["locks"]) and new <= set(jax["locks"])
 
 

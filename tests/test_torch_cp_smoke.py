@@ -12,7 +12,14 @@ directory — the fine-tune checkpoints step 2 and holds in step 3, a
 high-priority notebook preempts it at step 2, its child is SIGKILLed,
 the resume re-binds it once the other is suspended, and the new child
 runs step 3 alone, its loss equal to arm B's uninterrupted step 3 bit
-for bit. Every gate of the phase holds, as on the card."""
+for bit; then arm D, the deployed layout on a gloo world — two sharded
+apiservers behind REST facades, the manager over the shard router under
+a leader election, the notebook spawned on the shard that owns its
+namespace, the webhook server's patch equal to what the cluster stored,
+the pod's one step equal to arm B's step 1 bit for bit, the owning
+shard restarted in place from its WAL with the same uids and
+resourceVersions and no second pod, and a teardown that leaves nothing.
+Every gate of the phase holds, as on the card."""
 
 import json
 import socket
@@ -65,6 +72,16 @@ def test_controlplane_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
     assert len(c["checkpoint_save_s"]) == 2
     assert len(c["checkpoint_restore_s"]) == 1
     assert c["checkpoint_bytes"]["2"] > 0 and c["checkpoint_bytes"]["3"] > 0
+    d = line["arm_d"]
+    assert d["owner"] != d["lease_shard"]
+    assert all(v == [d["owner"]] for v in d["placed"].values())
+    assert d["child"]["steps"] == [1] and d["child"]["losses"] == losses[:1]
+    assert d["recovered"] == {"Notebook": True, "StatefulSet": True,
+                              "Pod": True}
+    assert "Pod" in d["relisted"] and "Notebook" in d["relisted"]
+    assert all(n > 0 for n in d["rest_requests"].values())
+    assert list(d["steps_s"]) == ["profile", "spawn", "webhook_review",
+                                  "delete", "teardown"]
 
 
 def test_zz_jax_switches_hold_defaults():

@@ -76,17 +76,29 @@ def test_env_round_trip(parity, acc, slices):
 
 
 def test_refused_arms_name_their_slice():
-    """Only shards (7e-3) still refuse. Suspend (7d) and leases (7e-1)
-    are ported: ``enable_suspend`` adds the suspend and failover
+    """No arm refuses any more. ``APIServer(shard=)`` (7e-2) names its
+    shard and labels the shard's series (its WAL's, here). Suspend (7d)
+    and leases (7e-1): ``enable_suspend`` adds the suspend and failover
     controllers on either cache arm, the oversubscription switch turns
     both ways (on by default, as JAX's), and ``run_forever(elector=)``
     starts the election loop and hooks the queues' resync onto it. The
     cache and culling (7b, 7c) are checked positively in
     ``test_torch_cp_cache.py`` and ``test_torch_cp_controllers.py``."""
+    import tempfile
+
+    from kubeflow_rm_tpu_torch.controlplane import metrics
     from kubeflow_rm_tpu_torch.controlplane.apiserver import APIServer
 
-    with pytest.raises(NotImplementedError, match="7e-3"):
-        APIServer(shard="shard-0")
+    with tempfile.TemporaryDirectory() as wal_dir:
+        before = metrics.WAL_BYTES_TOTAL.get(shard="shard-0")
+        sharded = APIServer(shard="shard-0", wal_dir=wal_dir)
+        try:
+            assert sharded.shard == "shard-0"
+            sharded.ensure_namespace("s")
+            assert metrics.WAL_BYTES_TOTAL.get(shard="shard-0") > before
+        finally:
+            sharded.close_persistence()
+            stop_fanout(sharded)
     for cache in (True, False):
         api, mgr = make_control_plane(cache=cache, enable_suspend=True)
         stop_fanout(api)

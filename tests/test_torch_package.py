@@ -98,6 +98,23 @@ def test_port_files_exist():
         "persistence/wal.py", "persistence/snapshot.py", "ha/leases.py",
         "api/conversion.py")} <= names
     assert "kubeflow_rm_tpu_torch/controlplane/persistence" in packages
+    # the deployed layout (7e-2): the kube adapter and its shard router,
+    # the REST facade, the webhook server, the CRDs and the manifests
+    assert {f"kubeflow_rm_tpu_torch/controlplane/{f}" for f in (
+        "deploy/__init__.py", "deploy/kubeclient.py", "deploy/restserver.py",
+        "deploy/webhook_server.py", "deploy/crds.py", "deploy/manifests.py",
+        "shard/__init__.py", "shard/ring.py")} <= names
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_yaml_imports(path):
+    """The port writes its CRDs and manifests as JSON (which a YAML 1.2
+    reader takes): no module imports PyYAML, which the card's machine
+    need not have."""
+    for mod in _imported_modules(path):
+        assert mod.split(".")[0] not in ("yaml", "ruamel"), \
+            f"{path.name} imports {mod}"
 
 
 def test_default_device_raises_without_cuda(monkeypatch):

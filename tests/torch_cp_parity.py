@@ -16,6 +16,7 @@ watch-fanout thread a stack started is joined before the test ends.
 
 from __future__ import annotations
 
+import functools
 import importlib
 import itertools
 import json
@@ -414,3 +415,110 @@ def run_full(monkeypatch, script, *, culling=None, arms=("cached",),
     finally:
         for S in sides:
             S.close()
+
+
+# ---- the deployed layout (``deploy/``) ---------------------------------
+
+#: the manifests' module names: JAX's → the port's (the processes the
+#: port's manifests start, and the liveness probe's import)
+MODULE_MAP = {
+    "kubeflow_rm_tpu.controlplane": "kubeflow_rm_tpu_torch.controlplane",
+    "import kubeflow_rm_tpu": "import kubeflow_rm_tpu_torch",
+}
+
+
+def module_map(obj):
+    """A JAX manifest as the port renders it: :data:`MODULE_MAP` on every
+    string, then :func:`key_map`."""
+    def rename(o):
+        if isinstance(o, dict):
+            return {k: rename(v) for k, v in o.items()}
+        if isinstance(o, list):
+            return [rename(v) for v in o]
+        return MODULE_MAP.get(o, o) if isinstance(o, str) else o
+    return key_map(rename(obj))
+
+
+def drop_enums(obj):
+    """A CRD without its ``acceleratorType`` enums: each package's comes
+    from its own topology table (checked against it on its own)."""
+    if isinstance(obj, dict):
+        out = {k: drop_enums(v) for k, v in obj.items()}
+        acc = out.get("acceleratorType")
+        if isinstance(acc, dict):
+            acc.pop("enum", None)
+        return out
+    if isinstance(obj, list):
+        return [drop_enums(v) for v in obj]
+    return obj
+
+
+def cp_module(pkg: str, name: str):
+    """``pkg``'s (``"port"``/``"jax"``) ``controlplane`` module ``name``."""
+    root = "kubeflow_rm_tpu" if pkg == "jax" else "kubeflow_rm_tpu_torch"
+    return importlib.import_module(
+        f"{root}.controlplane" + (f".{name}" if name else ""))
+
+
+class RestCluster:
+    """One package's in-memory apiserver behind its REST facade
+    (``deploy.restserver.RestServer`` on 127.0.0.1): a cluster without a
+    cluster. ``admission`` registers the cluster's admission (the
+    Notebook and PodDefault validators; the notebook, PodDefault and
+    slice-injection webhooks), ``kubelet`` its fake kubelet (a Manager
+    with the StatefulSet and Deployment controllers, ``auto_ready``).
+    :meth:`restart` is a shard's restart in place: the server stops, the
+    store closes, a new apiserver recovers from the same ``wal_dir`` and
+    a new facade binds the same port. :meth:`close` stops everything."""
+
+    def __init__(self, pkg: str, *, clock=None, shard: str | None = None,
+                 wal_dir: str | None = None, admission: bool = False,
+                 kubelet: bool = False):
+        self.pkg = pkg
+        self.clock = clock
+        self.shard, self.wal_dir = shard, wal_dir
+        self.admission, self.with_kubelet = admission, kubelet
+        self.api = self.kubelet = self.rest = None
+        self._boot(0)
+
+    def _boot(self, port: int) -> None:
+        m = functools.partial(cp_module, self.pkg)
+        kw = {"clock": self.clock} if self.clock else {}
+        if self.shard:
+            kw["shard"] = self.shard
+        if self.wal_dir:
+            kw["wal_dir"] = self.wal_dir
+        self.api = m("apiserver").APIServer(**kw)
+        if self.admission:
+            for name in ("notebook", "poddefault"):
+                api_mod = m(f"api.{name}")
+                self.api.register_validator(api_mod.KIND, api_mod.validate)
+            m("webhook.notebook").NotebookWebhook(self.api).register()
+            m("webhook.poddefault").PodDefaultWebhook(self.api).register()
+            if self.pkg == "jax":
+                inject = m("webhook.tpu_inject").TpuInjectWebhook
+            else:
+                inject = m("webhook.gpu_inject").GpuInjectWebhook
+            inject(self.api).register()
+        if self.with_kubelet:
+            stc = m("controllers.statefulset")
+            self.kubelet = m("runtime").Manager(self.api)
+            self.kubelet.add(stc.StatefulSetController(auto_ready=True))
+            self.kubelet.add(stc.DeploymentController(auto_ready=True))
+        self.rest = m("deploy.restserver").RestServer(self.api, port=port)
+        self.port = self.rest.start()
+        self.url = self.rest.url
+
+    def restart(self) -> None:
+        self.rest.stop()
+        self._close_api()
+        self._boot(self.port)
+
+    def _close_api(self) -> None:
+        if self.wal_dir:
+            self.api.close_persistence()
+        stop_fanout(self.api)
+
+    def close(self) -> None:
+        self.rest.stop()
+        self._close_api()
