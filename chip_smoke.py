@@ -158,6 +158,32 @@ prints one JSON line per phase:
    every watched kind relisted, no pod created); the notebook deleted
    (its children collected) and the profile torn down; the servers,
    the manager and the watches stopped and the WAL directories removed.
+   Arm E, the shards as processes (``shard/``): ``ShardRunner(2)``
+   spawns two workers (each the apiserver on its WAL, the cluster's
+   admission and kubelet, the REST facade on a fixed port and the
+   platform's manager under its shard's lease), every one answering
+   ``/healthz``, under a watchdog that respawns a dead one in place;
+   through the router (a watch on Notebook, StatefulSet and Pod): a node
+   and a one-card Profile on the shard that owns the notebook's
+   namespace (chosen so neither the split nor the merge moves either),
+   12 filler namespaces of 3 pods, and ``ft`` declaring the workload, to
+   Ready. ``ElasticShardManager.split`` under the ``shard_split`` chaos
+   arm admits ``shard-2`` as a fresh process while a writer creates pods
+   in moving namespaces; the busiest donor is SIGKILLed between COPY
+   and TAIL and the watchdog respawns it; after the flip every pod
+   reads back through the router and lives on its ring owner only
+   (each shard read through its own client). The notebook's shard is
+   SIGKILLed: back at the same port from its WAL, the Notebook,
+   StatefulSet and Pod with their uids and resourceVersions, no second
+   pod, ``shard_deaths_total`` + 1. The pod's container runs one step
+   from the pod's env read through the router: arm B's step-1 loss bit
+   for bit, 64 / 32 / 32, the peak within ``CP_PEAK_RTOL`` of arm B's
+   prediction of the same declaration (the shards' admission has no
+   pricer). A merge retires ``shard-2`` (no death counted), the audit
+   holds again; the teardown leaves nothing; no shard pid holds a CUDA
+   context (``nvidia-smi --query-compute-apps``), and none outlives
+   ``stop()``. Start, spawn, split, respawn, merge and child seconds and
+   the ``SHARD_*`` counters are printed.
 13. moe    — Mixtral 8x7B at full width and 16 of its 32 layers (bf16,
    47 GB; the 7B tree is dropped first): the forward at (1, 2048) with
    one ``flash_fwd`` launch a layer and a router aux loss in [1, 8];
@@ -4607,6 +4633,8 @@ CP_DECLARATION = {"preset": "llama2_7b", "optim": "adamw", "batch": 2,
                   "grad_accum": 1, "remat": "dots", "seq": 2048,
                   "lora_rank": 16}
 CP_STEPS = 3
+# arm E's chaos plan: the seed of its shard_split fault
+CP_SEED = 1234
 # the pod's measured peak against its predicted-memory annotation, either
 # way: the bound the planner's anchors are held to (PLAN_RTOL)
 CP_PEAK_RTOL = PLAN_RTOL
@@ -5613,6 +5641,401 @@ def _cp_deployed_arm(topo, decl, device, ref_loss, in_process_spawn_s):
                 child=result, child_s=child_s, launches=result["launches"])
 
 
+def _cuda_holders(pids) -> dict:
+    """Which of ``pids`` hold a CUDA context. ``nvidia-smi
+    --query-compute-apps=pid`` names the processes with a context on the
+    card; where it cannot see this process (a pid namespace of its own),
+    a process's open ``/dev/nvidia<N>`` (the per-card node a context
+    opens) stands in. Either way this process, which holds one, is the
+    positive control. Returns the method, the control and the holders."""
+    import os
+
+    me = os.getpid()
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout
+        listed = {int(x) for x in out.split() if x.strip().isdigit()}
+    except (OSError, subprocess.SubprocessError):
+        listed = set()
+    if me in listed:
+        return dict(method="nvidia-smi", control=True,
+                    holders=sorted(p for p in pids if p in listed))
+
+    def opens_card(pid) -> bool:
+        try:
+            fds = os.listdir(f"/proc/{pid}/fd")
+        except OSError:
+            return False
+        for fd in fds:
+            try:
+                target = os.readlink(f"/proc/{pid}/fd/{fd}")
+            except OSError:
+                continue
+            if re.fullmatch(r"/dev/nvidia\d+", target):
+                return True
+        return False
+
+    return dict(method="/proc/<pid>/fd", control=opens_card(me),
+                holders=sorted(p for p in pids if opens_card(p)))
+
+
+def _cp_elastic_arm(decl, device, ref_loss, predicted) -> dict:
+    """Arm E: the cluster as processes. ``ShardRunner(2)`` spawns two
+    shard workers (``shard/worker.py``: each the apiserver on its WAL,
+    the cluster's admission, the fake kubelet, the REST facade on a
+    fixed port and the platform's manager under the shard's own lease),
+    supervised by a watchdog that respawns a dead one in place. Through
+    ``ShardedKubeAPIServer`` (a watch on Notebook, StatefulSet and Pod):
+    a node and a Profile of one card on the shard that owns the
+    notebook's namespace, which neither the split nor the merge moves,
+    filler load in 12 other namespaces, and the notebook ``ft``
+    declaring the workload. An ``ElasticShardManager`` split under the
+    ``shard_split`` chaos arm admits ``shard-2`` as a fresh process; a
+    donor is SIGKILLed between COPY and TAIL and respawned by the
+    watchdog; a writer thread creates pods in moving namespaces
+    throughout; after the flip every object reads back through the
+    router and lives on its ring owner only. The owner is then
+    SIGKILLed and respawned from its WAL at the same port: the same uids
+    and resourceVersions, no second pod, one death counted. The pod's
+    container runs one step (arm B's step-1 loss bit for bit, 64/32/32,
+    the peak within ``CP_PEAK_RTOL`` of ``predicted``: the shards'
+    admission chain is JAX's worker's, without the pricer, so the pod
+    carries no prediction of its own and arm B's of the same
+    declaration stands in). A merge retires ``shard-2`` (no death
+    counted) with the audit holding again; the teardown leaves nothing,
+    no shard process made a CUDA context, and none outlives
+    ``stop()``."""
+    import os
+    import shutil
+    import tempfile
+    import urllib.request
+
+    from kubeflow_rm_tpu_torch.controlplane import chaos, metrics
+    from kubeflow_rm_tpu_torch.controlplane.api import gpu
+    from kubeflow_rm_tpu_torch.controlplane.api import notebook as nb_api
+    from kubeflow_rm_tpu_torch.controlplane.api.profile import make_profile
+    from kubeflow_rm_tpu_torch.controlplane.controllers.statefulset import (
+        make_gpu_node,
+    )
+    from kubeflow_rm_tpu_torch.controlplane.deploy import kubeclient
+    from kubeflow_rm_tpu_torch.controlplane.shard.elastic import (
+        ElasticShardManager,
+    )
+    from kubeflow_rm_tpu_torch.controlplane.shard.ring import HashRing
+    from kubeflow_rm_tpu_torch.controlplane.shard.runner import ShardRunner
+
+    two = HashRing(["shard-0", "shard-1"])
+    three = two.with_member("shard-2")
+
+    def still(key):
+        return two.shard_for(key) == three.shard_for(key)
+
+    # the notebook's namespace and node on one shard that neither the
+    # split nor the merge moves (gang scheduling sees its shard's nodes)
+    ns = next(f"elastic-{i}" for i in range(200) if still(f"elastic-{i}"))
+    owner = two.shard_for(ns)
+    node = next(f"gpu-e{i}" for i in range(200)
+                if still(f"gpu-e{i}") and two.shard_for(f"gpu-e{i}") == owner)
+    fill = [f"fill-{i}" for i in range(12)]
+    moving = [f for f in fill if not still(f)]
+    check(moving, f"no filler namespace moves in the split: {fill}")
+    print(f"controlplane: arm E's namespace {ns} and node {node} on "
+          f"{owner}; filler moving to shard-2: {moving}", flush=True)
+    base = tempfile.mkdtemp(prefix="kfrm-smoke-shards-")
+    runner = ShardRunner(2, base_dir=base, wal=True, manager_workers=4)
+    seen: set[int] = set()
+    watch_stop, threads, steps_s = threading.Event(), [], {}
+    keys = ((nb_api.KIND, "ft"), ("StatefulSet", "ft"), ("Pod", "ft-0"))
+
+    def client(shard):
+        return kubeclient.KubeAPIServer(runner.urls[shard],
+                                        cache_reads=False)
+
+    def audit(objects) -> int:
+        """Every (namespace, pod) reads back through the router and lives
+        on its ring owner only, each shard read through its own client.
+        Returns the count checked."""
+        clients = {s: client(s) for s in runner.names}
+        for pns, name in objects:
+            check(router.get("Pod", name, pns) is not None,
+                  f"{pns}/{name} lost through the router")
+            own = router.shard_of("Pod", None, pns)
+            where = sorted(s for s, c in clients.items()
+                           if c.try_get("Pod", name, pns) is not None)
+            check(where == [own], f"{pns}/{name} on {where}, owner {own}")
+        return len(objects)
+
+    def lease_holder(shard):
+        lease = client(shard).try_get(
+            "Lease", f"controlplane-manager-{shard}", "kubeflow") or {}
+        return (lease.get("spec") or {}).get("holderIdentity")
+
+    def shard_metrics() -> dict:
+        out = {}
+        for shard, url in runner.urls.items():
+            with urllib.request.urlopen(url + "/metrics", timeout=30) as r:
+                text = r.read().decode()
+            out[shard] = {ln.rsplit(" ", 1)[0]: float(ln.rsplit(" ", 1)[1])
+                          for ln in text.splitlines()
+                          if ln.startswith("shard_")}
+        return out
+
+    def supervisor_metrics() -> dict:
+        fams = ("shard_deaths_total", "shard_splits_total",
+                "shard_merges_total", "shard_handoff_seconds_count",
+                "shard_handoff_objects_total", "shard_handoff_replay_lag",
+                "shard_autoscale_decisions_total")
+        return {name: metrics.registry_value(name) for name in fams}
+
+    try:
+        # 1. start: two workers, every one answering /healthz
+        t0 = time.perf_counter()
+        runner.start(timeout=120)
+        steps_s["start"] = time.perf_counter() - t0
+        seen |= set(runner.pids().values())
+        print(f"controlplane: arm E's shards up in {steps_s['start']:.3f} s "
+              f"(pids {runner.pids()})", flush=True)
+        router = kubeclient.ShardedKubeAPIServer(runner.urls,
+                                                 retry_window_s=20)
+        watched = ("Notebook", "StatefulSet", "Pod")
+        for kind in watched:
+            threads.append(threading.Thread(
+                target=router.watch_kind, name=f"arm-e-watch-{kind}",
+                args=(kind, None, watch_stop, 60), daemon=True))
+            threads[-1].start()
+        check(router.wait_for_sync(watched, timeout=60),
+              "arm E's router never synced")
+
+        # 2. the node, the profile of one card and the filler load
+        router.create(make_gpu_node(node, CP_ACC))
+        t0 = time.perf_counter()
+        router.create(make_profile(
+            ns, CP_OWNER, quota_hard={gpu.NVIDIA_GPU_RESOURCE: "1"}))
+        owner_cli = client(owner)
+        _poll(lambda: owner_cli.try_get("ResourceQuota",
+                                        "kf-resource-quota", ns),
+              60, "arm E's profile quota")
+        steps_s["profile"] = time.perf_counter() - t0
+        objects = []
+        for f in fill:
+            router.ensure_namespace(f)
+            for j in range(3):
+                router.create(_cp_pod(f"p-{j}", f))
+                objects.append((f, f"p-{j}"))
+
+        # 3. the notebook, create -> Ready
+        t0 = time.perf_counter()
+        router.create(nb_api.make_notebook(
+            "ft", ns, accelerator_type=CP_ACC,
+            annotations={gpu.DECLARED_WORKLOAD_ANNOTATION: json.dumps(decl)}))
+        _poll(lambda: (owner_cli.get(nb_api.KIND, "ft", ns).get("status")
+                       or {}).get("readyReplicas") == 1, 120,
+              "arm E's ft never went Ready")
+        steps_s["spawn"] = time.perf_counter() - t0
+        pod0 = owner_cli.get("Pod", "ft-0", ns)
+        check(pod0["spec"].get("nodeName") == node,
+              f"ft-0 on {pod0['spec'].get('nodeName')}, not {node}")
+
+        # 4. the split under the shard_split chaos arm, a writer running
+        elastic = ElasticShardManager(runner, router)
+        kill, killed = runner.kill, {}
+
+        def timed_kill(name):
+            killed.update(name=name, t=time.perf_counter(),
+                          pid=runner.pids()[name])
+            return kill(name)
+        runner.kill = timed_kill
+        written, wstop = [], threading.Event()
+        werr = []
+
+        def writer():
+            i = 0
+            try:
+                while not wstop.is_set():
+                    wns = moving[i % len(moving)]
+                    router.create(_cp_pod(f"w-{i}", wns))
+                    written.append((wns, f"w-{i}"))
+                    i += 1
+                    time.sleep(0.01)
+            except Exception as e:  # noqa: BLE001 - a gate below
+                werr.append(repr(e))
+        wt = threading.Thread(target=writer, name="arm-e-writer",
+                              daemon=True)
+        plan = chaos.FaultPlan(CP_SEED, [
+            chaos.FaultSpec("shard_split", rate=1.0, limit=1)])
+        chaos.install(plan)
+        try:
+            wt.start()
+            _poll(lambda: len(written) >= 5, 60, "the writer's first pods")
+            t0 = time.perf_counter()
+            new = elastic.split()
+            steps_s["split"] = time.perf_counter() - t0
+        finally:
+            chaos.uninstall()
+            runner.kill = kill
+            wstop.set()
+            wt.join(60)
+        check(not werr and not wt.is_alive(), f"the writer: {werr}")
+        check(new == "shard-2" and plan.counts.get("shard_split") == 1
+              and killed, f"the split: {new} {plan.counts} {killed}")
+        seen |= set(runner.pids().values())
+        victim = killed["name"]
+        _poll(lambda: runner.pids()[victim] != killed["pid"], 30,
+              "the chaos victim's respawn")
+        runner.wait_ready(60, names=[victim])
+        chaos_respawn_s = time.perf_counter() - killed["t"]
+        seen |= set(runner.pids().values())
+        split = {k: v for k, v in elastic.events[-1].items() if k != "t"}
+        check(router.shard_of("Pod", None, ns) == owner
+              and router.shard_of("Node", node, None) == owner,
+              "the split moved the notebook or its node")
+        check(any(router.shard_of("Pod", None, f) == "shard-2"
+                  for f, _ in objects), "no filler load moved")
+        objects += written
+        audited_split = audit(objects)
+        print(f"controlplane: arm E's split {steps_s['split']:.3f} s, "
+              f"{split['objects_bulk']} objects copied and "
+              f"{split['objects_tail']} replayed in "
+              f"{split['tail_passes']} tail passes, the writer's "
+              f"{len(written)} pods; chaos killed {victim}, back in "
+              f"{chaos_respawn_s:.3f} s", flush=True)
+        smi_split = (_cuda_holders(seen) if device == "cuda" else None)
+
+        # 5. SIGKILL the notebook's owner: respawned in place from its WAL
+        owner_cli = client(owner)
+        before = {k: owner_cli.get(k, n, ns)["metadata"] for k, n in keys}
+        deaths0 = metrics.SHARD_DEATHS_TOTAL.get(shard=owner)
+        url0, pid0 = runner.urls[owner], runner.pids()[owner]
+        t0 = time.perf_counter()
+        runner.kill(owner)
+        _poll(lambda: runner.pids()[owner] != pid0, 30, "the owner's respawn")
+        runner.wait_ready(60, names=[owner])
+        kill_s = time.perf_counter() - t0
+        seen |= set(runner.pids().values())
+        check(runner.urls[owner] == url0, "the owner moved port")
+        deaths = metrics.SHARD_DEATHS_TOTAL.get(shard=owner) - deaths0
+        _poll(lambda: lease_holder(owner)
+              == f"{owner}-{runner.pids()[owner]}", 60,
+              "the respawned manager's lease")
+        time.sleep(1.5)   # the new manager's first pass over its store
+        owner_cli = client(owner)
+        after = {k: owner_cli.get(k, n, ns)["metadata"] for k, n in keys}
+        same = {k: (after[k]["uid"], after[k]["resourceVersion"])
+                == (before[k]["uid"], before[k]["resourceVersion"])
+                for k in before}
+        pods = [p["metadata"]["uid"] for p in owner_cli.list("Pod", ns)]
+        check(all(same.values()), f"after the kill: {before} {after}")
+        check(pods == [pod0["metadata"]["uid"]],
+              f"pods after the kill: {pods}")
+        check(deaths == 1, f"shard_deaths_total{{shard={owner}}} +{deaths}")
+        print(f"controlplane: arm E's {owner} SIGKILLed and serving again "
+              f"in {kill_s:.3f} s", flush=True)
+
+        # 6. the pod's container, from the pod's env read through the router
+        pod = router.get("Pod", "ft-0", ns)
+        c0 = pod["spec"]["containers"][0]
+        env = {e["name"]: e.get("value") for e in c0.get("env") or []}
+        result, child_s, substituted = _cp_child(
+            env, decl, 1, device, {"MASTER_PORT": str(_free_port())})
+        check(result["losses"] == [ref_loss],
+              f"arm E's step-1 loss {result['losses']} vs arm B's "
+              f"{ref_loss}")
+        check(result["launches"] == _pod_launches(decl, 1, device),
+              f"arm E's launches {result['launches']}")
+        peak_err = (None if result["peak_gb"] is None
+                    else (result["peak_gb"] - predicted) / predicted)
+        check(peak_err is None or abs(peak_err) <= CP_PEAK_RTOL,
+              f"arm E's peak {result['peak_gb']} GB vs {predicted} GB")
+        print(f"controlplane: arm E's child {child_s:.3f} s", flush=True)
+        smi_child = (_cuda_holders(seen) if device == "cuda" else None)
+
+        # 7. merge shard-2 back: not a death; the audit holds again
+        deaths2 = metrics.SHARD_DEATHS_TOTAL.get(shard="shard-2")
+        pid2 = runner.pids()["shard-2"]
+        t0 = time.perf_counter()
+        retired = elastic.merge()
+        steps_s["merge"] = time.perf_counter() - t0
+        merge = {k: v for k, v in elastic.events[-1].items() if k != "t"}
+        check(retired == "shard-2" and runner.names == ["shard-0", "shard-1"]
+              and router.ring.members == ["shard-0", "shard-1"],
+              f"the merge: {retired} {runner.names}")
+        time.sleep(0.5)   # watchdog ticks: the exit is not a death
+        check(metrics.SHARD_DEATHS_TOTAL.get(shard="shard-2") == deaths2,
+              "the merge's exit counted as a death")
+        check(not _pid_alive(pid2), f"shard-2 (pid {pid2}) outlived the "
+                                    "merge")
+        audited_merge = audit(objects)
+        print(f"controlplane: arm E's merge {steps_s['merge']:.3f} s, "
+              f"{merge['objects_bulk']} objects handed back", flush=True)
+        counters = dict(shards=shard_metrics(),
+                        supervisor=supervisor_metrics())
+        print(f"controlplane: arm E's SHARD_* {json.dumps(counters)}",
+              flush=True)
+
+        # 8. teardown through the router
+        t0 = time.perf_counter()
+        router.delete(nb_api.KIND, "ft", ns)
+        owner_cli = client(owner)
+        _poll(lambda: not any(owner_cli.list(k, ns) for k in (
+            "StatefulSet", "Pod", "Service")), 120,
+            "arm E's children were not collected")
+        router.delete("Profile", ns)
+        _poll(lambda: owner_cli.try_get("Namespace", ns) is None, 120,
+              "arm E's namespace was not removed")
+        steps_s["teardown"] = time.perf_counter() - t0
+        left = {}
+        for shard in runner.names:
+            cli = client(shard)
+            for kind, (_, _, namespaced) in kubeclient.RESOURCES.items():
+                if namespaced and cli.list(kind, ns):
+                    left[f"{shard}/{kind}"] = len(cli.list(kind, ns))
+        check(not left, f"arm E left after the teardown: {left}")
+    finally:
+        watch_stop.set()
+        seen |= set(runner.pids().values())
+        runner.stop()
+        for t in threads:
+            t.join(60)
+        shutil.rmtree(base, ignore_errors=True)
+    alive = sorted(p for p in seen if _pid_alive(p))
+    check(not alive, f"shard processes outlived stop(): {alive}")
+    lives = [t.name for t in threads if t.is_alive()]
+    check(not lives, f"arm E's threads still running: {lives}")
+    for when, smi in (("split", smi_split), ("child", smi_child)):
+        check(smi is None or (smi["control"] and not smi["holders"]),
+              f"CUDA contexts after the {when}: {smi}")
+    check(not os.path.exists(base), f"{base} was not removed")
+    return dict(namespace=ns, owner=owner, node=node, moving=moving,
+                steps_s=steps_s, start_s=steps_s["start"],
+                spawn_s=steps_s["spawn"], split=split,
+                chaos_victim=victim, chaos_respawn_s=chaos_respawn_s,
+                written=len(written), audited=[audited_split, audited_merge],
+                kill_s=kill_s, recovered=same, deaths=deaths, merge=merge,
+                child=result, child_s=child_s, peak_rel_err=peak_err,
+                cuda_gate=dict(split=smi_split, child=smi_child),
+                pids=sorted(seen), counters=counters,
+                launches=result["launches"])
+
+
+def _pid_alive(pid: int) -> bool:
+    import os
+
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+def _cp_pod(name, ns) -> dict:
+    """A bare pod of the filler load."""
+    return {"apiVersion": "v1", "kind": "Pod",
+            "metadata": {"name": name, "namespace": ns},
+            "spec": {"containers": [{"name": "c", "image": "img"}]}}
+
+
 def _apply_json_patch(doc, ops):
     """Apply RFC 6902 ``add``/``replace``/``remove`` operations (the ones
     the webhook server emits) to a copy of ``doc``."""
@@ -5640,7 +6063,9 @@ def phase_controlplane(card, train_ref=None, device: str = "cuda",
     arm C, the fine-tune preempted at its checkpoint and resumed there
     (:func:`_cp_suspend_arm`), then arm D, the deployed layout: two
     sharded apiservers behind REST facades and the manager over the
-    router (:func:`_cp_deployed_arm`). Returns the launches of all four
+    router (:func:`_cp_deployed_arm`), then arm E, the shards as
+    processes under a supervisor, split and merged live around the
+    notebook (:func:`_cp_elastic_arm`). Returns the launches of all five
     arms' containers.
     ``train_ref`` (the train phase's) puts the pod's step beside the
     train phase's. ``device="cpu"`` rehearses it without a card (the
@@ -5881,6 +6306,7 @@ def phase_controlplane(card, train_ref=None, device: str = "cuda",
     want = _pod_launches(decl, steps, device)
     arm_c = _cp_suspend_arm(topo, decl, steps, device, losses)
     arm_d = _cp_deployed_arm(topo, decl, device, losses[0], steps_s["spawn"])
+    arm_e = _cp_elastic_arm(decl, device, losses[0], predicted)
     peak_err = (None if result["peak_gb"] is None
                 else (result["peak_gb"] - predicted) / predicted)
     # the first record holds the start-up sync (as in the train phase)
@@ -5902,7 +6328,7 @@ def phase_controlplane(card, train_ref=None, device: str = "cuda",
          pod_workload=result, pod_step_ms=step_ms, train_step_ms=train_ms,
          pod_over_train=train_ms and step_ms / train_ms,
          predicted_pod_gb=predicted, peak_rel_err=peak_err, arm_c=arm_c,
-         arm_d=arm_d, phase_s=time.perf_counter() - t_phase)
+         arm_d=arm_d, arm_e=arm_e, phase_s=time.perf_counter() - t_phase)
     check(result.get("poddefault") == "smoke",
           f"the child saw KFRM_PODDEFAULT={result.get('poddefault')}")
     check(all(math.isfinite(x) for x in losses) and len(losses) == steps,
@@ -5917,7 +6343,7 @@ def phase_controlplane(card, train_ref=None, device: str = "cuda",
           f"the pod's peak {result['peak_gb']} GB vs its predicted "
           f"{predicted} GB")
     return {k: launches[k] + arm_c["launches"][k] + arm_d["launches"][k]
-            for k in launches}
+            + arm_e["launches"][k] for k in launches}
 
 
 def main() -> int:

@@ -17,6 +17,13 @@ CPU tensor the op runs their plain PyTorch versions instead. Entry
 points: ``serve`` (the WSGI server) and ``finetune`` (the trainer).
 """
 
-from kubeflow_rm_tpu_torch.device import default_device
-
 __all__ = ["default_device"]
+
+
+def __getattr__(name):
+    # resolved on first use, so a process that imports only host code of
+    # the port (a control-plane shard worker) does not import torch
+    if name == "default_device":
+        from kubeflow_rm_tpu_torch.device import default_device
+        return default_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

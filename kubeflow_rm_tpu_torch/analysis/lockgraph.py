@@ -114,6 +114,10 @@ LOCK_HIERARCHY: dict[str, int] = {
     "leases.elector": 240,
     "informer.prime": 250,
     "cache.store": 260,             # ObjectStore RLock + its condvar
+    # held across an ENTIRE split/merge handoff, which routes into the
+    # runner's watchdog (370), the kube client's transport (310+) and
+    # the router, so it sits below the whole transport tier
+    "shard.elastic": 280,
     # -- transport, serving, the auditor --------------------------------
     "kubeclient.token_bucket": 310,
     # the kube adapter's keep-alive pool, its Event name counter and the
@@ -125,6 +129,9 @@ LOCK_HIERARCHY: dict[str, int] = {
     "kubeclient.router_listed": 340,
     "restserver.watch_registry": 350,
     "restserver.conns": 360,
+    # the shard supervisor's membership map: spawn and retire under it,
+    # never a call out
+    "shard.watchdog": 370,
     # the lease table only: every gang_bind and fleet drain runs after
     # it is released, but it logically precedes routing into the fleet
     "harvest.controller": 433,

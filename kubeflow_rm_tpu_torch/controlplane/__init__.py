@@ -37,11 +37,13 @@ apiserver, the kube adapter and its shard router over the hash ring
 (:mod:`.shard.ring`; ``APIServer(shard=)`` names a shard), the admission
 webhook server, the CRDs and the manifests; :func:`make_cluster_manager`
 wires the platform's controllers over the adapter, one watch per kind of
-:data:`WATCHED_KINDS`.
+:data:`WATCHED_KINDS`. The shard processes (:mod:`.shard`): one worker
+process a shard (:mod:`.shard.worker`) under a supervisor that respawns a
+killed shard in place from its WAL (:mod:`.shard.runner`), and the live
+split/merge with its autoscaler (:mod:`.shard.elastic`).
 
-Not ported yet: the shard worker, its supervisor and the elastic
-split/merge (ROADMAP slice 7e-3), ``obs/`` beyond its seams (7f-1), and
-the web apps with ``controlplane/__main__.py``, the entry point the
+Not ported yet: ``obs/`` beyond its seams (ROADMAP slice 7f-1), and the
+web apps with ``controlplane/__main__.py``, the entry point the
 manifests' commands name (7f-2).
 """
 

@@ -34,6 +34,21 @@ def new_uid() -> str:
     return f"uid-{next(_uid_counter):08d}"
 
 
+def reserve_uids(uids) -> None:
+    """Move this process's uid counter past every ``uid-N`` of ``uids``.
+    A shard's worker calls it on the store it recovered, before anything
+    mints: a fresh process counts from 1 and would hand out uids its
+    store already holds (C16). Not safe against concurrent minting."""
+    global _uid_counter
+    top = 0
+    for uid in uids:
+        head, _, num = str(uid or "").partition("-")
+        if head == "uid" and num.isdigit():
+            top = max(top, int(num))
+    nxt = next(_uid_counter)
+    _uid_counter = itertools.count(max(nxt, top + 1))
+
+
 def make_object(api_version: str, kind: str, name: str,
                 namespace: str | None = None, *,
                 labels: dict | None = None,

@@ -1023,6 +1023,7 @@ class ShardedKubeAPIServer:
         self.ring = HashRing(list(self.shard_urls))
         self.retry_window_s = retry_window_s
         self.identity = identity
+        self._qps, self._burst = qps, burst
         self.clock = clock or (
             lambda: datetime.datetime.now(datetime.timezone.utc))
         # per-shard clients: caches OFF — the router owns the one
@@ -1034,6 +1035,14 @@ class ShardedKubeAPIServer:
             for name, url in self.shard_urls.items()}
         self.limiter = None
         self._cache_reads = True
+        # elastic handoff: predicate over partition keys whose writes
+        # are held during the fence-drain-flip window, and the active
+        # watch subscriptions (so a topology change can extend them to
+        # an added shard)
+        self._fence_pred: Callable[[str], bool] | None = None
+        self._fence_clear = threading.Event()
+        self._fence_clear.set()
+        self._watch_specs: list[tuple] = []
         self.cache = ObjectStore(cluster_scoped={
             k for k, (_, _, namespaced) in RESOURCES.items()
             if not namespaced})
@@ -1062,6 +1071,74 @@ class ShardedKubeAPIServer:
         return self.ring.shard_for(
             self._partition_key(kind, name, namespace))
 
+    # ---- elastic topology (split / merge / pinned migration) ---------
+    def fence(self, predicate: Callable[[str], bool]) -> None:
+        """Hold writes whose partition key satisfies ``predicate`` (the
+        handoff coordinator passes "ownership changes between the old
+        and new ring" — a predicate, not a key list, so a namespace
+        CREATED during the fence window is held too). The coordinator
+        fences the moving range, drains the donor's last WAL tail into
+        the recipient, flips the ring, then unfences — an in-flight
+        client write lands EITHER before the drain (donor WAL, carried
+        by the drain) or after the flip (recipient), never in between.
+        Fenced callers wait inside their normal retry window; reads
+        served from the merged informer cache are unaffected."""
+        self._fence_clear.clear()
+        self._fence_pred = predicate
+
+    def unfence(self) -> None:
+        self._fence_pred = None
+        self._fence_clear.set()
+
+    def set_topology(self, shard_urls: dict[str, str], *,
+                     pins: dict[str, str] | None = None) -> None:
+        """Atomically adopt a new shard set (and pin map): rebuild the
+        ring, keep surviving shards' clients (their pooled sockets and
+        per-shard rv bookkeeping stay valid — ports never change),
+        build clients for added shards, drop retired ones, and extend
+        every active watch subscription to the added shards. Callers
+        (the elastic coordinator) flip only AFTER the moving range is
+        copied + drained, so routing and data never disagree."""
+        from kubeflow_rm_tpu_torch.controlplane import metrics
+        from kubeflow_rm_tpu_torch.controlplane.shard.ring import HashRing
+        new_urls = dict(shard_urls)
+        if not new_urls:
+            raise Invalid("set_topology needs >= 1 shard url")
+        new_ring = HashRing(list(new_urls), pins=pins)
+        added = [n for n in new_urls if n not in self._clients]
+        removed = [n for n in self._clients if n not in new_urls]
+        clients = dict(self._clients)
+        for name in removed:
+            clients.pop(name)
+        for name in added:
+            clients[name] = KubeAPIServer(
+                new_urls[name], identity=self.identity, qps=self._qps,
+                burst=self._burst, cache_reads=False)
+        # one assignment each: every in-flight ``_routed`` attempt
+        # resolves against either the old or the new topology — both
+        # route correctly for unmoved keys, and moved keys are fenced
+        self.shard_urls = new_urls
+        self.ring = new_ring
+        self._clients = clients
+        with self._listed_lock:
+            for listed in self._listed.values():
+                for name in removed:
+                    listed.discard(name)
+        # a retired shard's _watch_shard loops notice their name left
+        # ``_clients`` and exit; added shards need fresh loops for
+        # every live subscription
+        for kind, namespace, stop, timeout_s in list(self._watch_specs):
+            if stop.is_set():
+                continue
+            for shard in added:
+                threading.Thread(
+                    target=self._watch_shard, daemon=True,
+                    name=f"router-watch-{kind}-{shard}",
+                    args=(shard, kind, namespace, stop,
+                          timeout_s)).start()
+        metrics.SHARD_RING_MEMBERS.labels(
+            shard=metrics.shard_label()).set(len(self.ring))
+
     def _routed(self, kind: str, name: str | None,
                 namespace: str | None, fn: Callable, *,
                 lost_reply: dict | None = None):
@@ -1080,6 +1157,13 @@ class ShardedKubeAPIServer:
         delay = 0.1
         retried = False
         while True:
+            pred = self._fence_pred
+            if pred is not None and pred(
+                    self._partition_key(kind, name, namespace)):
+                # handoff fence: this key's range is mid-flip; wait it
+                # out (the coordinator unfences within its drain
+                # budget) and then resolve against the NEW ring
+                self._fence_clear.wait(self.retry_window_s)
             client = self._client_for(kind, name, namespace)
             try:
                 return fn(client)
@@ -1293,6 +1377,7 @@ class ShardedKubeAPIServer:
         """Merged subscription: one list+stream loop per shard, all
         feeding the router store + watchers. Blocks until ``stop``."""
         stop = stop or threading.Event()
+        self._watch_specs.append((kind, namespace, stop, timeout_s))
         threads = [
             threading.Thread(
                 target=self._watch_shard, daemon=True,
@@ -1309,8 +1394,10 @@ class ShardedKubeAPIServer:
                      timeout_s: int) -> None:
         fan = self._shard_fan(shard)
         rv: str | None = None
-        client = self._clients[shard]
         while not stop.is_set():
+            client = self._clients.get(shard)
+            if client is None:
+                return  # shard retired by a merge: subscription over
             try:
                 if rv is None:
                     items, rv = client._list_raw(kind, namespace)
@@ -1364,13 +1451,19 @@ class ShardedKubeAPIServer:
         def fan(etype: str, obj: dict) -> None:
             from kubeflow_rm_tpu_torch.controlplane import metrics
             kind_f = obj.get("kind")
+            if shard not in self._clients:
+                return  # retired by a merge: its tail of events is void
             if kind_f and kind_f not in BROADCAST_KINDS and \
                     self.shard_of(kind_f, name_of(obj),
                                   namespace_of(obj)) != shard:
                 # ownership filter: a shard may hold objects the ring
                 # puts elsewhere (a Node registered with its own
-                # cluster); an event about a key from a shard that does
-                # not own it must not touch the merged cache
+                # cluster), and after an elastic flip the donor still
+                # holds (and may relist, update or delete) stale copies
+                # of moved objects — an event about a key from a shard
+                # that does not own it must not touch the merged cache,
+                # or a moved object could be resurrected or deleted out
+                # from under its new owner
                 return
             self.cache.apply(etype, obj)
             kind = obj.get("kind")

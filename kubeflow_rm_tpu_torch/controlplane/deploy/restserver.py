@@ -23,10 +23,10 @@ nothing to model a cluster with no webhooks.
 
 (The port's copy of ``kubeflow_rm_tpu/controlplane/deploy/restserver.py``.
 Multi-version kinds convert through the port's :mod:`..api.conversion`.
-A resume at rv 0 replays the backlog (C12). The ``/debug/*`` endpoints
-come with their callers: the elastic handoff's ``snapshot``,
-``rv_floor`` and ``tombstone`` with ``shard/elastic.py`` (ROADMAP slice
-7e-3), ``traces`` and ``writelog`` with ``obs/`` (7f-1).)
+A resume at rv 0 replays the backlog (C12). Of the ``/debug/*``
+endpoints it serves the elastic handoff's ``snapshot``, ``rv_floor`` and
+``tombstone`` (``shard/elastic.py``); ``traces`` and ``writelog`` come
+with their callers in ``obs/`` (ROADMAP slice 7f-1).)
 """
 
 from __future__ import annotations
@@ -284,6 +284,38 @@ class RestServer:
         if parsed.path in ("/healthz", "/readyz", "/livez"):
             self._send_raw(handler, 200, b"ok",
                            content_type="text/plain")
+            return
+        if parsed.path == "/debug/rv_floor" and method == "POST":
+            # handoff recipients adopt the donor's rv horizon so the
+            # router cache's rv monotonicity survives the move
+            body = self._read_json(handler)
+            out = self.api.advance_rv_floor(int(body.get("rv", 0)))
+            self._send(handler, 200, {"rv": out})
+            return
+        if parsed.path == "/debug/tombstone" and method == "POST":
+            # elastic handoff crash fencing: the coordinator stones a
+            # donor's moved partition keys right after the router FLIP
+            # (so a donor crash before cleanup cannot resurrect them on
+            # respawn) and lifts them after cleanup; recipients lift
+            # stale stones for ranges moving back IN before adopting
+            body = self._read_json(handler)
+            if body.get("clear_all"):
+                out = self.api.clear_range_tombstone()
+            elif "clear" in body:
+                out = self.api.clear_range_tombstone(
+                    [str(k) for k in body.get("clear") or []])
+            else:
+                out = self.api.set_range_tombstone(
+                    [str(k) for k in body.get("set") or []])
+            self._send(handler, 200, {"tombstones": out})
+            return
+        if parsed.path == "/debug/snapshot" and method == "POST":
+            # force a compacting snapshot NOW: the elastic handoff
+            # coordinator calls this on the donor before reading its WAL
+            # directory, so the bulk copy reads one snapshot file and a
+            # short tail instead of the full log
+            took = self.api.snapshot_now()
+            self._send(handler, 200, {"snapshotted": took})
             return
         if parsed.path == "/metrics" and method == "GET":
             # Prometheus exposition of the control-plane registry —

@@ -763,6 +763,54 @@ SHARD_RING_MEMBERS = Gauge(
     "or participates in (shard worker)",
     ["shard"],
 )
+SHARD_DEATHS_TOTAL = Counter(
+    "shard_deaths",
+    "Shard worker processes the ShardRunner watchdog observed dead and "
+    "respawned, by shard — feeds the shard-deaths critical SLO so a "
+    "respawn is an *alert*, not just a log line. A deliberate "
+    "scale-down (elastic merge) does NOT count here — the runner's "
+    "intentional-shutdown handshake excludes it",
+    ["shard"],
+)
+# ---- the elastic shard layer (split / merge / autoscale) ----------------
+SHARD_SPLITS_TOTAL = Counter(
+    "shard_splits_total",
+    "Completed live shard splits (new member admitted to the ring "
+    "after snapshot + WAL tail-replay handoff)",
+)
+SHARD_MERGES_TOTAL = Counter(
+    "shard_merges_total",
+    "Completed live shard merges (member retired from the ring after "
+    "its key-range was handed to the survivors)",
+)
+SHARD_HANDOFF_SECONDS = Histogram(
+    "shard_handoff_seconds",
+    "End-to-end live handoff duration by kind (split | merge | "
+    "migrate): donor snapshot, bulk copy, tail-replay to "
+    "under-threshold lag, fence, final drain, ring flip",
+    ["kind"],
+    buckets=(0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0),
+)
+SHARD_HANDOFF_OBJECTS = Counter(
+    "shard_handoff_objects_total",
+    "Objects copied to a recipient shard during handoffs, by phase "
+    "(bulk | tail) — the tail share is the live-traffic cost a "
+    "split pays",
+    ["phase"],
+)
+SHARD_HANDOFF_REPLAY_LAG = Gauge(
+    "shard_handoff_replay_lag",
+    "WAL records still to tail-replay in the in-flight handoff "
+    "(0 when none is running) — the convergence signal the fence "
+    "waits on",
+)
+SHARD_AUTOSCALE_DECISIONS_TOTAL = Counter(
+    "shard_autoscale_decisions_total",
+    "Autoscaler verdicts by decision (split | merge | hold | "
+    "cooldown) — sustained queue depth or SLO burn scales out, "
+    "sustained idle merges back",
+    ["decision"],
+)
 LEADER_IS_LEADER = Gauge(
     "leader_is_leader",
     "1 while this identity holds the controller-manager lease "

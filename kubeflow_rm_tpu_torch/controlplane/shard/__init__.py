@@ -4,15 +4,19 @@
 The apiserver partitions by NAMESPACE under a consistent-hash ring
 (:mod:`.ring`): every object of a namespace — and the cluster-scoped
 objects keyed by the same name, like a Profile and the Namespace it
-owns — lives on exactly one shard. The client-side router is
+owns — lives on exactly one shard. :mod:`.worker` is one shard's
+process (apiserver + WAL + kubelet + REST + elected platform manager);
+:mod:`.runner` supervises N of them and respawns a killed shard in
+place; :mod:`.elastic` splits and merges shards live by snapshot and
+WAL tail replay, under an autoscaler. The client-side router is
 ``deploy.kubeclient.ShardedKubeAPIServer``; the serving fleet rides the
-same ring. The shard worker, its supervisor and the elastic split/merge
-(``worker.py``, ``runner.py``, ``elastic.py``) are ROADMAP slice 7e-3.
+same ring.
 """
 
 from kubeflow_rm_tpu_torch.controlplane.shard.ring import (
     DEFAULT_VNODES,
     HashRing,
 )
+from kubeflow_rm_tpu_torch.controlplane.shard.runner import ShardRunner
 
-__all__ = ["HashRing", "DEFAULT_VNODES"]
+__all__ = ["HashRing", "DEFAULT_VNODES", "ShardRunner"]

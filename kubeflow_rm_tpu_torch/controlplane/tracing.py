@@ -62,7 +62,7 @@ class Span:
     """One timed operation; ``start``/``end`` are epoch seconds."""
 
     __slots__ = ("trace_id", "span_id", "parent_id", "name", "kind",
-                 "start", "end", "attrs")
+                 "start", "end", "attrs", "process")
 
     def __init__(self, name: str, *, trace_id: str, span_id: str,
                  parent_id: str | None, kind: str = "internal",
@@ -75,6 +75,8 @@ class Span:
         self.start = time.time() if start is None else start
         self.end: float | None = None
         self.attrs = attrs or {}
+        # the emitting process (a shard's name), for merged traces
+        self.process = _process_name
 
     def to_traceparent(self) -> str:
         return f"00-{self.trace_id}-{self.span_id}-01"
@@ -92,7 +94,7 @@ class Span:
             "kind": self.kind, "start": self.start, "end": self.end,
             "duration_ms": None if self.end is None
             else round((self.end - self.start) * 1e3, 3),
-            "attrs": self.attrs,
+            "attrs": self.attrs, "process": self.process,
         }
 
 
@@ -141,10 +143,22 @@ class SpanCollector:
 
 _collector = SpanCollector()
 _enabled = False
+_process_name = ""
 
 
 def collector() -> SpanCollector:
     return _collector
+
+
+def set_process(name: str) -> None:
+    """Tag every span this process emits (shard name); feeds the
+    cross-process view in merged traces."""
+    global _process_name
+    _process_name = name
+
+
+def process_name() -> str:
+    return _process_name
 
 
 def set_enabled(on: bool) -> None:

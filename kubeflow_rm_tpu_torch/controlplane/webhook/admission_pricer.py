@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import json
 
-from kubeflow_rm_tpu_torch.analysis.torchcheck import pricer
 from kubeflow_rm_tpu_torch.controlplane import metrics
 from kubeflow_rm_tpu_torch.controlplane.api import gpu as gpu_api
 from kubeflow_rm_tpu_torch.controlplane.api import notebook as nb_api
@@ -146,6 +145,10 @@ class AdmissionPricer:
 
     def _price(self, op: str, obj: dict, old: dict | None,
                declared: str, topo: gpu_api.SliceTopology) -> None:
+        # imported here: the pricer's walker brings in torch, which a
+        # process that only imports this module for the rejection
+        # predicate (a shard worker's notebook controller) never needs
+        from kubeflow_rm_tpu_torch.analysis.torchcheck import pricer
         decl = pricer.parse(declared)
         verdict = pricer.price(decl, chips=topo.cards,
                                hbm_gib_per_chip=topo.hbm_gib_per_chip)

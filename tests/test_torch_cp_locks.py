@@ -12,6 +12,8 @@ control-plane lock of the spawn as unregistered. The analyser is reset
 and turned off in ``finally``.
 """
 
+import threading
+
 import pytest
 
 from kubeflow_rm_tpu.analysis import hierarchy as jhier
@@ -40,6 +42,9 @@ CONTROL_PLANE_FAMILIES = (
     "kubeclient.conn_pool", "kubeclient.events_seen",
     "kubeclient.router_listed", "restserver.watch_registry",
     "restserver.conns",
+    # the shard processes (7e-3): the handoff coordinator and the
+    # supervisor's membership map
+    "shard.elastic", "shard.watchdog",
 )
 
 
@@ -315,6 +320,107 @@ def test_deployed_layout_lock_order_is_clean():
            "kubeclient.router_listed", "restserver.watch_registry",
            "restserver.conns"}
     assert new <= set(port["locks"]) and new <= set(jax["locks"])
+
+
+class _ThreadShard:
+    """A shard worker's stand-in for the lock-order script: the shard's
+    apiserver (WAL-backed) behind its facade on the runner's port, booted
+    on a thread of its own as a worker boots in a process of its own, so
+    nothing it locks nests under the supervisor's lock. ``terminate``
+    stops it as SIGTERM stops a worker."""
+
+    def __init__(self, pkg, cfg):
+        from tests.torch_cp_parity import cp_module
+
+        self.pid = None
+        self.exitcode = None
+        self.api = cp_module(pkg, "apiserver").APIServer(
+            shard=cfg["name"], wal_dir=cfg["wal_dir"], wal_fsync=False)
+        self.rest = cp_module(pkg, "deploy.restserver").RestServer(
+            self.api, port=cfg["port"])
+        self._alive = True
+        self._boot = threading.Thread(target=self.rest.start, daemon=True)
+        self._boot.start()
+
+    def is_alive(self):
+        return self._alive
+
+    def terminate(self):
+        # the shutdown runs in the shard, as SIGTERM's handler runs in
+        # the worker: on a thread of its own
+        def shut():
+            self._boot.join(30)
+            self.rest.stop()
+            self.api.close_persistence()
+            stop_fanout(self.api)
+        t = threading.Thread(target=shut, daemon=True)
+        t.start()
+        t.join(60)
+        self._alive, self.exitcode = False, 0
+
+    kill = terminate
+
+    def join(self, timeout=None):
+        pass
+
+
+def _split_and_merge(pkg, base_dir) -> None:
+    """Each package's own ``ShardRunner`` (its spawn a thread-booted
+    shard) under its ``ElasticShardManager``: 8 namespaces seeded
+    through the router, a split that admits shard-2, a merge that
+    retires it."""
+    from tests.torch_cp_parity import cp_module
+
+    runner = cp_module(pkg, "shard.runner").ShardRunner(
+        2, base_dir=base_dir, supervise=False)
+    runner._spawn = lambda name: runner._procs.__setitem__(
+        name, _ThreadShard(pkg, runner._cfgs[name]))
+    try:
+        runner.start(timeout=30)
+        router = cp_module(pkg, "deploy.kubeclient").ShardedKubeAPIServer(
+            runner.urls, retry_window_s=10.0)
+        elastic = cp_module(pkg, "shard.elastic").ElasticShardManager(
+            runner, router)
+        for i in range(8):
+            router.ensure_namespace(f"lk-{i}")
+            router.create({"apiVersion": "v1", "kind": "Pod",
+                           "metadata": {"name": "p", "namespace": f"lk-{i}"},
+                           "spec": {"containers": [{"name": "c",
+                                                    "image": "img"}]}})
+        assert elastic.split() == "shard-2"
+        assert elastic.merge() == "shard-2"
+        for i in range(8):
+            assert router.get("Pod", "p", f"lk-{i}")
+    finally:
+        runner.stop()
+
+
+def test_split_and_merge_lock_order_is_clean(tmp_path):
+    """The two families of slice 7e-3 — the handoff coordinator's lock
+    (280), held across the whole split and merge while it routes into
+    the kube client (310+) and the supervisor (370), and the
+    supervisor's membership map — are taken with no cycle, no rank
+    inversion and no downhill or unranked edge, in the port as in JAX."""
+    reports = {}
+    for pkg, lg in (("port", tlg), ("jax", jlg)):
+        lg.set_enabled(True)
+        lg.reset()
+        try:
+            _split_and_merge(pkg, str(tmp_path / pkg))
+            reports[pkg] = lg.report()
+        finally:
+            lg.reset()
+            lg.set_enabled(False)
+    port, jax = reports["port"], reports["jax"]
+    assert tlg.check_edges(port["edges"]) == []
+    assert jhier.check_edges(jax["edges"]) == []
+    for rep in (port, jax):
+        assert rep["cycles"] == [] and rep["order_violations"] == []
+        assert {"shard.elastic", "shard.watchdog"} <= set(rep["locks"])
+        # the coordinator's lock is held over the supervisor's (add_shard
+        # and remove_shard inside the split and the merge)
+        assert {"from": "shard.elastic", "to": "shard.watchdog"} in [
+            {k: e[k] for k in ("from", "to")} for e in rep["edges"]]
 
 
 def test_zz_jax_switches_hold_defaults():

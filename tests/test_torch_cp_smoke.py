@@ -18,8 +18,15 @@ a leader election, the notebook spawned on the shard that owns its
 namespace, the webhook server's patch equal to what the cluster stored,
 the pod's one step equal to arm B's step 1 bit for bit, the owning
 shard restarted in place from its WAL with the same uids and
-resourceVersions and no second pod, and a teardown that leaves nothing.
-Every gate of the phase holds, as on the card."""
+resourceVersions and no second pod, and a teardown that leaves nothing;
+then arm E, the shards as real processes under ``ShardRunner`` — a split
+under the ``shard_split`` chaos arm (a donor SIGKILLed mid-handoff and
+respawned) while a writer creates pods in moving namespaces, the
+notebook's shard SIGKILLed and respawned from its WAL with the same
+uids and resourceVersions, the pod's one step equal to arm B's step 1,
+a merge that is not a death, the zero-loss audit after both handoffs,
+and no worker left after ``stop()``. Every gate of the phase holds, as
+on the card."""
 
 import json
 import socket
@@ -82,6 +89,24 @@ def test_controlplane_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
     assert all(n > 0 for n in d["rest_requests"].values())
     assert list(d["steps_s"]) == ["profile", "spawn", "webhook_review",
                                   "delete", "teardown"]
+    e = line["arm_e"]
+    assert list(e["steps_s"]) == ["start", "profile", "spawn", "split",
+                                  "merge", "teardown"]
+    assert e["split"]["shard"] == "shard-2" == e["merge"]["shard"]
+    assert e["split"]["objects_bulk"] > 0 and e["merge"]["objects_bulk"] > 0
+    assert e["chaos_victim"] in ("shard-0", "shard-1")
+    assert e["recovered"] == {"Notebook": True, "StatefulSet": True,
+                              "Pod": True}
+    assert e["deaths"] == 1
+    assert e["written"] > 0
+    assert e["audited"] == [36 + e["written"]] * 2
+    assert e["child"]["steps"] == [1] and e["child"]["losses"] == losses[:1]
+    assert e["cuda_gate"] == {"split": None, "child": None}
+    # two at the start, the split's new shard and two respawns
+    assert len(e["pids"]) >= 5
+    sup = e["counters"]["supervisor"]
+    assert sup["shard_splits_total"] >= 1 and sup["shard_merges_total"] >= 1
+    assert sup["shard_deaths_total"] >= 2
 
 
 def test_zz_jax_switches_hold_defaults():

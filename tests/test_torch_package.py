@@ -104,6 +104,33 @@ def test_port_files_exist():
         "deploy/__init__.py", "deploy/kubeclient.py", "deploy/restserver.py",
         "deploy/webhook_server.py", "deploy/crds.py", "deploy/manifests.py",
         "shard/__init__.py", "shard/ring.py")} <= names
+    # the shard processes (7e-3): the worker, its supervisor and the
+    # elastic split/merge with the autoscaler
+    assert {f"kubeflow_rm_tpu_torch/controlplane/shard/{f}.py" for f in (
+        "worker", "runner", "elastic")} <= names
+
+
+def test_shard_modules_keep_jax_public_names():
+    """The shard processes sit at JAX's paths with JAX's public names, and
+    the router has the elastic verbs the handoff drives."""
+    import importlib
+
+    for mod, names in (
+            ("shard", ("ShardRunner", "HashRing", "DEFAULT_VNODES")),
+            ("shard.worker", ("shard_worker_main", "LEASE_DURATION_S",
+                              "LEASE_RENEW_S", "LEASE_RETRY_S")),
+            ("shard.runner", ("ShardRunner",)),
+            ("shard.elastic", ("ElasticShardManager", "ShardAutoscaler",
+                               "partition_key", "LOCAL_KINDS"))):
+        port = importlib.import_module(f"kubeflow_rm_tpu_torch.controlplane."
+                                       f"{mod}")
+        for name in names:
+            assert hasattr(port, name), f"{mod}.{name}"
+    from kubeflow_rm_tpu_torch.controlplane.deploy.kubeclient import (
+        ShardedKubeAPIServer,
+    )
+    for verb in ("fence", "unfence", "set_topology"):
+        assert callable(getattr(ShardedKubeAPIServer, verb))
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
