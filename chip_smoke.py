@@ -179,11 +179,22 @@ prints one JSON line per phase:
    from the pod's env read through the router: arm B's step-1 loss bit
    for bit, 64 / 32 / 32, the peak within ``CP_PEAK_RTOL`` of arm B's
    prediction of the same declaration (the shards' admission has no
-   pricer). A merge retires ``shard-2`` (no death counted), the audit
-   holds again; the teardown leaves nothing; no shard pid holds a CUDA
-   context (``nvidia-smi --query-compute-apps``), and none outlives
-   ``stop()``. Start, spawn, split, respawn, merge and child seconds and
-   the ``SHARD_*`` counters are printed.
+   pricer), and that drift keeps ``declared-hbm-drift`` ok. A
+   ``ShardAutoscaler`` ticked after the step merges back to two shards
+   on the federated queue depth, retiring ``shard-2`` (no death
+   counted), the audit holds again; the teardown leaves nothing; no
+   shard pid holds a CUDA context (``nvidia-smi --query-compute-apps``),
+   and none outlives ``stop()``. An ``obs.Observer`` watches the arm
+   (the workers traced, this process's steps the roots): it federates
+   the three shards' ``/metrics``, and scrapes ``shard-2`` no more after
+   the merge; each death counted is a ``shard_death`` bundle or a
+   suppression of the flight recorder's rate limit; the owner's bundle
+   has every section, the surviving shards' series and slow traces
+   whose critical paths sum to their durations, and reads back equal;
+   at the end no SLO but ``shard-deaths`` is critical. Start, spawn,
+   split, respawn, merge and child seconds, the ``SHARD_*`` counters,
+   the observer's ticks, series, bundles and the autoscaler's decisions
+   are printed.
 13. moe    — Mixtral 8x7B at full width and 16 of its 32 layers (bf16,
    47 GB; the 7B tree is dropped first): the forward at (1, 2048) with
    one ``flash_fwd`` launch a layer and a router aux loss in [1, 8];
@@ -4175,6 +4186,22 @@ def probe_engine(params, cfg) -> dict:
     return out
 
 
+def drift_slo_state() -> tuple[float, str]:
+    """The ``declared-hbm-drift`` SLO's threshold, read off the port's
+    ``default_slos()``, and its state once an ``Observer`` has sampled
+    the drift gauge three times, 30 s apart on its own clock (a
+    sustained reading, as the SLO's windowed mean wants)."""
+    from kubeflow_rm_tpu_torch.controlplane import obs
+
+    (spec,) = [s for s in obs.default_slos()
+               if s.name == "declared-hbm-drift"]
+    observer = obs.Observer(interval_s=1.0)
+    base = time.time()
+    for t in (0.0, 30.0, 60.0):
+        observer.tick(now=base + t)
+    return spec.threshold, observer.engine.state_of("declared-hbm-drift")
+
+
 def phase_torchcheck(card, timing):
     """The program auditor on the card: the planner against the
     allocator on four reduced rungs, the 13B rung's OOM in a subprocess
@@ -4191,7 +4218,6 @@ def phase_torchcheck(card, timing):
     from kubeflow_rm_tpu_torch.analysis.torchcheck import memplan, pricer
     from kubeflow_rm_tpu_torch.analysis.torchcheck.costmodel import selfcheck
     from kubeflow_rm_tpu_torch.controlplane import metrics as cp_metrics
-    from kubeflow_rm_tpu_torch.controlplane.obs import slo
     from kubeflow_rm_tpu_torch.controlplane.webhook.admission_pricer import (
         record_declared_drift,
     )
@@ -4240,12 +4266,14 @@ def phase_torchcheck(card, timing):
     drift = record_declared_drift([
         {"priced_on_chip_peak_gb": r["predicted_peak_gb"],
          "native_on_chip_peak_gb": r["measured_peak_gb"]} for r in rows])
+    # through the observer: the warn-only SLO reads the gauge's windowed
+    # mean over three samples, a minute apart on its own clock
+    limit, state = drift_slo_state()
     emit("torchcheck", part="declared_drift", card=card, ratio=drift,
-         gauge=cp_metrics.DECLARED_HBM_DRIFT_RATIO.get(),
-         limit=slo.DECLARED_HBM_DRIFT_LIMIT)
-    check(drift < slo.DECLARED_HBM_DRIFT_LIMIT,
-          f"declared_hbm_drift_ratio {drift} >= "
-          f"{slo.DECLARED_HBM_DRIFT_LIMIT}")
+         gauge=cp_metrics.DECLARED_HBM_DRIFT_RATIO.get(), limit=limit,
+         slo_state=state)
+    check(drift < limit, f"declared_hbm_drift_ratio {drift} >= {limit}")
+    check(state == "ok", f"declared-hbm-drift is {state} at drift {drift}")
 
     # the rung the card must reject: its own process, which must end in
     # torch.cuda.OutOfMemoryError before it completes a step
@@ -4434,7 +4462,9 @@ def probe_training(cfg, lp, card) -> dict:
             syncs.get(tenant="default") - before[0])
         out["jit_recompiles_total_default"] = (
             recompiles.get(tenant="default") - before[1])
-        out["rate_limits_per_s"] = slo.RATE_LIMITS_PER_S
+        out["rate_limits_per_s"] = {
+            s.metric: s.allowed_per_s for s in slo.default_slos()
+            if isinstance(s, slo.TenantRateSLO)}
     finally:
         hostsync.uninstall()
         hostsync.set_enabled(False)
@@ -4635,6 +4665,10 @@ CP_DECLARATION = {"preset": "llama2_7b", "optim": "adamw", "batch": 2,
 CP_STEPS = 3
 # arm E's chaos plan: the seed of its shard_split fault
 CP_SEED = 1234
+# arm E's observer: its background tick (s), and the most autoscaler
+# ticks the merge back to two shards may take (it needs ``sustain``)
+CP_OBS_INTERVAL_S = 1.0
+CP_AUTOSCALE_TICKS = 40
 # the pod's measured peak against its predicted-memory annotation, either
 # way: the bound the planner's anchors are held to (PLAN_RTOL)
 CP_PEAK_RTOL = PLAN_RTOL
@@ -5681,6 +5715,51 @@ def _cuda_holders(pids) -> dict:
                 holders=sorted(p for p in pids if opens_card(p)))
 
 
+def _check_bundle(recorder, bundle, shard, survivors, out_dir) -> dict:
+    """Gate a shard's ``shard_death`` flight bundle: every section of
+    JAX's (``tests/test_flight.py``), the surviving shards' instances in
+    its metric window, every slow trace's critical path summing to the
+    trace's duration within 1 ms, and the ``recorder``'s ``dump_json``
+    reading back equal. Returns what it counted."""
+    import os
+
+    from kubeflow_rm_tpu_torch.controlplane.obs import flight
+
+    check(bundle["schema_version"] == flight.SCHEMA_VERSION
+          and bundle["trigger"]["reason"] == "shard_death"
+          and bundle["trigger"]["detail"] == {"shard": shard,
+                                              "exitcode": -9}
+          and bundle["run_meta"]["harness"]
+          and isinstance(bundle["alerts"]["active"], list)
+          and isinstance(bundle["slow_traces"], list)
+          and "lockgraph" in bundle
+          and isinstance(bundle["shard_liveness"], dict),
+          f"{shard}'s bundle: {sorted(bundle)} {bundle['trigger']}")
+    held = {s["labels"].get("instance") for s in bundle["metrics"]
+            if s["points"]}
+    check(survivors <= held,
+          f"{shard}'s bundle holds {sorted(held - {None})}, not "
+          f"{sorted(survivors)}")
+    sums = []
+    for t in bundle["slow_traces"]:
+        total = sum(h["self_ms"] for h in t["critical_path"])
+        sums.append([t["duration_ms"], round(total, 3)])
+        check(abs(total - t["duration_ms"]) <= 1.0,
+              f"slow trace {t['trace_id']}: critical path {total} ms vs "
+              f"{t['duration_ms']} ms")
+    path = recorder.dump_json(os.path.join(out_dir, f"FLIGHT_{shard}.json"),
+                              bundle)
+    with open(path) as f:
+        check(json.load(f) == json.loads(json.dumps(bundle, default=str)),
+              f"{shard}'s bundle does not read back equal")
+    os.remove(path)
+    return dict(slow_traces=len(bundle["slow_traces"]),
+                processes=sorted({p for t in bundle["slow_traces"]
+                                  for p in t["processes"]}),
+                series=len(bundle["metrics"]), duration_vs_path_ms=sums,
+                instances=sorted(held - {None}))
+
+
 def _cp_elastic_arm(decl, device, ref_loss, predicted) -> dict:
     """Arm E: the cluster as processes. ``ShardRunner(2)`` spawns two
     shard workers (``shard/worker.py``: each the apiserver on its WAL,
@@ -5703,16 +5782,34 @@ def _cp_elastic_arm(decl, device, ref_loss, predicted) -> dict:
     the peak within ``CP_PEAK_RTOL`` of ``predicted``: the shards'
     admission chain is JAX's worker's, without the pricer, so the pod
     carries no prediction of its own and arm B's of the same
-    declaration stands in). A merge retires ``shard-2`` (no death
-    counted) with the audit holding again; the teardown leaves nothing,
-    no shard process made a CUDA context, and none outlives
-    ``stop()``."""
+    declaration stands in), and its measured peak against that
+    prediction goes through ``record_declared_drift``. A
+    ``ShardAutoscaler`` ticked once the writer and the step are done
+    merges back to two shards on the federated queue depth, retiring
+    ``shard-2`` (no death counted), with the audit holding again; the
+    teardown leaves nothing, no shard process made a CUDA context, and
+    none outlives ``stop()``.
+
+    An ``obs.Observer`` watches it all, ticking in the background: it
+    federates every shard's ``/metrics`` (the split adds ``shard-2``'s
+    scrape, the merge removes it), runs JAX's default SLOs, and its
+    flight recorder takes the chaos plan's trigger and the supervisor's
+    death hook. The workers and this process trace (this process's
+    steps are the roots; the shards' server spans their children). Each
+    death counted is a ``shard_death`` bundle or one suppression of the
+    recorder's rate limit; the owner's bundle (the arm waits out the
+    limit before the kill) has every section, the surviving shards'
+    series and slow traces whose critical paths sum to their durations;
+    ``declared-hbm-drift`` stays ok, and no SLO but ``shard-deaths`` is
+    critical at the end."""
     import os
     import shutil
     import tempfile
     import urllib.request
 
-    from kubeflow_rm_tpu_torch.controlplane import chaos, metrics
+    from kubeflow_rm_tpu_torch.controlplane import (
+        chaos, metrics, obs, tracing,
+    )
     from kubeflow_rm_tpu_torch.controlplane.api import gpu
     from kubeflow_rm_tpu_torch.controlplane.api import notebook as nb_api
     from kubeflow_rm_tpu_torch.controlplane.api.profile import make_profile
@@ -5721,10 +5818,13 @@ def _cp_elastic_arm(decl, device, ref_loss, predicted) -> dict:
     )
     from kubeflow_rm_tpu_torch.controlplane.deploy import kubeclient
     from kubeflow_rm_tpu_torch.controlplane.shard.elastic import (
-        ElasticShardManager,
+        ElasticShardManager, ShardAutoscaler,
     )
     from kubeflow_rm_tpu_torch.controlplane.shard.ring import HashRing
     from kubeflow_rm_tpu_torch.controlplane.shard.runner import ShardRunner
+    from kubeflow_rm_tpu_torch.controlplane.webhook.admission_pricer import (
+        record_declared_drift,
+    )
 
     two = HashRing(["shard-0", "shard-1"])
     three = two.with_member("shard-2")
@@ -5744,7 +5844,10 @@ def _cp_elastic_arm(decl, device, ref_loss, predicted) -> dict:
     print(f"controlplane: arm E's namespace {ns} and node {node} on "
           f"{owner}; filler moving to shard-2: {moving}", flush=True)
     base = tempfile.mkdtemp(prefix="kfrm-smoke-shards-")
-    runner = ShardRunner(2, base_dir=base, wal=True, manager_workers=4)
+    runner = ShardRunner(2, base_dir=base, wal=True, manager_workers=4,
+                         tracing=True)
+    observer = None
+    traced = (tracing.enabled(), tracing.process_name())
     seen: set[int] = set()
     watch_stop, threads, steps_s = threading.Event(), [], {}
     keys = ((nb_api.KIND, "ft"), ("StatefulSet", "ft"), ("Pod", "ft-0"))
@@ -5789,14 +5892,38 @@ def _cp_elastic_arm(decl, device, ref_loss, predicted) -> dict:
                 "shard_autoscale_decisions_total")
         return {name: metrics.registry_value(name) for name in fams}
 
+    def step(name):
+        """A root span of this process around one of the arm's steps: the
+        shards' server spans of its requests are its children."""
+        return tracing.start_span(f"arm_e.{name}", kind="internal")
+
+    def last_t(shard) -> float:
+        pts = [p[0] for s in observer.tsdb.range(
+            "workqueue_depth", {"instance": shard}, window_s=3600.0)
+            for p in s["points"]]
+        return max(pts, default=0.0)
+
     try:
-        # 1. start: two workers, every one answering /healthz
+        # 1. start: two traced workers, every one answering /healthz; the
+        # observer federating both, ticking in the background
+        tracing.set_enabled(True)
+        tracing.set_process("coordinator")
+        tracing.collector().clear()
         t0 = time.perf_counter()
         runner.start(timeout=120)
         steps_s["start"] = time.perf_counter() - t0
         seen |= set(runner.pids().values())
         print(f"controlplane: arm E's shards up in {steps_s['start']:.3f} s "
               f"(pids {runner.pids()})", flush=True)
+        observer = obs.Observer(
+            interval_s=CP_OBS_INTERVAL_S, shard_urls=runner.urls,
+            liveness=runner.liveness,
+            run_meta=obs.build_run_meta("chip_smoke.controlplane.arm_e", {
+                "shards": 2, "wal": True, "tracing": True,
+                "chaos": "shard_split", "device": device}))
+        runner.set_on_death(observer.on_shard_death)
+        deaths_all = metrics.registry_value("shard_deaths_total")
+        observer.start()
         router = kubeclient.ShardedKubeAPIServer(runner.urls,
                                                  retry_window_s=20)
         watched = ("Notebook", "StatefulSet", "Pod")
@@ -5811,12 +5938,13 @@ def _cp_elastic_arm(decl, device, ref_loss, predicted) -> dict:
         # 2. the node, the profile of one card and the filler load
         router.create(make_gpu_node(node, CP_ACC))
         t0 = time.perf_counter()
-        router.create(make_profile(
-            ns, CP_OWNER, quota_hard={gpu.NVIDIA_GPU_RESOURCE: "1"}))
-        owner_cli = client(owner)
-        _poll(lambda: owner_cli.try_get("ResourceQuota",
-                                        "kf-resource-quota", ns),
-              60, "arm E's profile quota")
+        with step("profile"):
+            router.create(make_profile(
+                ns, CP_OWNER, quota_hard={gpu.NVIDIA_GPU_RESOURCE: "1"}))
+            owner_cli = client(owner)
+            _poll(lambda: owner_cli.try_get("ResourceQuota",
+                                            "kf-resource-quota", ns),
+                  60, "arm E's profile quota")
         steps_s["profile"] = time.perf_counter() - t0
         objects = []
         for f in fill:
@@ -5827,19 +5955,22 @@ def _cp_elastic_arm(decl, device, ref_loss, predicted) -> dict:
 
         # 3. the notebook, create -> Ready
         t0 = time.perf_counter()
-        router.create(nb_api.make_notebook(
-            "ft", ns, accelerator_type=CP_ACC,
-            annotations={gpu.DECLARED_WORKLOAD_ANNOTATION: json.dumps(decl)}))
-        _poll(lambda: (owner_cli.get(nb_api.KIND, "ft", ns).get("status")
-                       or {}).get("readyReplicas") == 1, 120,
-              "arm E's ft never went Ready")
+        with step("spawn"):
+            router.create(nb_api.make_notebook(
+                "ft", ns, accelerator_type=CP_ACC,
+                annotations={gpu.DECLARED_WORKLOAD_ANNOTATION:
+                             json.dumps(decl)}))
+            _poll(lambda: (owner_cli.get(nb_api.KIND, "ft", ns).get(
+                "status") or {}).get("readyReplicas") == 1, 120,
+                "arm E's ft never went Ready")
         steps_s["spawn"] = time.perf_counter() - t0
         pod0 = owner_cli.get("Pod", "ft-0", ns)
         check(pod0["spec"].get("nodeName") == node,
               f"ft-0 on {pod0['spec'].get('nodeName')}, not {node}")
 
-        # 4. the split under the shard_split chaos arm, a writer running
-        elastic = ElasticShardManager(runner, router)
+        # 4. the split under the shard_split chaos arm (its injection a
+        # flight trigger), a writer running
+        elastic = ElasticShardManager(runner, router, observer=observer)
         kill, killed = runner.kill, {}
 
         def timed_kill(name):
@@ -5863,14 +5994,15 @@ def _cp_elastic_arm(decl, device, ref_loss, predicted) -> dict:
                 werr.append(repr(e))
         wt = threading.Thread(target=writer, name="arm-e-writer",
                               daemon=True)
-        plan = chaos.FaultPlan(CP_SEED, [
-            chaos.FaultSpec("shard_split", rate=1.0, limit=1)])
+        plan = chaos.plan_from_args(CP_SEED, "shard_split:1.0",
+                                    flight=observer.flight)
         chaos.install(plan)
         try:
             wt.start()
             _poll(lambda: len(written) >= 5, 60, "the writer's first pods")
             t0 = time.perf_counter()
-            new = elastic.split()
+            with step("split"):
+                new = elastic.split()
             steps_s["split"] = time.perf_counter() - t0
         finally:
             chaos.uninstall()
@@ -5902,16 +6034,33 @@ def _cp_elastic_arm(decl, device, ref_loss, predicted) -> dict:
               f"{len(written)} pods; chaos killed {victim}, back in "
               f"{chaos_respawn_s:.3f} s", flush=True)
         smi_split = (_cuda_holders(seen) if device == "cuda" else None)
+        # the split's new shard federated beside the first two
+        t0 = time.perf_counter()
+        _poll(lambda: {"shard-0", "shard-1", "shard-2"} <= set(
+            observer.tsdb.label_values("workqueue_depth", "instance")),
+            30, "workqueue_depth federated from all three shards")
+        steps_s["federate"] = time.perf_counter() - t0
 
-        # 5. SIGKILL the notebook's owner: respawned in place from its WAL
+        # 5. SIGKILL the notebook's owner: respawned in place from its
+        # WAL. First wait out the recorder's rate limit since its last
+        # automatic bundle, so the owner's death records one
         owner_cli = client(owner)
         before = {k: owner_cli.get(k, n, ns)["metadata"] for k, n in keys}
         deaths0 = metrics.SHARD_DEATHS_TOTAL.get(shard=owner)
         url0, pid0 = runner.urls[owner], runner.pids()[owner]
         t0 = time.perf_counter()
-        runner.kill(owner)
-        _poll(lambda: runner.pids()[owner] != pid0, 30, "the owner's respawn")
-        runner.wait_ready(60, names=[owner])
+        last_auto = max((b["trigger"]["t"] for b in observer.flight.bundles()),
+                        default=0.0)
+        time.sleep(max(0.0, observer.flight.min_interval_s
+                       - (time.time() - last_auto) + 0.1))
+        steps_s["owner_wait"] = time.perf_counter() - t0
+        deaths_state = observer.engine.state_of("shard-deaths")
+        t0 = time.perf_counter()
+        with step("owner_kill"):
+            runner.kill(owner)
+            _poll(lambda: runner.pids()[owner] != pid0, 30,
+                  "the owner's respawn")
+            runner.wait_ready(60, names=[owner])
         kill_s = time.perf_counter() - t0
         seen |= set(runner.pids().values())
         check(runner.urls[owner] == url0, "the owner moved port")
@@ -5933,6 +6082,23 @@ def _cp_elastic_arm(decl, device, ref_loss, predicted) -> dict:
         print(f"controlplane: arm E's {owner} SIGKILLed and serving again "
               f"in {kill_s:.3f} s", flush=True)
 
+        # the owner's shard_death bundle: every section, the surviving
+        # shards' series, slow traces whose critical paths partition them
+        (owner_bundle,) = _poll(lambda: [
+            b for b in observer.flight.bundles()
+            if b["trigger"]["reason"] == "shard_death"
+            and b["trigger"]["detail"]["shard"] == owner], 30,
+            "the owner's shard_death bundle")
+        bundle_check = _check_bundle(observer.flight, owner_bundle, owner,
+                                     set(runner.names) - {owner}, base)
+        print(f"controlplane: arm E's {owner} bundle (shard-deaths "
+              f"{deaths_state} before the kill, "
+              f"{steps_s['owner_wait']:.3f} s waited for the rate limit): "
+              f"{bundle_check['slow_traces']} slow traces from "
+              f"{len(bundle_check['processes'])} processes "
+              f"{bundle_check['processes']}, "
+              f"{bundle_check['series']} series", flush=True)
+
         # 6. the pod's container, from the pod's env read through the router
         pod = router.get("Pod", "ft-0", ns)
         c0 = pod["spec"]["containers"][0]
@@ -5950,25 +6116,70 @@ def _cp_elastic_arm(decl, device, ref_loss, predicted) -> dict:
               f"arm E's peak {result['peak_gb']} GB vs {predicted} GB")
         print(f"controlplane: arm E's child {child_s:.3f} s", flush=True)
         smi_child = (_cuda_holders(seen) if device == "cuda" else None)
+        # the measured peak against the prediction, through the drift
+        # gauge the observer's warn-only SLO reads
+        drift = (None if result["peak_gb"] is None else record_declared_drift(
+            [{"priced_on_chip_peak_gb": predicted,
+              "native_on_chip_peak_gb": result["peak_gb"]}]))
+        observer.tick()
+        drift_state = observer.engine.state_of("declared-hbm-drift")
+        check(drift_state == "ok",
+              f"declared-hbm-drift {drift_state} at drift {drift}")
 
-        # 7. merge shard-2 back: not a death; the audit holds again
+        # 7. the autoscaler merges shard-2 back on the federated queue
+        # depth of the three idle shards: not a death; the audit holds
         deaths2 = metrics.SHARD_DEATHS_TOTAL.get(shard="shard-2")
         pid2 = runner.pids()["shard-2"]
+        scaler = ShardAutoscaler(elastic, observer, min_shards=2)
+        federated = {}
         t0 = time.perf_counter()
-        retired = elastic.merge()
-        steps_s["merge"] = time.perf_counter() - t0
+        with step("autoscale"):
+            for _ in range(CP_AUTOSCALE_TICKS):
+                observer.tick()
+                federated = {s: observer.tsdb.latest(
+                    "workqueue_depth", {"instance": s})
+                    for s in router.ring.members}
+                t1 = time.perf_counter()
+                if scaler.tick() == "merge":
+                    steps_s["merge"] = time.perf_counter() - t1
+                    break
+                time.sleep(0.2)
+        steps_s["autoscale"] = time.perf_counter() - t0
+        merged_at = time.time()
+        decisions = [d["decision"] for d in scaler.decisions]
+        check(decisions[-1:] == ["merge"]
+              and not {"split", "carve"} & set(decisions)
+              and all(d["mean_depth"] <= scaler.merge_depth
+                      for d in scaler.decisions[-scaler.sustain:]),
+              f"the autoscaler's decisions: {scaler.decisions}")
+        check(sorted(federated) == ["shard-0", "shard-1", "shard-2"]
+              and None not in federated.values(),
+              f"the autoscaler's input: {federated}")
+        retired = elastic.events[-1]["shard"]
         merge = {k: v for k, v in elastic.events[-1].items() if k != "t"}
-        check(retired == "shard-2" and runner.names == ["shard-0", "shard-1"]
+        check(retired == "shard-2" and merge["op"] == "merge"
+              and runner.names == ["shard-0", "shard-1"]
               and router.ring.members == ["shard-0", "shard-1"],
-              f"the merge: {retired} {runner.names}")
+              f"the merge: {merge} {runner.names}")
         time.sleep(0.5)   # watchdog ticks: the exit is not a death
         check(metrics.SHARD_DEATHS_TOTAL.get(shard="shard-2") == deaths2,
               "the merge's exit counted as a death")
         check(not _pid_alive(pid2), f"shard-2 (pid {pid2}) outlived the "
                                     "merge")
         audited_merge = audit(objects)
-        print(f"controlplane: arm E's merge {steps_s['merge']:.3f} s, "
+        print(f"controlplane: arm E's merge by the autoscaler "
+              f"{steps_s['merge']:.3f} s after {len(decisions)} ticks "
+              f"{decisions} ({steps_s['autoscale']:.3f} s), "
               f"{merge['objects_bulk']} objects handed back", flush=True)
+        # shard-2 scraped no more: two ticks after the merge, its series
+        # end before it while the survivors' go on
+        taken = observer.tsdb.samples_taken
+        _poll(lambda: observer.tsdb.samples_taken >= taken + 2, 30,
+              "two ticks after the merge")
+        check(last_t("shard-2") < merged_at < min(
+            last_t("shard-0"), last_t("shard-1")),
+            f"shard-2 scraped after the merge: {last_t('shard-2')} vs "
+            f"{merged_at}")
         counters = dict(shards=shard_metrics(),
                         supervisor=supervisor_metrics())
         print(f"controlplane: arm E's SHARD_* {json.dumps(counters)}",
@@ -5985,6 +6196,36 @@ def _cp_elastic_arm(decl, device, ref_loss, predicted) -> dict:
         _poll(lambda: owner_cli.try_get("Namespace", ns) is None, 120,
               "arm E's namespace was not removed")
         steps_s["teardown"] = time.perf_counter() - t0
+
+        # every death the supervisor counted is a shard_death bundle
+        # naming the shard and its exit code, or one suppression
+        observer.tick()
+        deaths_all = metrics.registry_value("shard_deaths_total") - deaths_all
+        bundled = [b["trigger"]["detail"] for b in observer.flight.bundles()
+                   if b["trigger"]["reason"] == "shard_death"]
+        suppressed = observer.flight.suppressed_total
+        check(all(d["exitcode"] == -9 and d["shard"] in (victim, owner)
+                  for d in bundled)
+              and deaths_all - len(bundled) <= suppressed
+              and {"shard": owner, "exitcode": -9} in bundled,
+              f"deaths {deaths_all}, bundles {bundled}, suppressed "
+              f"{suppressed}")
+        alerts = observer.alerts()
+        states = {s["name"]: s["state"] for s in alerts["slos"]}
+        critical = sorted(n for n, st in states.items() if st == "critical")
+        print(f"controlplane: arm E's alerts at the end: "
+              f"{json.dumps({n: st for n, st in states.items() if st != 'ok'})}"
+              f"; tsdb {json.dumps(alerts['tsdb'])}; flight "
+              f"{json.dumps(alerts['flight'])}", flush=True)
+        check(set(critical) <= {"shard-deaths"},
+              f"critical SLOs at the end of arm E: {critical}")
+        # the observer's own cost: a tick and a bundle's capture, timed
+        t1 = time.perf_counter()
+        observer.tick()
+        tick_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        observer.flight.trigger("arm_e_done")
+        capture_s = time.perf_counter() - t1
         left = {}
         for shard in runner.names:
             cli = client(shard)
@@ -5993,6 +6234,11 @@ def _cp_elastic_arm(decl, device, ref_loss, predicted) -> dict:
                     left[f"{shard}/{kind}"] = len(cli.list(kind, ns))
         check(not left, f"arm E left after the teardown: {left}")
     finally:
+        if observer is not None:
+            observer.stop()
+        tracing.set_enabled(traced[0])
+        tracing.set_process(traced[1])
+        tracing.collector().clear()
         watch_stop.set()
         seen |= set(runner.pids().values())
         runner.stop()
@@ -6007,6 +6253,8 @@ def _cp_elastic_arm(decl, device, ref_loss, predicted) -> dict:
         check(smi is None or (smi["control"] and not smi["holders"]),
               f"CUDA contexts after the {when}: {smi}")
     check(not os.path.exists(base), f"{base} was not removed")
+    check(not [t for t in threading.enumerate() if t.name == "obs-observer"],
+          "the observer's thread outlived the arm")
     return dict(namespace=ns, owner=owner, node=node, moving=moving,
                 steps_s=steps_s, start_s=steps_s["start"],
                 spawn_s=steps_s["spawn"], split=split,
@@ -6016,7 +6264,17 @@ def _cp_elastic_arm(decl, device, ref_loss, predicted) -> dict:
                 child=result, child_s=child_s, peak_rel_err=peak_err,
                 cuda_gate=dict(split=smi_split, child=smi_child),
                 pids=sorted(seen), counters=counters,
-                launches=result["launches"])
+                launches=result["launches"],
+                observer=dict(
+                    interval_s=CP_OBS_INTERVAL_S, ticks=alerts["tsdb"][
+                        "samples_taken"], tick_s=tick_s, capture_s=capture_s,
+                    tsdb=alerts["tsdb"], flight=alerts["flight"],
+                    deaths=deaths_all, death_bundles=bundled,
+                    suppressed=suppressed, owner_bundle=bundle_check,
+                    shard_deaths_before_kill=deaths_state,
+                    drift=drift, drift_state=drift_state,
+                    not_ok={n: st for n, st in states.items() if st != "ok"},
+                    decisions=scaler.decisions, federated=federated))
 
 
 def _pid_alive(pid: int) -> bool:

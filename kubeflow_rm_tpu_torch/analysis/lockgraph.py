@@ -138,6 +138,14 @@ LOCK_HIERARCHY: dict[str, int] = {
     "serving.fleet": 435,
     "serving.gateway": 440,
     "serving.store": 445,
+    # obs locks never nest with each other (burn rates are computed
+    # before the engine lock; flight bundles are assembled lock-free and
+    # only appended under obs.flight), and they sit below
+    # tracing.collector, so a capture reading the span ring while
+    # holding one would still be uphill
+    "obs.engine": 470,              # SLO alert state machine
+    "obs.tsdb": 480,                # ring-buffer TSDB series map
+    "obs.flight": 490,              # flight-recorder bundle ring
     "tracing.collector": 510,
     "torchcheck.pricer": 520,
     # installs observers into the probes (540, 550) while held

@@ -23,10 +23,11 @@ nothing to model a cluster with no webhooks.
 
 (The port's copy of ``kubeflow_rm_tpu/controlplane/deploy/restserver.py``.
 Multi-version kinds convert through the port's :mod:`..api.conversion`.
-A resume at rv 0 replays the backlog (C12). Of the ``/debug/*``
-endpoints it serves the elastic handoff's ``snapshot``, ``rv_floor`` and
-``tombstone`` (``shard/elastic.py``); ``traces`` and ``writelog`` come
-with their callers in ``obs/`` (ROADMAP slice 7f-1).)
+A resume at rv 0 replays the backlog (C12). Its ``/debug/*``
+endpoints: the elastic handoff's ``snapshot``, ``rv_floor`` and
+``tombstone`` (``shard/elastic.py``), the write audit trail
+``writelog``, and ``traces``, the span collector that the flight
+recorder (``obs/flight.py``) merges across shards.)
 """
 
 from __future__ import annotations
@@ -285,6 +286,13 @@ class RestServer:
             self._send_raw(handler, 200, b"ok",
                            content_type="text/plain")
             return
+        if parsed.path == "/debug/writelog" and method == "GET":
+            # the apiserver's bounded write audit trail, serialized for
+            # out-of-process consumers (a sharded harness reconstructs
+            # cross-shard phase breakdowns from these)
+            self._send(handler, 200,
+                       {"writes": list(self.api.write_log)})
+            return
         if parsed.path == "/debug/rv_floor" and method == "POST":
             # handoff recipients adopt the donor's rv horizon so the
             # router cache's rv monotonicity survives the move
@@ -316,6 +324,16 @@ class RestServer:
             # short tail instead of the full log
             took = self.api.snapshot_now()
             self._send(handler, 200, {"snapshotted": took})
+            return
+        if parsed.path == "/debug/traces" and method == "GET":
+            # this process's span collector, serialized: the flight
+            # recorder merges these per-shard exports into whole
+            # cross-process traces
+            col = tracing.collector()
+            self._send(handler, 200,
+                       {"process": tracing.process_name(),
+                        "spans": col.spans(),
+                        "slow": col.slow_traces()})
             return
         if parsed.path == "/metrics" and method == "GET":
             # Prometheus exposition of the control-plane registry —

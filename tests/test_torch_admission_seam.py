@@ -212,7 +212,11 @@ def test_declared_drift_gauge():
     # the same rows through JAX's bridge record the same ratio
     assert jseam.record_declared_drift(rows) == pytest.approx(0.04)
     assert tseam.record_declared_drift([]) == 0.0
-    assert slo.DECLARED_HBM_DRIFT_LIMIT == 0.2
+    # the warn-only SLO that reads the gauge, thresholded as JAX's
+    (drift_slo,) = [s for s in slo.default_slos()
+                    if s.metric == "declared_hbm_drift_ratio"]
+    assert drift_slo.name == "declared-hbm-drift"
+    assert drift_slo.threshold == 0.2
 
 
 # PERF.md's declarations on the H100 slices, priced for real. The 7B

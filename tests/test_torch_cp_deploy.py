@@ -385,6 +385,74 @@ def test_kubeclient_verb_surface_roundtrip(clusters, parity):
     _on_both(clusters, case, parity)
 
 
+def test_debug_writelog_and_traces_endpoints(clusters, parity):
+    """``GET /debug/writelog`` serves the apiserver's write audit trail
+    (each write's verb, kind, name, resourceVersion and writer identity)
+    and ``GET /debug/traces`` the process's span collector — the server
+    span of a request that carried a ``traceparent``, and a slow root
+    trace from the slow store — with JAX's bodies (the wall-clock fields
+    and the random span ids dropped)."""
+    parent = "00-" + "a" * 32 + "-" + "b" * 16 + "-01"
+
+    def case(pkg, c, _):
+        tracing = cp_module(pkg, "tracing")
+        kapi = cp_module(pkg, "deploy.kubeclient").KubeAPIServer(
+            c.url, identity="writer-a")
+        cm = cp_module(pkg, "api.meta").make_object("v1", "ConfigMap", "c",
+                                                    "u")
+        kapi.create(cm)
+        kapi.patch("ConfigMap", "c", {"data": {"x": "y"}}, "u")
+        kapi.delete("ConfigMap", "c", "u")
+        with urllib.request.urlopen(f"{c.url}/debug/writelog",
+                                    timeout=30) as r:
+            writes = json.loads(r.read())["writes"]
+        tracing.set_enabled(True)
+        tracing.set_process("shard-0")
+        tracing.collector().clear()
+        try:
+            req = urllib.request.Request(
+                f"{c.url}/api/v1/namespaces/u/configmaps",
+                headers={tracing.TRACE_HEADER: parent})
+            with urllib.request.urlopen(req, timeout=30) as r:
+                r.read()
+            # a slow root: the slow store keeps its whole trace
+            tracing.record_span("slow root", start=0.0, end=1.0)
+            with urllib.request.urlopen(f"{c.url}/debug/traces",
+                                        timeout=30) as r:
+                traces = json.loads(r.read())
+        finally:
+            tracing.set_enabled(False)
+            tracing.set_process("")
+            tracing.collector().clear()
+        for w in writes:
+            assert w.pop("t") > 0
+        for span in traces["spans"] + [
+                d for t in traces["slow"] for d in t["spans"]]:
+            assert span.pop("span_id") and span.pop("start") is not None
+            span.pop("end"), span.pop("duration_ms")
+        for t in traces["slow"]:
+            assert t.pop("trace_id")
+        for span in traces["spans"] + traces["slow"][0]["spans"]:
+            if span["name"] == "slow root":
+                span.pop("trace_id")
+        traces["spans"].sort(key=lambda d: d["name"])
+        return writes, traces
+
+    writes, traces = _on_both(clusters, case, parity)
+    assert [(w["verb"], w["kind"], w["name"], w["writer"])
+            for w in writes][-3:] == [
+        ("CREATE", "ConfigMap", "c", "writer-a"),
+        ("UPDATE", "ConfigMap", "c", "writer-a"),
+        ("DELETE", "ConfigMap", "c", "writer-a")]
+    assert traces["process"] == "shard-0"
+    server = [d for d in traces["spans"] if d["kind"] == "server"]
+    assert [(d["name"], d["trace_id"], d["parent_id"]) for d in server] == [
+        ("GET /api/v1/namespaces/u/configmaps", "a" * 32, "b" * 16)]
+    (slow,) = traces["slow"]
+    assert slow["duration_ms"] == 1000.0
+    assert [d["name"] for d in slow["spans"]] == ["slow root"]
+
+
 def test_kubeclient_status_subresource_and_events(clusters):
     def case(pkg, c, kapi):
         nb_api = cp_module(pkg, "api.notebook")

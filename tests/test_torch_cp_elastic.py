@@ -645,6 +645,172 @@ def test_autoscaler_respects_cooldown_and_max():
     _policy(case, max_shards=3, cooldown_s=3600.0)
 
 
+class _Expositions:
+    """A stdlib HTTP server answering ``GET /<shard>/metrics`` with a
+    scripted exposition per shard: the ``/metrics`` of each shard that a
+    real ``Observer``'s TSDB federates."""
+
+    def __init__(self):
+        import http.server
+
+        self.text: dict[str, str] = {}
+        owner = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):
+                shard = self.path.strip("/").split("/")[0]
+                body = owner.text.get(shard)
+                if body is None:
+                    self.send_response(503)
+                    self.end_headers()
+                    return
+                data = body.encode()
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def log_message(self, *args):
+                pass
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                      Handler)
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.base = f"http://127.0.0.1:{self.server.server_port}"
+
+    def set(self, shard, depth, ns_depth=None):
+        lines = ["# TYPE workqueue_depth gauge",
+                 f'workqueue_depth{{name="notebook"}} {depth}',
+                 "# TYPE workqueue_namespace_depth gauge"]
+        for ns, v in (ns_depth or {}).items():
+            lines.append(f'workqueue_namespace_depth{{name="notebook",'
+                         f'namespace="{ns}"}} {v}')
+        self.text[shard] = "\n".join(lines) + "\n"
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(10)
+
+
+class _ObservedElastic(_FakeElastic):
+    """The policy fake, wired to a real observer as the real manager is:
+    a split adds the new shard's scrape, a merge removes the victim's."""
+
+    def __init__(self, HashRing, n, observer, expo):
+        super().__init__(HashRing, n)
+        self.observer, self.expo = observer, expo
+
+    def split(self, name=None, *, weight=None, dedicate=None):
+        new = super().split(name, weight=weight, dedicate=dedicate)
+        self.expo.set(new, 0.0)
+        self.observer.tsdb.add_scrape(new, f"{self.expo.base}/{new}")
+        return new
+
+    def merge(self):
+        victim = super().merge()
+        self.observer.tsdb.remove_scrape(victim)
+        return victim
+
+
+_EMPTY_REGISTRY = {"port": list, "jax": lambda: __import__(
+    "prometheus_client").CollectorRegistry()}
+
+
+def _observed(script, n):
+    """``script(scaler, fake, observer, expo, tick)`` on each package's
+    autoscaler over a real ``Observer`` (JAX's default SLOs, an empty
+    local registry) whose TSDB federates each shard's scripted
+    exposition; ``tick()`` samples and evaluates once, then ticks the
+    autoscaler, on a shared frozen clock. The decisions, the calls, the
+    ring and the federated series must be equal."""
+    got = {}
+    for pkg in PKGS:
+        expo = _Expositions()
+        try:
+            for i in range(n):
+                expo.set(f"shard-{i}", 0.0)
+            observer = cp_module(pkg, "obs").Observer(
+                interval_s=1.0, registry=_EMPTY_REGISTRY[pkg](),
+                shard_urls={f"shard-{i}": f"{expo.base}/shard-{i}"
+                            for i in range(n)})
+            fake = _ObservedElastic(cp_module(pkg, "shard.ring").HashRing,
+                                    n, observer, expo)
+            scaler = cp_module(pkg, "shard.elastic").ShardAutoscaler(
+                fake, observer, sustain=3, cooldown_s=0.0)
+            clock = iter(range(1000, 2000))
+            # the autoscaler times its cooldown on the monotonic clock:
+            # its ticks run past the current reading
+            base = time.monotonic() + 10.0
+
+            def tick():
+                now = float(next(clock))
+                observer.tick(now=now)
+                return scaler.tick(base + now)
+
+            out = script(scaler, fake, observer, expo, tick)
+            for d in scaler.decisions:
+                d["t"] = round(d["t"] - base, 3)
+            series = sorted(
+                (s["labels"]["instance"], s["labels"].get("namespace", ""),
+                 s["points"])
+                for name in ("workqueue_depth", "workqueue_namespace_depth")
+                for s in observer.tsdb.range(name, window_s=1e6,
+                                             now=3000.0))
+            got[pkg] = (out, fake.calls, scaler.decisions,
+                        fake.router.ring.members, series,
+                        observer.tsdb.scrape_errors)
+        finally:
+            expo.close()
+    assert got["port"] == got["jax"]
+    return got["port"]
+
+
+def test_autoscaler_over_a_real_observer_merges_on_federated_idle():
+    """Three idle shards federated through the TSDB: ``sustain`` idle
+    ticks merge back to ``min_shards`` (the youngest retired, its scrape
+    removed); a split and a carve never happen."""
+    def script(scaler, fake, observer, expo, tick):
+        decisions = [tick() for _ in range(6)]
+        assert decisions == ["hold", "hold", "merge", "hold", "hold",
+                             "hold"]
+        assert fake.calls == ["merge"]
+        return decisions
+
+    decisions, calls, log, members, series, errors = _observed(script, 3)
+    assert members == ["shard-0", "shard-1"] and errors == 0
+    assert [d["mean_depth"] for d in log] == [0.0] * 6
+    # shard-2's series stop at the merge: no scrape after its removal
+    last = {inst: pts[-1][0] for inst, ns, pts in series if not ns}
+    assert last["shard-2"] == 1002.0 and last["shard-0"] == 1005.0
+
+
+def test_autoscaler_over_a_real_observer_splits_then_carves():
+    """Federated depth on every shard splits after ``sustain`` ticks (the
+    new shard's scrape added); one namespace dominating a deep shard then
+    carves it a dedicated shard."""
+    def script(scaler, fake, observer, expo, tick):
+        for s in ("shard-0", "shard-1"):
+            expo.set(s, 50.0)
+        first = [tick() for _ in range(3)]
+        assert first == ["hold", "hold", "split"]
+        ring = fake.router.ring
+        home = ring.shard_for("hotspot")
+        for s in ring.members:
+            expo.set(s, 40.0 if s == home else 2.0,
+                     {"hotspot": 36.0, "quiet": 4.0} if s == home else None)
+        second = [tick() for _ in range(3)]
+        assert second[-1] == "carve"
+        assert fake.calls == ["split", "carve:hotspot"]
+        return first + second
+
+    decisions, calls, log, members, series, errors = _observed(script, 2)
+    assert members == ["shard-0", "shard-1", "shard-2", "shard-3"]
+    assert log[2]["mean_depth"] == 50.0 and errors == 0
+
+
 # ---- watchdog interplay (the intentional-shutdown handshake) -----------------
 
 class _FakeProc:

@@ -13,6 +13,7 @@ and turned off in ``finally``.
 """
 
 import threading
+import time
 
 import pytest
 
@@ -21,8 +22,8 @@ from kubeflow_rm_tpu.analysis import lockgraph as jlg
 from kubeflow_rm_tpu_torch.analysis import lockgraph as tlg
 
 from tests.torch_cp_parity import (
-    DEFAULT_SWITCHES, NS, Side, jax_switch_defaults, parity, reset_uids,
-    stop_fanout,
+    DEFAULT_SWITCHES, NS, Side, cp_module, jax_switch_defaults, parity,
+    reset_uids, stop_fanout,
 )
 
 #: every lock family the port's control plane makes (``make_lock`` /
@@ -45,6 +46,9 @@ CONTROL_PLANE_FAMILIES = (
     # the shard processes (7e-3): the handoff coordinator and the
     # supervisor's membership map
     "shard.elastic", "shard.watchdog",
+    # the observability loop (7f-1): the SLO engine, the TSDB and the
+    # flight recorder
+    "obs.engine", "obs.tsdb", "obs.flight",
 )
 
 
@@ -421,6 +425,50 @@ def test_split_and_merge_lock_order_is_clean(tmp_path):
         # and remove_shard inside the split and the merge)
         assert {"from": "shard.elastic", "to": "shard.watchdog"} in [
             {k: e[k] for k in ("from", "to")} for e in rep["edges"]]
+
+
+def test_observer_lock_order_is_clean():
+    """The observability loop's three families (the SLO engine 470, the
+    TSDB 480, the flight recorder 490) across a tick whose critical
+    transition auto-triggers a bundle, an explicit trigger and a shard's
+    death: no cycle, no rank inversion, no downhill or unranked edge, in
+    the port as in JAX."""
+    reports = {}
+    for pkg, lg in (("port", tlg), ("jax", jlg)):
+        slo = cp_module(pkg, "obs.slo")
+        lg.set_enabled(True)
+        lg.reset()
+        try:
+            o = cp_module(pkg, "obs").Observer(
+                interval_s=1.0, liveness=lambda: {"shard-0": True},
+                slos=[slo.GaugeSLO(
+                    name="frag", metric="obs_lock_frag", threshold=1.0,
+                    windows=(slo.Window(60.0, 10.0, 1.0, "critical"),))])
+            o.flight.min_interval_s = 0.0
+            now = time.time()
+            for t in range(0, 101, 5):
+                o.tsdb.ingest(now - 100.0 + t, "obs_lock_frag", {},
+                              "gauge", 2.0)
+            fired = o.tick(now=now)
+            assert [tr["to"] for tr in fired] == ["critical"]
+            assert o.flight.trigger("explicit") is not None
+            assert o.on_shard_death("shard-0", -9) is not None
+            assert [b["trigger"]["reason"] for b in o.flight.bundles()] \
+                == ["alert_critical", "explicit", "shard_death"]
+            reports[pkg] = lg.report()
+        finally:
+            lg.reset()
+            lg.set_enabled(False)
+    port, jax = reports["port"], reports["jax"]
+    assert tlg.check_edges(port["edges"]) == []
+    assert jhier.check_edges(jax["edges"]) == []
+    for rep in (port, jax):
+        assert rep["cycles"] == [] and rep["order_violations"] == []
+        assert {"obs.engine", "obs.tsdb", "obs.flight"} <= set(rep["locks"])
+    for name in ("obs.engine", "obs.tsdb", "obs.flight"):
+        assert tlg.LOCK_HIERARCHY[name] == jhier.LOCK_HIERARCHY[name]
+    assert [tlg.LOCK_HIERARCHY[n] for n in (
+        "obs.engine", "obs.tsdb", "obs.flight")] == [470, 480, 490]
 
 
 def test_zz_jax_switches_hold_defaults():

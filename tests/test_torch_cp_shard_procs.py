@@ -67,11 +67,12 @@ def _gone(pid: int) -> bool:
 
 
 @contextlib.contextmanager
-def running(tmp_path, n=2, limit=120):
+def running(tmp_path, n=2, limit=120, tracing=False):
     """A started ``ShardRunner(n)``, stopped in ``finally``; every pid it
     ever had is dead afterwards."""
     with time_limit(limit):
-        runner = ShardRunner(n, base_dir=str(tmp_path), manager_workers=2)
+        runner = ShardRunner(n, base_dir=str(tmp_path), manager_workers=2,
+                             tracing=tracing)
         seen: set[int] = set()
         try:
             runner.start(timeout=90)
@@ -260,6 +261,84 @@ def test_stop_leaves_no_worker_alive(tmp_path):
         seen.add(runner.pids()["shard-1"])
         runner.wait_ready(60, names=["shard-1"])
     assert len(seen) == 3
+
+
+def test_traced_workers_export_spans_and_a_kill_records_a_bundle(tmp_path):
+    """Traced workers: a create made under a span of this process opens a
+    server span in the owning shard, which ``/debug/traces`` serves under
+    the shard's name as the child of this process's span. An
+    ``Observer`` over the workers (``shard_urls``, ``liveness``, the
+    watchdog's ``on_death``) federates every shard's ``/metrics`` under
+    its ``instance``, and a SIGKILL records one ``shard_death`` bundle
+    naming the shard and its exit code, whose slow traces merge this
+    process's span with the shard's."""
+    import json
+
+    from kubeflow_rm_tpu_torch.controlplane import obs, tracing
+
+    with running(tmp_path, tracing=True) as (runner, seen):
+        router = ShardedKubeAPIServer(runner.urls, retry_window_s=20)
+        observer = obs.Observer(
+            interval_s=1.0, shard_urls=runner.urls,
+            liveness=runner.liveness,
+            run_meta=obs.build_run_meta("shard_procs", {"shards": 2}))
+        runner.set_on_death(observer.on_shard_death)
+        ns = "traced"
+        owner = router.shard_of("Pod", None, ns)
+        router.ensure_namespace(ns)
+        tracing.set_enabled(True)
+        tracing.set_process("coordinator")
+        tracing.collector().clear()
+        try:
+            with tracing.start_span("test.create") as root:
+                router.create(_pod("p0", ns))
+                time.sleep(tracing.collector().slow_threshold_s)
+            with urllib.request.urlopen(runner.urls[owner] + "/debug/traces",
+                                        timeout=10) as r:
+                body = json.loads(r.read())
+            assert body["process"] == owner
+            mine = [d for d in body["spans"]
+                    if d["trace_id"] == root.trace_id]
+            assert any(d["kind"] == "server"
+                       and d["parent_id"] == root.span_id
+                       and d["name"].startswith("POST ") for d in mine)
+            assert body["slow"] == []   # the trace's root lives here
+
+            # no tick before the death: the death's own tick is the
+            # first sample, so shard-deaths cannot go critical and spend
+            # the rate limit on an alert bundle first
+            victim = "shard-1"
+            pid = runner.pids()[victim]
+            runner.kill(victim)
+            _poll(lambda: [b for b in observer.flight.bundles()
+                           if b["trigger"]["reason"] == "shard_death"],
+                  30, "the shard_death bundle")
+            seen.add(runner.pids()[victim])
+            runner.wait_ready(60, names=[victim])
+        finally:
+            tracing.set_enabled(False)
+            tracing.set_process("")
+            tracing.collector().clear()
+        (bundle,) = observer.flight.bundles()
+        assert bundle["trigger"]["detail"] == {"shard": victim,
+                                               "exitcode": -9}
+        assert pid != runner.pids()[victim]
+        assert {"metrics", "alerts", "slow_traces", "shard_liveness",
+                "lockgraph", "run_meta"} <= set(bundle)
+        # the survivor's series; the victim was down when it was scraped
+        assert "shard-0" in {s["labels"].get("instance")
+                             for s in bundle["metrics"]}
+        assert bundle["shard_liveness"]["shard-0"] is True
+        observer.tick()
+        assert sorted(observer.tsdb.label_values(
+            "workqueue_depth", "instance")) == ["shard-0", "shard-1"]
+        (slow,) = [t for t in bundle["slow_traces"]
+                   if t["trace_id"] == root.trace_id]
+        assert "coordinator" in slow["processes"]
+        assert owner in slow["processes"] or owner == victim
+        assert sum(h["self_ms"] for h in slow["critical_path"]) == \
+            pytest.approx(slow["duration_ms"], abs=1.0)
+        assert observer.alerts()["flight"]["triggered_total"] == 1
 
 
 class _FakeProc:

@@ -25,7 +25,13 @@ respawned) while a writer creates pods in moving namespaces, the
 notebook's shard SIGKILLed and respawned from its WAL with the same
 uids and resourceVersions, the pod's one step equal to arm B's step 1,
 a merge that is not a death, the zero-loss audit after both handoffs,
-and no worker left after ``stop()``. Every gate of the phase holds, as
+and no worker left after ``stop()`` — all of it watched by a real
+``Observer``: its TSDB federating the three shard processes, its flight
+recorder taking the chaos trigger and the supervisor's death hook (each
+death a ``shard_death`` bundle or a suppression; the owner's bundle
+whole, with slow traces from this process and the shards whose critical
+paths sum to their durations), and a ``ShardAutoscaler`` making the
+merge on the federated queue depth. Every gate of the phase holds, as
 on the card."""
 
 import json
@@ -91,7 +97,8 @@ def test_controlplane_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
                                   "delete", "teardown"]
     e = line["arm_e"]
     assert list(e["steps_s"]) == ["start", "profile", "spawn", "split",
-                                  "merge", "teardown"]
+                                  "federate", "owner_wait", "merge",
+                                  "autoscale", "teardown"]
     assert e["split"]["shard"] == "shard-2" == e["merge"]["shard"]
     assert e["split"]["objects_bulk"] > 0 and e["merge"]["objects_bulk"] > 0
     assert e["chaos_victim"] in ("shard-0", "shard-1")
@@ -107,6 +114,26 @@ def test_controlplane_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
     sup = e["counters"]["supervisor"]
     assert sup["shard_splits_total"] >= 1 and sup["shard_merges_total"] >= 1
     assert sup["shard_deaths_total"] >= 2
+    # the observer: the chaos donor's death and the owner's, each a
+    # bundle or a suppression, the owner's a bundle
+    o = e["observer"]
+    assert o["deaths"] == 2
+    assert {"shard": e["owner"], "exitcode": -9} in o["death_bundles"]
+    assert o["deaths"] - len(o["death_bundles"]) <= o["suppressed"]
+    assert o["shard_deaths_before_kill"] == "critical"
+    b = o["owner_bundle"]
+    assert b["slow_traces"] >= 1 and "coordinator" in b["processes"]
+    assert all(abs(d - p) <= 1.0 for d, p in b["duration_vs_path_ms"])
+    assert {"shard-0", "shard-1", "shard-2"} - {e["owner"]} <= \
+        set(b["instances"])
+    assert [d["decision"] for d in o["decisions"]][-1] == "merge"
+    assert not {"split", "carve"} & {d["decision"] for d in o["decisions"]}
+    assert sorted(o["federated"]) == ["shard-0", "shard-1", "shard-2"]
+    assert o["drift"] is None and o["drift_state"] == "ok"
+    assert {n for n, st in o["not_ok"].items() if st == "critical"} <= {
+        "shard-deaths"}
+    assert o["tsdb"]["series"] > 0 and o["tsdb"]["evictions"] == 0
+    assert o["ticks"] > 0 and o["flight"]["triggered_total"] >= 2
 
 
 def test_zz_jax_switches_hold_defaults():

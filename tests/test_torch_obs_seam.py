@@ -122,17 +122,27 @@ def test_tenant_of_matches_jax():
 
 
 def test_rate_limits_are_jaxs():
-    specs = {s.metric: s for s in jslo.default_slos()
-             if s.name in ("jit-recompile-storm", "implicit-hostsync-storm",
-                           "declared-hbm-drift")}
-    for metric, limit in tslo.RATE_LIMITS_PER_S.items():
-        assert specs[metric].allowed_per_s == limit
-    assert specs["declared_hbm_drift_ratio"].threshold == \
-        tslo.DECLARED_HBM_DRIFT_LIMIT
+    """The SLOs on the bridged series and on the drift gauge, read off
+    each package's ``default_slos()``: the same names, kinds, windows and
+    thresholds."""
+    names = ("jit-recompile-storm", "implicit-hostsync-storm",
+             "declared-hbm-drift")
+    specs = {}
+    for pkg, mod in (("jax", jslo), ("port", tslo)):
+        specs[pkg] = {s.name: s.spec() for s in mod.default_slos()
+                      if s.name in names}
+        for spec in specs[pkg].values():
+            spec.pop("description")
+    assert specs["port"] == specs["jax"] and len(specs["port"]) == 3
+    limits = {s.metric: s.allowed_per_s for s in tslo.default_slos()
+              if isinstance(s, tslo.TenantRateSLO)}
+    assert limits == {"jit_recompiles_total": 1.0 / 30.0,
+                      "implicit_hostsyncs_total": 1.0 / 30.0}
+    assert specs["port"]["declared-hbm-drift"]["threshold"] == 0.2
     # in the port's terms: one implicit sync a step of a 0.6 s step
     # burns the budget fifty-fold
-    assert (1 / 0.6) / tslo.RATE_LIMITS_PER_S[
-        "implicit_hostsyncs_total"] == pytest.approx(50.0)
+    assert (1 / 0.6) / limits["implicit_hostsyncs_total"] == \
+        pytest.approx(50.0)
 
 
 @pytest.mark.parametrize("recipe", ["lora", "adafactor"])

@@ -108,11 +108,17 @@ def test_port_files_exist():
     # elastic split/merge with the autoscaler
     assert {f"kubeflow_rm_tpu_torch/controlplane/shard/{f}.py" for f in (
         "worker", "runner", "elastic")} <= names
+    # the observability loop (7f-1): the TSDB, the SLO engine, the
+    # flight recorder, run_meta and the Observer, each at JAX's path
+    assert {f"kubeflow_rm_tpu_torch/controlplane/obs/{f}.py" for f in (
+        "__init__", "timeseries", "slo", "flight", "runmeta")} <= names
 
 
 def test_shard_modules_keep_jax_public_names():
-    """The shard processes sit at JAX's paths with JAX's public names, and
-    the router has the elastic verbs the handoff drives."""
+    """The shard processes and the observability loop sit at JAX's paths
+    with JAX's public names (the port's ``obs`` exports every name of
+    JAX's ``__all__``), and the router has the elastic verbs the handoff
+    drives."""
     import importlib
 
     for mod, names in (
@@ -121,7 +127,11 @@ def test_shard_modules_keep_jax_public_names():
                               "LEASE_RENEW_S", "LEASE_RETRY_S")),
             ("shard.runner", ("ShardRunner",)),
             ("shard.elastic", ("ElasticShardManager", "ShardAutoscaler",
-                               "partition_key", "LOCAL_KINDS"))):
+                               "partition_key", "LOCAL_KINDS")),
+            ("obs", tuple(importlib.import_module(
+                "kubeflow_rm_tpu.controlplane.obs").__all__)),
+            ("tracing", ("SpanCollector", "critical_path", "merge_spans",
+                         "current_span", "current_context"))):
         port = importlib.import_module(f"kubeflow_rm_tpu_torch.controlplane."
                                        f"{mod}")
         for name in names:
