@@ -112,7 +112,19 @@ prints one JSON line per phase:
    reported Failed is re-created and bound again; the notebook, idle
    for 11 minutes on the clock, is culled (replicas 0, the card free,
    ``notebook_cull_total`` + 1); a TPUJob of one worker binds the freed
-   card; the teardown leaves nothing of the profile's namespace. Arm C,
+   card; the teardown leaves nothing of the profile's namespace. The
+   jupyter and KFAM web apps run over arm B's apiserver on a threaded
+   ``wsgiref`` server on 127.0.0.1 (:class:`WebAppServer`; the owner's
+   identity header and a CSRF cookie and header pair): a client parks a
+   readiness long-poll on ``ft`` before the manager reconciles it and
+   polls until ``ready`` (the hub's wake counted in
+   ``readiness_wake_to_observe_seconds``, ``readiness_waiters`` back at
+   0); the spawner lists ``ft`` ``ready`` on ``h100-80gb-1``, its pod
+   Running on ``gpu-0``, and offers ``h100-80gb-1``; KFAM makes a
+   contributor an editor, whose ``ft2`` spawned through the form is the
+   one the quota refuses; a user with no binding gets JAX's 403; the
+   listing reads ``stopped`` after the cull; both notebooks are deleted
+   through the app. Arm C,
    JAX's defaults with ``enable_suspend=True`` and a
    ``CheckpointerStateStore`` over the port's ``Checkpointer`` on the
    pod's checkpoint directory (a temporary one, removed after), in a
@@ -4844,6 +4856,129 @@ class JupyterStandIn:
         self.thread.join(30)
 
 
+#: arm B's contributor (granted ``edit`` through KFAM) and a user with no
+#: binding in the profile's namespace
+CP_CONTRIBUTOR = "contrib@example.com"
+CP_STRANGER = "stranger@example.com"
+#: a readiness long-poll's own timeout and the most polls one wait takes
+CP_POLL_TIMEOUT_S, CP_POLL_MAX = 30, 200
+
+
+class WebAppServer:
+    """The platform's notebook-facing web apps over ``api`` on 127.0.0.1:
+    the jupyter app under ``/jupyter`` (where the SPA calls it) and KFAM
+    at ``/kfam/``, served by a threaded ``wsgiref`` server (a thread a
+    request, so a parked readiness long-poll holds no other request
+    back). :meth:`call` sends a user's request as the mesh's auth proxy
+    and the SPA present it: the ``kubeflow-userid`` header and a CSRF
+    cookie and header pair; each request's seconds are kept by name.
+    :meth:`close` stops the server."""
+
+    def __init__(self, api):
+        import secrets
+        import socketserver
+        import urllib.request
+        from wsgiref.simple_server import (
+            WSGIRequestHandler, WSGIServer, make_server,
+        )
+
+        from kubeflow_rm_tpu_torch.controlplane.webapps import jupyter, kfam
+
+        self.jupyter = jupyter.create_app(api, prefix="/jupyter")
+        self.kfam = kfam.create_app(api)
+
+        def dispatch(environ, start_response):
+            app = (self.jupyter if environ.get("PATH_INFO", "").startswith(
+                "/jupyter/") else self.kfam)
+            return app(environ, start_response)
+
+        class Server(socketserver.ThreadingMixIn, WSGIServer):
+            daemon_threads = True
+
+        class Quiet(WSGIRequestHandler):
+            def log_message(self, *args):
+                pass
+
+        self.server = make_server("127.0.0.1", 0, dispatch,
+                                  server_class=Server, handler_class=Quiet)
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       name="web-apps", daemon=True)
+        self.thread.start()
+        self.url = f"http://127.0.0.1:{self.server.server_port}"
+        self.token = secrets.token_urlsafe(16)
+        # loopback only: no proxy from the environment
+        self.opener = urllib.request.build_opener(
+            urllib.request.ProxyHandler({}))
+        self.seconds: dict[str, list] = {}
+
+    def call(self, name, method, path, body=None, user=CP_OWNER):
+        """``(status, JSON body)`` of one request as ``user``."""
+        import urllib.error
+        import urllib.request
+
+        data = None if body is None else json.dumps(body).encode()
+        req = urllib.request.Request(self.url + path, data=data,
+                                     method=method)
+        req.add_header("kubeflow-userid", ":" + user)
+        req.add_header("Cookie", f"XSRF-TOKEN={self.token}")
+        req.add_header("X-XSRF-TOKEN", self.token)
+        if data is not None:
+            req.add_header("Content-Type", "application/json")
+        t0 = time.perf_counter()
+        try:
+            with self.opener.open(req, timeout=CP_POLL_TIMEOUT_S + 30) as r:
+                status, raw = r.status, r.read()
+        except urllib.error.HTTPError as e:
+            status, raw = e.code, e.read()
+        self.seconds.setdefault(name, []).append(time.perf_counter() - t0)
+        return status, json.loads(raw)
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(30)
+
+
+class ReadinessPoll:
+    """A client of the spawner's readiness long-poll on a thread: it
+    passes back the last resourceVersion it saw and polls again until
+    the answer says ``ready`` (at most :data:`CP_POLL_MAX` polls). After
+    :meth:`join`: ``polls`` (each poll's status, changed, ready and
+    phase), ``last`` (the ready answer's body) and ``error``."""
+
+    def __init__(self, web, ns, name, known):
+        self.web, self.known = web, known
+        self.path = f"/jupyter/api/namespaces/{ns}/notebooks/{name}/readiness"
+        self.polls, self.last, self.error = [], None, None
+        self.thread = threading.Thread(target=self._run, name="readiness",
+                                       daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        try:
+            known = self.known
+            for _ in range(CP_POLL_MAX):
+                status, body = self.web.call(
+                    "readiness", "GET", f"{self.path}?knownVersion={known}"
+                    f"&timeoutSeconds={CP_POLL_TIMEOUT_S}")
+                nb = body.get("notebook") or {}
+                self.polls.append(dict(
+                    status=status, changed=body.get("changed"),
+                    ready=body.get("ready"),
+                    phase=(nb.get("processed_status") or {}).get("phase")))
+                if status != 200:
+                    return
+                known = nb["metadata"]["resourceVersion"]
+                if body["ready"]:
+                    self.last = body
+                    return
+        except Exception as e:  # noqa: BLE001 - reported by the gate
+            self.error = f"{type(e).__name__}: {e}"
+
+    def join(self, timeout: float) -> None:
+        self.thread.join(timeout)
+
+
 def _cp_check_node(device: str):
     """The node this card is: the table's memory equal to the card's,
     and as many cards on the machine as the slice type has."""
@@ -6379,6 +6514,17 @@ def phase_controlplane(card, train_ref=None, device: str = "cuda",
         return {f"{v}_{r}": metrics.CACHE_READS_TOTAL.get(verb=v, result=r)
                 for v in ("get", "list", "scan") for r in ("hit", "miss")}
 
+    def kfam_counts():
+        return {f"{a}_{r}": metrics.KFAM_REQUESTS_TOTAL.get(action=a, result=r)
+                for a in ("create_binding", "read_bindings")
+                for r in ("success", "error")}
+
+    def wakes():
+        return tuple(metrics.registry_value(
+            f"readiness_wake_to_observe_seconds_{k}") for k in ("count",
+                                                                "sum"))
+
+    web = None
     try:
         api, mgr = make_control_plane(
             clock=clock, enable_culling=True, culler_config=dict(
@@ -6388,6 +6534,11 @@ def phase_controlplane(card, train_ref=None, device: str = "cuda",
               f"arm B's manager reads through {type(mgr.api).__name__}")
         reads0 = reads()
         culls0 = metrics.NOTEBOOK_CULL_TOTAL.get()
+        kfam0 = kfam_counts()
+        wakes0 = wakes()
+        # the notebook-facing web apps over arm B's apiserver
+        web = WebAppServer(api)
+        nbs = f"/jupyter/api/namespaces/{ns}/notebooks"
         api.create(make_gpu_node("gpu-0", CP_ACC))
         sched = scheduler.cache_for(api)
 
@@ -6418,12 +6569,43 @@ def phase_controlplane(card, train_ref=None, device: str = "cuda",
         step("images_poddefault", images_and_poddefault)
 
         # 4. the notebook: locked, resolved, priced, bound, injected, and
-        # given the oauth proxy and the auth companion's objects
-        made = step("spawn", lambda: api.create(nb_api.make_notebook(
-            "ft", ns, image=CP_IMAGE, accelerator_type=CP_ACC,
-            labels=dict(CP_POD_LABEL),
-            annotations={gpu.DECLARED_WORKLOAD_ANNOTATION: json.dumps(decl),
-                         OAUTH_INJECT_ANNOTATION: "true"})))
+        # given the oauth proxy and the auth companion's objects. It is
+        # made through the apiserver (the spawner's form carries neither
+        # the declared workload nor the oauth annotation); a client of
+        # the spawner parks a readiness long-poll on it before the
+        # manager reconciles, and polls until it reads ``ready``
+        poll_box = []
+
+        def spawn():
+            made = api.create(nb_api.make_notebook(
+                "ft", ns, image=CP_IMAGE, accelerator_type=CP_ACC,
+                labels=dict(CP_POD_LABEL),
+                annotations={
+                    gpu.DECLARED_WORKLOAD_ANNOTATION: json.dumps(decl),
+                    OAUTH_INJECT_ANNOTATION: "true"}))
+            t0 = time.perf_counter()
+            poll_box.append(ReadinessPoll(
+                web, ns, "ft", made["metadata"]["resourceVersion"]))
+            while metrics.READINESS_WAITERS.get() < 1:
+                check(time.perf_counter() - t0 < 30 and not
+                      poll_box[0].polls, "the readiness poll never parked")
+                time.sleep(0.001)
+            poll_box.append(time.perf_counter() - t0)
+            return made
+        made = step("spawn", spawn)
+        poll, park_s = poll_box
+        poll.join(CP_POLL_TIMEOUT_S + 60)
+        check(poll.error is None and poll.last is not None,
+              f"the readiness poll: {poll.error} {poll.polls}")
+        wakes1 = wakes()
+        longpoll = dict(
+            polls=poll.polls, park_s=park_s, wakes=wakes1[0] - wakes0[0],
+            wake_to_observe_s=wakes1[1] - wakes0[1],
+            waiters_after=metrics.READINESS_WAITERS.get())
+        check(poll.last["notebook"]["processed_status"]["phase"] == "ready"
+              and longpoll["wakes"] >= 1
+              and longpoll["waiters_after"] == 0,
+              f"the readiness long-poll: {longpoll}")
         check(made["metadata"]["annotations"].get(
             nb_api.STOP_ANNOTATION) == LOCK_VALUE,
             f"the lock at admission: {made['metadata']['annotations']}")
@@ -6457,15 +6639,59 @@ def phase_controlplane(card, train_ref=None, device: str = "cuda",
         check(sched.stats()["free_chips"] == 0.0, "free cards after the bind")
         predicted = float(pod["metadata"]["annotations"][
             gpu.PREDICTED_HBM_ANNOTATION])
+        # the spawner's views of it: the listing, the slice's pods, the
+        # types on offer
+        listed = web.call("list", "GET", nbs)
+        pods = web.call("pods", "GET", f"{nbs}/ft/pods")
+        offered = web.call("tpus", "GET", "/jupyter/api/tpus")
+        entries = [(e["name"], e["status"]["phase"],
+                    (e["tpu"] or {}).get("acceleratorType"))
+                   for e in listed[1].get("notebooks", [])]
+        check(listed[0] == 200 and entries == [("ft", "ready", CP_ACC)]
+              and pods[0] == 200 and pods[1]["pods"] == [dict(
+                  name="ft-0", phase="Running", nodeName="gpu-0")]
+              and offered[0] == 200 and [t["acceleratorType"] for t in
+                                         offered[1]["tpus"]] == [CP_ACC],
+              f"the spawner's views: {listed} {pods} {offered}")
 
         # 5. the pod's container
         result, child_s, substituted = _cp_child(env, decl, steps, device)
 
-        # 6. the quota: a second notebook of one card is refused whole
-        def second():
-            api.create(nb_api.make_notebook(
-                "ft2", ns, image=CP_IMAGE, accelerator_type=CP_ACC))
-        step("quota", second)
+        # 6. the quota: KFAM makes a contributor an editor of the
+        # namespace, whose second notebook of one card, spawned through
+        # the form, is refused whole; a user with no binding is refused
+        # by the web app
+        granted = step("kfam_binding", lambda: web.call(
+            "kfam_binding", "POST", "/kfam/v1/bindings", {
+                "user": {"kind": "User", "name": CP_CONTRIBUTOR},
+                "referredNamespace": ns,
+                "roleRef": {"kind": "ClusterRole", "name": "edit"}}))
+        bindings = web.call("kfam_bindings", "GET",
+                            f"/kfam/v1/bindings?namespace={ns}")
+        check(granted[0] == 200 and bindings[0] == 200 and [
+            (b["user"]["name"], b["roleRef"]["name"])
+            for b in bindings[1]["bindings"]] == [(CP_CONTRIBUTOR, "edit")],
+            f"the KFAM binding: {granted} {bindings}")
+        form = {"name": "ft2", "image": CP_IMAGE,
+                "imagePullPolicy": "IfNotPresent", "serverType": "jupyter",
+                "cpu": "4", "memory": "16Gi",
+                "tpu": {"acceleratorType": CP_ACC},
+                "tolerationGroup": "none", "affinityConfig": "none",
+                "configurations": [], "shm": True, "environment": {},
+                "datavols": []}
+        posted = step("quota", lambda: web.call(
+            "spawn_form", "POST", nbs, form, user=CP_CONTRIBUTOR))
+        stranger = web.call("stranger", "POST", nbs, dict(form, name="ft3"),
+                            user=CP_STRANGER)
+        check(posted[0] == 200 and stranger == (403, {
+            "success": False, "status": 403, "user": CP_STRANGER,
+            "log": f"User '{CP_STRANGER}' is not authorized to create "
+                   f"notebooks in namespace '{ns}'"})
+              and api.get(nb_api.KIND, "ft2", ns)["metadata"][
+                  "annotations"].get("notebooks.kubeflow.org/creator")
+              == CP_CONTRIBUTOR
+              and api.try_get(nb_api.KIND, "ft3", ns) is None,
+              f"the form's spawns: {posted} {stranger}")
         refusals = [e["message"] for e in api.events_for(
             api.get("StatefulSet", "ft2", ns))
             if e["reason"] == "SliceAdmissionFailed"]
@@ -6487,7 +6713,10 @@ def phase_controlplane(card, train_ref=None, device: str = "cuda",
               f"the quota's refusal: {refusals} {denied}")
         check(api.get("Pod", "ft-0", ns)["spec"]["nodeName"] == "gpu-0",
               "ft-0 lost its card to the refused notebook")
-        step("quota_delete", lambda: api.delete(nb_api.KIND, "ft2", ns))
+        deleted = step("quota_delete", lambda: web.call(
+            "delete", "DELETE", f"{nbs}/ft2", user=CP_CONTRIBUTOR))
+        check(deleted[0] == 200 and api.try_get(nb_api.KIND, "ft2", ns)
+              is None, f"ft2's delete through the app: {deleted}")
 
         # 7. slice health: the kubelet reports the pod Failed, as after
         # an Xid error or an OOM kill
@@ -6527,6 +6756,11 @@ def phase_controlplane(card, train_ref=None, device: str = "cuda",
               and culled["replicas"] == 0 and culled["pods"] == 0
               and culled["free_cards"] == 1.0 and culled["culls"] == 1,
               f"after the idle time: {culled}")
+        listed = web.call("list", "GET", nbs)
+        check(listed[0] == 200 and [
+            (e["name"], e["status"]["phase"])
+            for e in listed[1]["notebooks"]] == [("ft", "stopped")],
+            f"the spawner's listing after the cull: {listed}")
 
         # 9. a TPUJob of one worker on the freed card
         step("tpujob", lambda: api.create(tj_api.make_tpujob(
@@ -6545,11 +6779,14 @@ def phase_controlplane(card, train_ref=None, device: str = "cuda",
         check(api.list("Pod", ns) == [] and sched.stats()[
             "free_chips"] == 1.0, "the TPUJob's pod was not collected")
 
-        # 10. teardown: the notebook, then the profile and its namespace
+        # 10. teardown: the notebook through the app, then the profile
+        # and its namespace
         def teardown():
-            api.delete(nb_api.KIND, "ft", ns)
+            out = web.call("delete", "DELETE", f"{nbs}/ft")
             api.delete("Profile", ns)
-        step("teardown", teardown)
+            return out
+        deleted = step("teardown", teardown)
+        check(deleted[0] == 200, f"ft's delete through the app: {deleted}")
         left = {k: len(api.list(k, ns)) for k in sorted(api._by_kind)
                 if api.list(k, ns)}
         check(not left and api.try_get("Profile", ns) is None
@@ -6557,7 +6794,10 @@ def phase_controlplane(card, train_ref=None, device: str = "cuda",
               f"left after the teardown: {left}")
         store = mgr.api.store.stats()
         reads1 = reads()
+        kfam1 = kfam_counts()
     finally:
+        if web is not None:
+            web.close()
         jupyter.close()
 
     losses, launches = result["losses"], result["launches"]
@@ -6578,7 +6818,9 @@ def phase_controlplane(card, train_ref=None, device: str = "cuda",
                     cache_reads=cache,
                     cache_hit_ratio=hits / max(1, sum(cache.values())),
                     informer=store, culled=culled, restarted=restarted,
-                    quota_refusal=refusals, quota_denied=denied),
+                    quota_refusal=refusals, quota_denied=denied,
+                    web_s=web.seconds, longpoll=longpoll,
+                    kfam={k: kfam1[k] - kfam0[k] for k in kfam0}),
          admission={k: adm.get(k) for k in (
              "verdict", "predicted_peak_gb", "budget_per_chip_gb", "binds",
              "flops_per_step", "workload")},

@@ -132,6 +132,12 @@ LOCK_HIERARCHY: dict[str, int] = {
     # the shard supervisor's membership map: spawn and retire under it,
     # never a call out
     "shard.watchdog": 370,
+    # -- the web apps: the readiness hub's key registry, its per-notebook
+    # condvars (a waiter's registration takes the key's under the
+    # registry) and the jupyter app's lazy hub
+    "readiness.registry": 410,
+    "readiness.key": 420,
+    "jupyter.hub_registry": 430,
     # the lease table only: every gang_bind and fleet drain runs after
     # it is released, but it logically precedes routing into the fleet
     "harvest.controller": 433,

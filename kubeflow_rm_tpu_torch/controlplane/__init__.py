@@ -42,9 +42,16 @@ process a shard (:mod:`.shard.worker`) under a supervisor that respawns a
 killed shard in place from its WAL (:mod:`.shard.runner`), and the live
 split/merge with its autoscaler (:mod:`.shard.elastic`).
 
-Not ported yet: ``obs/`` beyond its seams (ROADMAP slice 7f-1), and the
-web apps with ``controlplane/__main__.py``, the entry point the
-manifests' commands name (7f-2).
+The observability loop (:mod:`.obs`): the TSDB, the SLO engine, the
+flight recorder and the Observer over the shards. The notebook-facing
+web apps (:mod:`.webapps`): the standard-library WSGI kit
+(:mod:`.webapps.core`: authn, authz, CSRF, probes, envelopes), the status
+ladder, the readiness hub behind the spawner's long-poll, the Jupyter
+spawner, volumes, TensorBoards and KFAM.
+
+Not ported yet (ROADMAP slice 7f-2b): the dashboard, ``metrics_service``,
+the SPA, the gateway and ``controlplane/__main__.py``, the entry point
+the manifests' commands name.
 """
 
 from __future__ import annotations

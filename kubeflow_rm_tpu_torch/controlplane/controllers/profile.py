@@ -14,10 +14,7 @@ the GCP Workload Identity plugin replaces the AWS-first ordering. A
 ``profile-finalizer`` gates deletion on ``plugin.revoke`` so external
 grants (Workload Identity bindings) are cleaned up (``:297-331``).
 
-(The port's copy of ``kubeflow_rm_tpu/controlplane/controllers/profile.py``.
-Beside these docstring words: ``USER_HEADER`` and ``USER_PREFIX`` are
-the port's own copies of ``webapps/core.py``'s two constants, whose web
-apps wait for ROADMAP slice 7f.)
+(The port's copy of ``kubeflow_rm_tpu/controlplane/controllers/profile.py``.)
 """
 
 from __future__ import annotations
@@ -38,11 +35,9 @@ from kubeflow_rm_tpu_torch.controlplane.runtime import (
     copy_simple_spec,
     reconcile_child,
 )
-
-#: the identity header and its value prefix (JAX: ``webapps/core.py``)
-USER_HEADER = "kubeflow-userid"
-USER_PREFIX = ":"
-
+from kubeflow_rm_tpu_torch.controlplane.webapps.core import (
+    USER_HEADER, USER_PREFIX,
+)
 
 #: ref profile_controller.go:57
 FINALIZER = "profile-finalizer"

@@ -5,14 +5,16 @@ machine does not have): the seams', the serving fleet's, and the spawn
 path's (apiserver watch fan-out, work queues, reconciles, the scheduler
 cache) and the rest of the control plane's (culling, profiles, TPUJobs,
 the informer cache, suspend/resume, harvesting, the WAL, leader
-election and the shard ring), each under JAX's series name.
+election and the shard ring) and the web apps' (KFAM's requests, the
+readiness hub), each under JAX's series name.
 :func:`registry_value` reads a sample back by its scraped name, as JAX's does.
 
 A metric is labelled like ``prometheus_client``'s: ``.labels(...)``
 (label values by name or in ``labelnames`` order) gives the child
-series, which ``.inc()``s (counter), ``.set()``s (gauge) or
-``.observe()``s (histogram), and ``.get()`` reads it back (a
-histogram's: its count). :func:`render` (and :func:`scrape`, its bytes)
+series, which ``.inc()``s (counter), ``.set()``s, ``.inc()``s or
+``.dec()``s (gauge) or ``.observe()``s (histogram), and ``.get()``
+reads it back (a histogram's: its count). :func:`render` (and
+:func:`scrape`, its bytes)
 writes the Prometheus text format under the JAX control plane's series
 names: a counter's series carries one ``_total`` suffix, whether or not
 its name already ended in it (``serving_migrations`` scrapes as
@@ -59,6 +61,17 @@ class _Series:
 
     def samples(self, name: str, labels: dict) -> list[tuple]:
         return [(name, labels, self.get())]
+
+
+class _GaugeSeries(_Series):
+    """A gauge's series: it also goes down."""
+
+    def inc(self, amount: float = 1.0) -> None:
+        with self._lock:
+            self._value += amount
+
+    def dec(self, amount: float = 1.0) -> None:
+        self.inc(-amount)
 
 
 class _HistogramSeries:
@@ -202,8 +215,17 @@ class Counter(_Metric):
 class Gauge(_Metric):
     kind = "gauge"
 
+    def _new_series(self):
+        return _GaugeSeries()
+
     def set(self, value: float) -> None:
         self._unlabelled().set(value)
+
+    def inc(self, amount: float = 1.0) -> None:
+        self._unlabelled().inc(amount)
+
+    def dec(self, amount: float = 1.0) -> None:
+        self._unlabelled().dec(amount)
 
 
 class Histogram(_Metric):
@@ -610,6 +632,26 @@ HARVESTED_CHIPS = Gauge(
     "capacity a notebook resume reclaims instantly",
 )
 
+
+
+# ---- the web apps (JAX: controlplane/metrics.py:54-59, 237-249)
+KFAM_REQUESTS_TOTAL = Counter(
+    "kfam_requests_total",
+    "KFAM API requests by action and result "
+    "(ref access-management/kfam/monitoring.go:46-77)",
+    ["action", "result"],
+)
+READINESS_WAKE_TO_OBSERVE_SECONDS = Histogram(
+    "readiness_wake_to_observe_seconds",
+    "Watch-event arrival at the web app's readiness hub to a blocked "
+    "readiness long-poll observing the change — the push-path latency "
+    "that replaces the client's fixed-interval status polling",
+    buckets=(0.0001, 0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0),
+)
+READINESS_WAITERS = Gauge(
+    "readiness_waiters",
+    "Readiness long-polls currently blocked on the hub",
+)
 
 
 # ---- the rest of the control plane: culling, profiles, TPUJobs and the

@@ -39,18 +39,20 @@ JSON section).
 from __future__ import annotations
 
 import contextlib
+import http
 import json
 import threading
 import time
 from dataclasses import dataclass
 
-import torch
-
 from kubeflow_rm_tpu_torch.analysis.lockgraph import make_lock
 from kubeflow_rm_tpu_torch.controlplane import metrics as cp_metrics
 from kubeflow_rm_tpu_torch.controlplane import tracing
 from kubeflow_rm_tpu_torch.controlplane.deploy.kubeclient import TokenBucket
-from kubeflow_rm_tpu_torch.models.generate import SLO_CLASSES
+
+# torch and the model stack are imported where an engine runs: the web
+# apps (``core``) build on this module's WSGI surface, and the control
+# plane's processes that serve them import no torch
 
 
 @dataclass(frozen=True)
@@ -104,6 +106,8 @@ class _Pending:
 def engine_context(engine):
     """The context every engine call runs in: autograd off, and on a CUDA
     engine its card as the current device (both are per thread)."""
+    import torch
+
     stack = contextlib.ExitStack()
     stack.enter_context(torch.no_grad())
     if engine.device.type == "cuda":
@@ -319,6 +323,8 @@ class ServingGateway:
         p.event.set()
 
     def _drain(self) -> None:
+        import torch
+
         if self.engine.device.type == "cuda":
             torch.cuda.set_device(self.engine.device)
         while not self._stop.is_set():
@@ -416,9 +422,9 @@ class ServingGateway:
 
 # -- the standard-library WSGI surface (shared with serving_fleet) -------
 
-REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found",
-           405: "Method Not Allowed", 429: "Too Many Requests",
-           503: "Service Unavailable"}
+#: every status's reason phrase (the web apps answer 401, 403, 409, 422
+#: and 500 beside the gateway's 200/400/404/405/429/503)
+REASONS = {s.value: s.phrase for s in http.HTTPStatus}
 
 
 class HTTPError(Exception):
@@ -467,6 +473,8 @@ def require_method(environ, method: str) -> None:
 def parse_generate(body, cfg) -> dict:
     """The fields of a ``/generate`` body that both front doors share,
     checked as the JAX apps check them (400 on any)."""
+    from kubeflow_rm_tpu_torch.models.generate import SLO_CLASSES
+
     if not isinstance(body, dict):
         raise HTTPError(400, "body must be a JSON object")
     prompt = body.get("prompt")

@@ -49,6 +49,9 @@ CONTROL_PLANE_FAMILIES = (
     # the observability loop (7f-1): the SLO engine, the TSDB and the
     # flight recorder
     "obs.engine", "obs.tsdb", "obs.flight",
+    # the web apps (7f-2a): the readiness hub's key registry and its
+    # per-notebook condvars, the jupyter app's lazy hub
+    "readiness.registry", "readiness.key", "jupyter.hub_registry",
 )
 
 
@@ -469,6 +472,71 @@ def test_observer_lock_order_is_clean():
         assert tlg.LOCK_HIERARCHY[name] == jhier.LOCK_HIERARCHY[name]
     assert [tlg.LOCK_HIERARCHY[n] for n in (
         "obs.engine", "obs.tsdb", "obs.flight")] == [470, 480, 490]
+
+
+def test_readiness_wake_lock_order_is_clean():
+    """The web apps' three families (the hub's registry 410, its
+    per-notebook condvars 420, the jupyter app's lazy hub 430): a
+    readiness long-poll parked through the jupyter app and woken by the
+    watch event of a status write shows no cycle, no rank inversion and
+    no downhill or unranked edge, in the port as in JAX."""
+    import json
+    import threading
+
+    reports, woke = {}, {}
+    for pkg, lg in (("port", tlg), ("jax", jlg)):
+        lg.set_enabled(True)
+        lg.reset()
+        api = None
+        try:
+            api = cp_module(pkg, "apiserver").APIServer()
+            api.ensure_namespace(NS)
+            nb = api.create(cp_module(pkg, "api.notebook").make_notebook(
+                "nb", NS))
+            rv = nb["metadata"]["resourceVersion"]
+            client = cp_module(pkg, "webapps.jupyter").create_app(
+                api, disable_auth=True).test_client()
+            got = {}
+
+            def poll():
+                resp = client.get(
+                    f"/api/namespaces/{NS}/notebooks/nb/readiness"
+                    f"?timeoutSeconds=20&knownVersion={rv}")
+                got.update(json.loads(resp.get_data()))
+
+            t = threading.Thread(target=poll)
+            t.start()
+            waiters = cp_module(pkg, "metrics")
+            deadline = time.monotonic() + 10
+            while waiters.registry_value("readiness_waiters") < 1:
+                assert time.monotonic() < deadline, "the poll never parked"
+                time.sleep(0.005)
+            nb["status"] = {"readyReplicas": 1}
+            api.update_status(nb)
+            t.join(timeout=10)
+            assert not t.is_alive()
+            woke[pkg] = (got["changed"], got["ready"])
+            api.drain_watchers()
+            reports[pkg] = lg.report()
+        finally:
+            if api is not None:
+                stop_fanout(api)
+            lg.reset()
+            lg.set_enabled(False)
+    assert woke == {"port": (True, True), "jax": (True, True)}
+    port, jax = reports["port"], reports["jax"]
+    assert tlg.check_edges(port["edges"]) == []
+    assert jhier.check_edges(jax["edges"]) == []
+    families = ("readiness.registry", "readiness.key", "jupyter.hub_registry")
+    for rep in (port, jax):
+        assert rep["cycles"] == [] and rep["order_violations"] == []
+        assert set(families) <= set(rep["locks"])
+        # a waiter's registration takes its key's condvar under the
+        # registry
+        assert {"from": "readiness.registry", "to": "readiness.key"} in [
+            {k: e[k] for k in ("from", "to")} for e in rep["edges"]]
+    assert [tlg.LOCK_HIERARCHY[n] for n in families] == [
+        jhier.LOCK_HIERARCHY[n] for n in families] == [410, 420, 430]
 
 
 def test_zz_jax_switches_hold_defaults():

@@ -6,7 +6,13 @@ image, the oauth sidecar, the auth companion's objects, the card and
 the PodDefault's variable), the pod's fine-tune in a child process on a
 one-rank gloo world, the quota's refusal, a failed pod restarted, the
 idle notebook culled through the default probe against a standard-
-library server, a TPUJob on the freed card, and the teardown; then arm C
+library server, a TPUJob on the freed card, and the teardown — with the
+jupyter and KFAM web apps served over arm B's apiserver on a threaded
+``wsgiref`` server: a readiness long-poll parked before the spawn
+reconciles and woken by the hub until ``ready``, the spawner's listing,
+pods and types, KFAM's contributor spawning ``ft2`` through the form
+into the quota's refusal, a stranger's 403, ``stopped`` after the cull,
+and the deletes through the app; then arm C
 on the suspend/resume stack with a checkpoint store over the pod's
 directory — the fine-tune checkpoints step 2 and holds in step 3, a
 high-priority notebook preempts it at step 2, its child is SIGKILLed,
@@ -64,8 +70,26 @@ def test_controlplane_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
     a, b = line["arm_a"], line["arm_b"]
     assert a["stopped"] == {"replicas": 0, "pods": 0, "free_cards": 1.0}
     assert list(b["steps_s"]) == [
-        "profile", "images_poddefault", "spawn", "quota", "quota_delete",
-        "slice_health", "cull", "tpujob", "tpujob_delete", "teardown"]
+        "profile", "images_poddefault", "spawn", "kfam_binding", "quota",
+        "quota_delete", "slice_health", "cull", "tpujob", "tpujob_delete",
+        "teardown"]
+    # the web apps over arm B's apiserver: the spawner's long-poll woken
+    # by the hub and read ready, KFAM's binding counted, every request
+    # timed
+    lp = b["longpoll"]
+    assert lp["wakes"] >= 1 and lp["waiters_after"] == 0
+    assert lp["wake_to_observe_s"] >= 0 and lp["park_s"] > 0
+    assert lp["polls"][-1]["ready"] is True
+    assert lp["polls"][-1]["phase"] == "ready"
+    assert all(p["status"] == 200 for p in lp["polls"])
+    assert b["kfam"]["create_binding_success"] == 1
+    assert b["kfam"]["read_bindings_success"] == 1
+    assert not any(v for k, v in b["kfam"].items() if k.endswith("_error"))
+    assert {"readiness", "list", "pods", "tpus", "kfam_binding",
+            "kfam_bindings", "spawn_form", "stranger", "delete"} == set(
+                b["web_s"])
+    assert len(b["web_s"]["list"]) == 2 and len(b["web_s"]["delete"]) == 2
+    assert all(0 < t < 60 for ts in b["web_s"].values() for t in ts)
     assert b["culled"]["culls"] == 1 and b["culled"]["probe_gets"] > 0
     assert b["restarted"] == {"new_uid": True, "node": "gpu-0",
                               "phase": "Running", "free_cards": 0.0}

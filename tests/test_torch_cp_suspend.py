@@ -1,7 +1,7 @@
 """Suspend/resume and priority preemption in the port (slice 7d), held to
 JAX's ``controlplane/suspend.py`` on one script: the mirrors of
-``tests/test_suspend.py`` (all but the web-app cases, which wait for the
-web apps), the checkpoint fault of ``test_chaos.py`` and the whole-gang
+``tests/test_suspend.py`` (all but its two web-app cases, which
+``tests/test_torch_webapps_jupyter.py`` holds), the checkpoint fault of ``test_chaos.py`` and the whole-gang
 TPUJob suspend of ``test_tpujob.py``. Each script runs on each
 package's own ``make_control_plane(enable_suspend=True)`` on the
 oversubscribe-on arm (JAX's default), on the informer cache and on the

@@ -1,7 +1,7 @@
 """Package rules of the PyTorch port: it imports no JAX, nothing of the
 JAX package, neither optax nor orbax (both import JAX) and none of
 prometheus_client, torch_xla, werkzeug and ml_dtypes (the card's machine
-has none of them), it never
+has none of them), by statement or by name, it never
 runs on the CPU unless asked, and on the CPU the flash op never tries
 to build or launch its CUDA kernels, forward or backward."""
 
@@ -25,12 +25,32 @@ PORT_FILES = sorted((ROOT / "kubeflow_rm_tpu_torch").rglob("*.py")) + [
 
 
 def _imported_modules(path: Path):
+    """Every module ``path`` imports: its import statements, and the
+    constant names it passes to ``importlib.import_module`` or
+    ``__import__`` (a module loaded by name escapes the statements)."""
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module:
             yield node.module
+        elif isinstance(node, ast.Call) and node.args:
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else \
+                getattr(fn, "id", None)
+            arg = node.args[0]
+            if name in ("import_module", "__import__") and isinstance(
+                    arg, ast.Constant) and isinstance(arg.value, str):
+                yield arg.value
+
+
+def test_import_scan_sees_modules_loaded_by_name(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("import importlib\n"
+                   "w = importlib.import_module('werkzeug.routing')\n"
+                   "y = __import__('yaml')\n")
+    assert set(_imported_modules(src)) == {"importlib", "werkzeug.routing",
+                                           "yaml"}
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -112,6 +132,14 @@ def test_port_files_exist():
     # flight recorder, run_meta and the Observer, each at JAX's path
     assert {f"kubeflow_rm_tpu_torch/controlplane/obs/{f}.py" for f in (
         "__init__", "timeseries", "slo", "flight", "runmeta")} <= names
+    # the web apps (7f-2a): the kit, the status ladder, the readiness
+    # hub, the spawner with its JSON config, volumes, tensorboards and
+    # KFAM, each at JAX's path
+    assert {f"kubeflow_rm_tpu_torch/controlplane/webapps/{f}.py" for f in (
+        "__init__", "core", "status", "readiness", "jupyter", "volumes",
+        "tensorboards", "kfam")} <= names
+    assert (ROOT / "kubeflow_rm_tpu_torch/controlplane/webapps/"
+                   "spawner_ui_config.json").exists()
 
 
 def test_shard_modules_keep_jax_public_names():
@@ -152,6 +180,25 @@ def test_no_yaml_imports(path):
     for mod in _imported_modules(path):
         assert mod.split(".")[0] not in ("yaml", "ruamel"), \
             f"{path.name} imports {mod}"
+
+
+def test_web_apps_and_the_control_plane_load_no_torch():
+    """The web apps and the controllers (``profile`` takes the identity
+    header from ``webapps/core``, which builds on ``webapps/serving``'s
+    WSGI surface) import no torch: a shard worker or a web-app process
+    starts without CUDA's libraries."""
+    mods = ["kubeflow_rm_tpu_torch.controlplane.controllers.profile"] + [
+        f"kubeflow_rm_tpu_torch.controlplane.webapps.{m}" for m in (
+            "core", "status", "readiness", "jupyter", "volumes",
+            "tensorboards", "kfam")]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "print('torch' in sys.modules)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "False"
 
 
 def test_default_device_raises_without_cuda(monkeypatch):

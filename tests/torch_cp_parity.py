@@ -86,11 +86,15 @@ def _value_maps() -> tuple[dict, dict]:
 VALUE_MAP, MEMORY_MAP = _value_maps()
 
 
-#: Event text: JAX's words → the port's
+#: Event, status and log text: JAX's words → the port's
 TEXT_MAP = {
     f"free {tpu_api.GOOGLE_TPU_RESOURCE} ":
         f"free {gpu_api.NVIDIA_GPU_RESOURCE} ",
     "TPU slice unhealthy (": "GPU slice unhealthy (",
+    # the status ladder's suspended message (webapps/status.py)
+    "its TPU slice was released.": "its GPU slice was released.",
+    # the fake kubelet's boot transcript (a pod's logs)
+    " joining jax.distributed": " joining torch.distributed",
 }
 
 
