@@ -206,7 +206,32 @@ prints one JSON line per phase:
    at the end no SLO but ``shard-deaths`` is critical. Start, spawn,
    split, respawn, merge and child seconds, the ``SHARD_*`` counters,
    the observer's ticks, series, bundles and the autoscaler's decisions
-   are printed.
+   are printed. Arm F, the platform as its manifests deploy it
+   (:func:`_cp_process_arm`): one :class:`CPShard` is the cluster, and
+   the platform is three ``python -m kubeflow_rm_tpu_torch.controlplane``
+   processes over its facade (``KUBE_API_URL``): ``controller-manager``
+   (``LEADER_ELECT=true``; up once it holds the lease),
+   ``webhook-server`` and ``gateway`` (``DEV_USER`` the owner; up once
+   ``/healthz`` answers). Through the gateway over HTTP, as the SPA
+   drives it: the shell ``/`` with ``text/html; charset=utf-8`` and the
+   CSRF cookie the client then echoes, ``/static/app.js``; the
+   workgroup's create (the profile's namespace made by the
+   controller-manager process) and env-info offering ``h100-80gb-1``;
+   the spawner's config and types, the form's spawn of ``ft`` on
+   ``h100-80gb-1`` and the readiness long-poll until ``ready``; its pod
+   on ``gpu-0`` with one card and the injected env. The raw pod's
+   AdmissionReview posted to the webhook-server process gives the same
+   response as ``make_admission_handler`` in this process over the same
+   facade, and its patch the stored env and resources. The pod's
+   container runs one step: arm B's step-1 loss bit for bit, 64 / 32 /
+   32. The dashboard reads 1 node, 1 card of capacity, 1 in use and 1
+   notebook running, a history point, ``default_slos()``'s names at
+   ``/api/alerts``, 0 harvested and no leases, and ``/api/traces`` with
+   tracing off. None of the three processes has torch mapped (this one
+   has: the control). The notebook is deleted through the gateway, the
+   profile torn down, and each process exits 0 on SIGTERM. Each
+   process's start seconds, each request's ms and the spawn seconds are
+   printed.
 13. moe    — Mixtral 8x7B at full width and 16 of its 32 layers (bf16,
    47 GB; the 7B tree is dropped first): the forward at (1, 2048) with
    one ``flash_fwd`` launch a layer and a router aux loss in [1, 8];
@@ -4864,20 +4889,61 @@ CP_STRANGER = "stranger@example.com"
 CP_POLL_TIMEOUT_S, CP_POLL_MAX = 30, 200
 
 
-class WebAppServer:
+class HTTPUser:
+    """A user of the platform's web apps at ``url`` over HTTP, as the
+    mesh's auth proxy and the SPA present one: the ``kubeflow-userid``
+    header and a CSRF cookie and header pair (``token``); each request's
+    seconds are kept by name in ``seconds``."""
+
+    def __init__(self, url: str):
+        import secrets
+        import urllib.request
+
+        self.url = url
+        self.token = secrets.token_urlsafe(16)
+        # loopback only: no proxy from the environment
+        self.opener = urllib.request.build_opener(
+            urllib.request.ProxyHandler({}))
+        self.seconds: dict[str, list] = {}
+
+    def fetch(self, name, method, path, body=None, user=CP_OWNER):
+        """``(status, headers, raw body)`` of one request as ``user``."""
+        import urllib.error
+        import urllib.request
+
+        data = None if body is None else json.dumps(body).encode()
+        req = urllib.request.Request(self.url + path, data=data,
+                                     method=method)
+        req.add_header("kubeflow-userid", ":" + user)
+        req.add_header("Cookie", f"XSRF-TOKEN={self.token}")
+        req.add_header("X-XSRF-TOKEN", self.token)
+        if data is not None:
+            req.add_header("Content-Type", "application/json")
+        t0 = time.perf_counter()
+        try:
+            with self.opener.open(req, timeout=CP_POLL_TIMEOUT_S + 30) as r:
+                status, headers, raw = r.status, r.headers, r.read()
+        except urllib.error.HTTPError as e:
+            status, headers, raw = e.code, e.headers, e.read()
+        self.seconds.setdefault(name, []).append(time.perf_counter() - t0)
+        return status, headers, raw
+
+    def call(self, name, method, path, body=None, user=CP_OWNER):
+        """``(status, JSON body)`` of one request as ``user``."""
+        status, _, raw = self.fetch(name, method, path, body, user)
+        return status, json.loads(raw)
+
+
+class WebAppServer(HTTPUser):
     """The platform's notebook-facing web apps over ``api`` on 127.0.0.1:
     the jupyter app under ``/jupyter`` (where the SPA calls it) and KFAM
     at ``/kfam/``, served by a threaded ``wsgiref`` server (a thread a
     request, so a parked readiness long-poll holds no other request
-    back). :meth:`call` sends a user's request as the mesh's auth proxy
-    and the SPA present it: the ``kubeflow-userid`` header and a CSRF
-    cookie and header pair; each request's seconds are kept by name.
-    :meth:`close` stops the server."""
+    back), and called as :class:`HTTPUser`. :meth:`close` stops the
+    server."""
 
     def __init__(self, api):
-        import secrets
         import socketserver
-        import urllib.request
         from wsgiref.simple_server import (
             WSGIRequestHandler, WSGIServer, make_server,
         )
@@ -4904,34 +4970,7 @@ class WebAppServer:
         self.thread = threading.Thread(target=self.server.serve_forever,
                                        name="web-apps", daemon=True)
         self.thread.start()
-        self.url = f"http://127.0.0.1:{self.server.server_port}"
-        self.token = secrets.token_urlsafe(16)
-        # loopback only: no proxy from the environment
-        self.opener = urllib.request.build_opener(
-            urllib.request.ProxyHandler({}))
-        self.seconds: dict[str, list] = {}
-
-    def call(self, name, method, path, body=None, user=CP_OWNER):
-        """``(status, JSON body)`` of one request as ``user``."""
-        import urllib.error
-        import urllib.request
-
-        data = None if body is None else json.dumps(body).encode()
-        req = urllib.request.Request(self.url + path, data=data,
-                                     method=method)
-        req.add_header("kubeflow-userid", ":" + user)
-        req.add_header("Cookie", f"XSRF-TOKEN={self.token}")
-        req.add_header("X-XSRF-TOKEN", self.token)
-        if data is not None:
-            req.add_header("Content-Type", "application/json")
-        t0 = time.perf_counter()
-        try:
-            with self.opener.open(req, timeout=CP_POLL_TIMEOUT_S + 30) as r:
-                status, raw = r.status, r.read()
-        except urllib.error.HTTPError as e:
-            status, raw = e.code, e.read()
-        self.seconds.setdefault(name, []).append(time.perf_counter() - t0)
-        return status, json.loads(raw)
+        super().__init__(f"http://127.0.0.1:{self.server.server_port}")
 
     def close(self) -> None:
         self.server.shutdown()
@@ -6412,6 +6451,358 @@ def _cp_elastic_arm(decl, device, ref_loss, predicted) -> dict:
                     decisions=scaler.decisions, federated=federated))
 
 
+#: the deployed processes' entry point, and the deadline of each one's
+#: start (its first answer) and of its exit after SIGTERM
+CP_MODULE = "kubeflow_rm_tpu_torch.controlplane"
+CP_PROC_DEADLINE_S = 90
+
+
+def torch_mapped(pid: int) -> bool:
+    """Whether process ``pid`` has torch's libraries mapped (its
+    ``/proc/<pid>/maps``): a process that imported torch has."""
+    with open(f"/proc/{pid}/maps") as f:
+        return any("libtorch" in line or "/torch/_C" in line for line in f)
+
+
+def _healthz(url: str) -> bool:
+    """Whether the server at ``url`` answers ``/healthz`` with 200."""
+    return HTTPUser(url).fetch("healthz", "GET", "/healthz")[0] == 200
+
+
+class CPProcess:
+    """``python -m kubeflow_rm_tpu_torch.controlplane <cmd>`` in a child
+    process, as the manifests start it: this process's environment with
+    ``env`` over it, run from the checkout, its output to
+    ``<log_dir>/<cmd>.log``. :meth:`ready` waits for its first answer
+    (``start_s``), :meth:`torch_loaded` reads its mapped libraries and
+    :meth:`stop` is the kubelet's SIGTERM."""
+
+    def __init__(self, cmd: str, env: dict, log_dir: str):
+        import os
+
+        self.cmd = cmd
+        self.log_path = os.path.join(log_dir, f"{cmd}.log")
+        self._log = open(self.log_path, "w")
+        self.start_s = None
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", CP_MODULE, cmd], cwd=_here(),
+            env=dict(os.environ, **env), stdout=self._log,
+            stderr=subprocess.STDOUT)
+
+    def ready(self, probe, timeout_s: float = CP_PROC_DEADLINE_S) -> float:
+        """Poll ``probe()`` until it is true (an ``OSError`` is a no);
+        fails if the process exits first or at the deadline. Returns the
+        seconds since the start."""
+        def up():
+            check(self.proc.poll() is None,
+                  f"{self.cmd} exited {self.proc.returncode}")
+            try:
+                return probe()
+            except OSError:
+                return False
+        _poll(up, timeout_s, f"{self.cmd}'s first answer")
+        self.start_s = time.perf_counter() - self.t0
+        return self.start_s
+
+    def torch_loaded(self) -> bool:
+        return torch_mapped(self.proc.pid)
+
+    def tail(self, n: int = 4000) -> str:
+        with open(self.log_path) as f:
+            return f.read()[-n:]
+
+    def stop(self, timeout_s: float = CP_PROC_DEADLINE_S):
+        """SIGTERM, then the exit code within ``timeout_s`` (``None``,
+        and a SIGKILL, past it)."""
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout_s)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(30)
+            rc = None
+        self._log.close()
+        return rc
+
+
+#: arm F's controller-manager's election identity (its ``POD_NAME``)
+CP_ELECTION_ID = "smoke-controller-manager"
+
+
+def _cp_process_arm(decl, device, ref_loss) -> dict:
+    """Arm F: the platform as its manifests deploy it. The cluster is one
+    :class:`CPShard` (its facade with the cluster's admission and fake
+    kubelet); the platform is three ``python -m
+    kubeflow_rm_tpu_torch.controlplane`` processes over it: the
+    ``controller-manager`` under ``LEADER_ELECT``, the ``webhook-server``
+    and the ``gateway`` with ``DEV_USER`` the owner. Over HTTP through the
+    gateway, as the SPA drives it: the shell and ``app.js``, the
+    workgroup, the spawner's config and types, the form's spawn of an
+    ``h100-80gb-1`` notebook read ``ready`` through the readiness
+    long-poll; the webhook server's patch for the raw pod equal to the
+    in-process handler's over the same facade; the pod's container's one
+    step with ``ref_loss`` (arm B's step 1) bit for bit; the dashboard's
+    metrics, history, alerts, harvest and traces; none of the three
+    processes with torch loaded; the delete through the gateway, the
+    profile torn down, and each process exiting 0 on SIGTERM."""
+    import base64
+    import os
+    import shutil
+    import tempfile
+
+    from kubeflow_rm_tpu_torch.controlplane.api import gpu
+    from kubeflow_rm_tpu_torch.controlplane.api import notebook as nb_api
+    from kubeflow_rm_tpu_torch.controlplane.controllers.statefulset import (
+        StatefulSetController, make_gpu_node,
+    )
+    from kubeflow_rm_tpu_torch.controlplane.deploy.kubeclient import (
+        KubeAPIServer,
+    )
+    from kubeflow_rm_tpu_torch.controlplane.deploy.webhook_server import (
+        make_admission_handler,
+    )
+    from kubeflow_rm_tpu_torch.controlplane.ha.leases import (
+        DEFAULT_LEASE_NAME,
+    )
+    from kubeflow_rm_tpu_torch.controlplane.obs.slo import default_slos
+
+    ns, name = "processes", "ft"
+    t_arm = time.perf_counter()
+    base = tempfile.mkdtemp(prefix="kfrm-smoke-procs-")
+    shard, procs, steps_s = None, {}, {}
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        steps_s[key] = time.perf_counter() - t0
+        return out
+
+    try:
+        shard = CPShard("shard-0", f"{base}/wal")
+        shard.api.create(make_gpu_node("gpu-0", CP_ACC))
+        hook_port, gw_port = _free_port(), _free_port()
+        for cmd, env in (
+                ("controller-manager", {"LEADER_ELECT": "true",
+                                        "POD_NAME": CP_ELECTION_ID}),
+                ("webhook-server", {"PORT": str(hook_port)}),
+                ("gateway", {"PORT": str(gw_port), "DEV_USER": CP_OWNER,
+                             "SECURE_COOKIES": "false"})):
+            procs[cmd] = CPProcess(cmd, dict(env, KUBE_API_URL=shard.url),
+                                   base)
+
+        def elected():
+            lease = shard.api.try_get("Lease", DEFAULT_LEASE_NAME,
+                                      "kubeflow")
+            return bool(lease) and lease["spec"].get(
+                "holderIdentity") == CP_ELECTION_ID
+        procs["controller-manager"].ready(elected)
+        hook = f"http://127.0.0.1:{hook_port}"
+        procs["webhook-server"].ready(lambda: _healthz(hook))
+        gw = HTTPUser(f"http://127.0.0.1:{gw_port}")
+        procs["gateway"].ready(lambda: _healthz(gw.url))
+        started = {cmd: p.start_s for cmd, p in procs.items()}
+        print(f"controlplane: arm F's processes up (s): {started}",
+              flush=True)
+
+        # 1. the SPA's shell sets the CSRF cookie the client echoes
+        status, headers, raw = gw.fetch("shell", "GET", "/")
+        cookie = headers.get("Set-Cookie") or ""
+        check(status == 200 and headers.get("Content-Type")
+              == "text/html; charset=utf-8"
+              and b'src="/static/app.js"' in raw
+              and cookie.startswith("XSRF-TOKEN="),
+              f"the shell: {status} {dict(headers)}")
+        gw.token = cookie.split(";", 1)[0].split("=", 1)[1]
+        status, headers, raw = gw.fetch("app_js", "GET", "/static/app.js")
+        check(status == 200 and headers.get("Content-Type")
+              == "text/javascript; charset=utf-8"
+              and b'"/jupyter/api/tpus"' in raw,
+              f"app.js: {status} {dict(headers)}")
+
+        # 2. the workgroup, made by the controller-manager process
+        owner = {"namespace": ns, "role": "owner", "user": CP_OWNER}
+
+        def registered():
+            status, info = gw.call("env_info", "GET",
+                                   "/api/workgroup/env-info")
+            return status == 200 and owner in info["namespaces"] and info
+
+        def workgroup():
+            status, body = gw.call("workgroup_create", "POST",
+                                   "/api/workgroup/create",
+                                   {"namespace": ns})
+            check(status == 200, f"the workgroup's create: {body}")
+            return _poll(registered, 60, "the profile's namespace")
+        info = timed("profile", workgroup)
+        check(info["tpuSliceTypes"] == [CP_ACC]
+              and info["isClusterAdmin"] is False, f"env-info: {info}")
+
+        # 3. the spawner's form, then the readiness long-poll
+        status, cfg = gw.call("config", "GET", "/jupyter/api/config")
+        check(status == 200, f"the spawner's config: {cfg}")
+        status, offered = gw.call("tpus", "GET", "/jupyter/api/tpus")
+        check(status == 200 and [t["acceleratorType"] for t in offered[
+            "tpus"]] == [CP_ACC], f"the spawner's types: {offered}")
+        form = {"name": name, "image": cfg["config"]["image"]["value"],
+                "imagePullPolicy": "IfNotPresent", "serverType": "jupyter",
+                "cpu": "4", "memory": "16Gi",
+                "tpu": {"acceleratorType": CP_ACC},
+                "tolerationGroup": "none", "affinityConfig": "none",
+                "configurations": [], "shm": True, "environment": {},
+                "datavols": []}
+
+        def spawn():
+            status, body = gw.call(
+                "spawn_form", "POST", f"/jupyter/api/namespaces/{ns}/"
+                "notebooks", form)
+            check(status == 200, f"the form's spawn: {status} {body}")
+            poll = ReadinessPoll(gw, ns, name, "")
+            poll.join(CP_POLL_TIMEOUT_S * 4)
+            return poll
+        poll = timed("spawn", spawn)
+        check(not poll.thread.is_alive() and poll.error is None
+              and poll.last is not None and poll.last["notebook"][
+                  "processed_status"]["phase"] == "ready",
+              f"the long-poll: {poll.polls} {poll.error}")
+        print(f"controlplane: arm F's spawn through the gateway "
+              f"{steps_s['spawn']:.3f} s, {len(poll.polls)} polls",
+              flush=True)
+        nb = shard.api.get(nb_api.KIND, name, ns)
+        pod = shard.api.get("Pod", f"{name}-0", ns)
+        c0 = pod["spec"]["containers"][0]
+        env = {e["name"]: e.get("value") for e in c0.get("env") or []}
+        check(nb["status"].get("readyReplicas") == 1
+              and pod["spec"].get("nodeName") == "gpu-0"
+              and c0["resources"]["limits"].get(gpu.NVIDIA_GPU_RESOURCE)
+              == "1" and env.get("TPU_WORKER_ID") == "0",
+              f"the pod: {pod['spec'].get('nodeName')} {c0['resources']} "
+              f"{env}")
+
+        # 4. the webhook-server process against the in-process handler
+        raw_pod = StatefulSetController()._render_pod(
+            shard.api.get("StatefulSet", name, ns), 0)
+        review = {"apiVersion": "admission.k8s.io/v1",
+                  "kind": "AdmissionReview", "request": {
+                      "uid": "smoke-f", "operation": "CREATE",
+                      "object": raw_pod}}
+
+        def webhook():
+            status, body = HTTPUser(hook).call("review", "POST",
+                                               "/mutate-pod", review)
+            check(status == 200, f"the review: {status} {body}")
+            return body["response"]
+        got = timed("webhook_review", webhook)
+        want = make_admission_handler(KubeAPIServer(shard.url)).review(
+            "/mutate-pod", review)["response"]
+        check(got == want and got["allowed"] and "patch" in got,
+              f"the webhook process's review {got} vs in process {want}")
+        patched = _apply_json_patch(
+            raw_pod, json.loads(base64.b64decode(got["patch"])))
+        p0 = patched["spec"]["containers"][0]
+        check(p0.get("env") == c0.get("env")
+              and p0.get("resources") == c0.get("resources"),
+              f"the patched pod: {p0.get('env')} {p0.get('resources')} vs "
+              f"the stored {c0.get('env')} {c0.get('resources')}")
+
+        # 5. the pod's container: one step, arm B's step-1 loss
+        result, child_s, substituted = _cp_child(
+            env, decl, 1, device, {"MASTER_PORT": str(_free_port())})
+        check(result["losses"] == [ref_loss],
+              f"arm F's step-1 loss {result['losses']} vs arm B's "
+              f"{ref_loss}")
+        check(result["launches"] == _pod_launches(decl, 1, device),
+              f"arm F's launches {result['launches']}")
+
+        # 6. the dashboard's reads through the gateway
+        status, snap = gw.call("metrics", "GET", "/api/metrics")
+        check(status == 200 and snap["metrics"] == {
+            "nodes": 1, "chips_capacity": 1.0, "chips_requested": 1.0,
+            "notebooks_running": 1}, f"/api/metrics: {snap.get('metrics')}")
+        status, hist = gw.call("history", "GET", "/api/metrics/history")
+        check(status == 200 and len(hist["series"]) >= 1,
+              f"/api/metrics/history: {hist}")
+        status, alerts = gw.call("alerts", "GET", "/api/alerts")
+        check(status == 200 and [s["name"] for s in alerts["slos"]]
+              == [s.name for s in default_slos()],
+              f"/api/alerts: {[s['name'] for s in alerts.get('slos', [])]}")
+        status, harvest = gw.call("harvest", "GET", "/api/harvest")
+        check(status == 200 and harvest["harvested_chips"] == 0.0
+              and harvest["leases"] == [] and harvest["controller"] is None,
+              f"/api/harvest: {harvest}")
+        status, traces = gw.call("traces", "GET", "/api/traces")
+        check(status == 200 and traces["enabled"] is False
+              and traces["slow"] == [], f"/api/traces: {traces}")
+
+        # 7. no torch in the control plane (this process is the control)
+        loaded = {cmd: p.torch_loaded() for cmd, p in procs.items()}
+        control = torch_mapped(os.getpid())
+        print(f"controlplane: arm F's torch loaded {loaded} (control "
+              f"{control})", flush=True)
+        check(control and not any(loaded.values()),
+              f"torch in the control plane: {loaded}, control {control}")
+
+        # 8. the delete through the gateway, the profile, SIGTERM
+        def delete():
+            status, body = gw.call(
+                "delete", "DELETE",
+                f"/jupyter/api/namespaces/{ns}/notebooks/{name}")
+            check(status == 200, f"the delete: {body}")
+            _poll(lambda: not any(shard.api.list(k, ns) for k in (
+                "StatefulSet", "Pod", "Service")), 120,
+                f"{name}'s children were not collected")
+        timed("delete", delete)
+
+        def teardown():
+            shard.api.delete("Profile", ns)
+            _poll(lambda: shard.api.try_get("Namespace", ns) is None, 120,
+                  "the profile's namespace was not removed")
+        timed("teardown", teardown)
+        left = {k: len(shard.api.list(k, ns)) for k in sorted(
+            shard.api._by_kind) if shard.api.list(k, ns)}
+        check(not left, f"arm F left after the teardown: {left}")
+        exits, stop_s = {}, {}
+        for cmd in ("gateway", "webhook-server", "controller-manager"):
+            t0 = time.perf_counter()
+            exits[cmd] = procs[cmd].stop()
+            stop_s[cmd] = time.perf_counter() - t0
+        print(f"controlplane: arm F's exits {exits} in {stop_s} s",
+              flush=True)
+        check(all(rc == 0 for rc in exits.values()),
+              f"arm F's processes on SIGTERM: {exits}")
+        released = shard.api.get("Lease", DEFAULT_LEASE_NAME, "kubeflow")[
+            "spec"].get("holderIdentity")
+        check(released == "", f"the lease after the exit: {released!r}")
+    except BaseException:
+        for p in procs.values():
+            print(f"--- {p.cmd}'s log ---\n{p.tail()}", file=sys.stderr)
+        raise
+    finally:
+        for p in procs.values():
+            if p.proc.poll() is None:
+                p.proc.kill()
+                p.proc.wait(30)
+        if shard is not None:
+            shard.stop()
+        shutil.rmtree(base, ignore_errors=True)
+    web_ms = {k: [round(1e3 * t, 3) for t in v]
+              for k, v in gw.seconds.items()}
+    print(f"controlplane: arm F's requests (ms) {web_ms}", flush=True)
+    return dict(namespace=ns, arm_s=time.perf_counter() - t_arm,
+                steps_s=steps_s, spawn_s=steps_s["spawn"], start_s=started,
+                torch_loaded=loaded, torch_control=control, polls=poll.polls,
+                web_ms=web_ms, review=got, env_info=info,
+                metrics=snap["metrics"],
+                series=len(hist["series"]),
+                slos=[s["name"] for s in alerts["slos"]],
+                traces=traces, exits=exits, stop_s=stop_s, child=result,
+                child_s=child_s, substituted=substituted,
+                launches=result["launches"])
+
+
 def _pid_alive(pid: int) -> bool:
     import os
 
@@ -6458,8 +6849,9 @@ def phase_controlplane(card, train_ref=None, device: str = "cuda",
     sharded apiservers behind REST facades and the manager over the
     router (:func:`_cp_deployed_arm`), then arm E, the shards as
     processes under a supervisor, split and merged live around the
-    notebook (:func:`_cp_elastic_arm`). Returns the launches of all five
-    arms' containers.
+    notebook (:func:`_cp_elastic_arm`), then arm F, the platform's
+    deployed processes over one shard's facade (:func:`_cp_process_arm`).
+    Returns the launches of all six arms' containers.
     ``train_ref`` (the train phase's) puts the pod's step beside the
     train phase's. ``device="cpu"`` rehearses it without a card (the
     table's own memory, gloo, a small declaration such as ``{"preset":
@@ -6805,6 +7197,7 @@ def phase_controlplane(card, train_ref=None, device: str = "cuda",
     arm_c = _cp_suspend_arm(topo, decl, steps, device, losses)
     arm_d = _cp_deployed_arm(topo, decl, device, losses[0], steps_s["spawn"])
     arm_e = _cp_elastic_arm(decl, device, losses[0], predicted)
+    arm_f = _cp_process_arm(decl, device, losses[0])
     peak_err = (None if result["peak_gb"] is None
                 else (result["peak_gb"] - predicted) / predicted)
     # the first record holds the start-up sync (as in the train phase)
@@ -6828,7 +7221,8 @@ def phase_controlplane(card, train_ref=None, device: str = "cuda",
          pod_workload=result, pod_step_ms=step_ms, train_step_ms=train_ms,
          pod_over_train=train_ms and step_ms / train_ms,
          predicted_pod_gb=predicted, peak_rel_err=peak_err, arm_c=arm_c,
-         arm_d=arm_d, arm_e=arm_e, phase_s=time.perf_counter() - t_phase)
+         arm_d=arm_d, arm_e=arm_e, arm_f=arm_f,
+         phase_s=time.perf_counter() - t_phase)
     check(result.get("poddefault") == "smoke",
           f"the child saw KFRM_PODDEFAULT={result.get('poddefault')}")
     check(all(math.isfinite(x) for x in losses) and len(losses) == steps,
@@ -6843,7 +7237,7 @@ def phase_controlplane(card, train_ref=None, device: str = "cuda",
           f"the pod's peak {result['peak_gb']} GB vs its predicted "
           f"{predicted} GB")
     return {k: launches[k] + arm_c["launches"][k] + arm_d["launches"][k]
-            + arm_e["launches"][k] for k in launches}
+            + arm_e["launches"][k] + arm_f["launches"][k] for k in launches}
 
 
 def main() -> int:

@@ -144,6 +144,10 @@ LOCK_HIERARCHY: dict[str, int] = {
     "serving.fleet": 435,
     "serving.gateway": 440,
     "serving.store": 445,
+    # the dashboard's metrics history: its lazy sampler-thread start,
+    # then its ring (a sample is appended under it; nothing nests)
+    "metrics_service.sampler_thread": 450,
+    "metrics_service.sampler": 460,
     # obs locks never nest with each other (burn rates are computed
     # before the engine lock; flight bundles are assembled lock-free and
     # only appended under obs.flight), and they sit below

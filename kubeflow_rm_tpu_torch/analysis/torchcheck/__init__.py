@@ -25,6 +25,14 @@ model's self-check, as the JAX gate does.
 
 from __future__ import annotations
 
-from .costmodel import CostEstimate, estimate, selfcheck, to_meta
-
 __all__ = ["CostEstimate", "estimate", "selfcheck", "to_meta"]
+
+
+def __getattr__(name: str):
+    # the cost model imports torch: loaded on first use, so the probes
+    # (``hostsync``, ``recompile``), which the control plane's SLO bridge
+    # imports, load none
+    if name in __all__:
+        from . import costmodel
+        return getattr(costmodel, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -107,3 +107,17 @@ def by_node_labels(gke_accelerator: str, topology: str) -> SliceTopology | None:
         if t.gke_accelerator == gke_accelerator and t.topology == topology:
             return t
     return None
+
+
+def slice_types_on(nodes) -> list[str]:
+    """The slice types ``nodes`` can host, sorted: every type whose host
+    shape (accelerator, cards a host) some node's labels name. A GPU
+    node's labels name its host's shape, not a slice, so two 4-card
+    hosts give ``h100-80gb-4`` and ``h100-80gb-2x4``."""
+    shapes = set()
+    for node in nodes:
+        labels = node["metadata"].get("labels") or {}
+        shapes.add((labels.get(NODE_LABEL_ACCELERATOR),
+                    labels.get(NODE_LABEL_TOPOLOGY)))
+    return sorted(t.accelerator_type for t in _TOPOLOGIES
+                  if (t.gke_accelerator, t.topology) in shapes)

@@ -7,7 +7,7 @@ Mirrors the reference's kubebuilder layout
 (all reconcilers in one process), one webhook Deployment (HTTPS
 admission), five web-app Deployments, and the CRDs from ``crds.py``.
 Every process runs ``python -m kubeflow_rm_tpu_torch.controlplane <cmd>``
-(that entry point, ``controlplane/__main__.py``, is ROADMAP slice 7f-2).
+(``controlplane/__main__.py``; each ``<cmd>`` is one of its commands).
 :func:`write_tree` writes the tree as JSON documents, which a YAML 1.2
 reader takes as they are; no rendered tree is checked in.
 """

@@ -26,10 +26,12 @@ through the verb surface a kubernetes client would offer:
   "status", "user"}`` on failure — the Angular frontends key on these.
 
 The router is werkzeug's grammar cut to what the apps use: a rule is a
-path whose ``<name>`` parts each match one non-empty path segment, with
-its own methods (HEAD rides on GET); no rule gives 404 and a rule
-without the request's method 405, each with werkzeug's stock text as
-the envelope's ``log``. A query parameter is the first of its values.
+path whose ``<name>`` parts each match one non-empty path segment and
+whose ``<path:name>`` parts match one or more segments, slashes
+included, with its own methods (HEAD rides on GET); no rule gives 404
+and a rule without the request's method 405, each with werkzeug's stock
+text as the envelope's ``log``. A query parameter is the first of its
+values.
 """
 
 from __future__ import annotations
@@ -148,14 +150,21 @@ class Response:
                        content_type=self.content_type, headers=self.headers)
 
 
+#: what a ``<name>`` and a ``<path:name>`` part of a rule match
+_CONVERTERS = {None: "[^/]+", "path": "[^/].*?"}
+
+
 class _Rule:
-    __slots__ = ("pattern", "methods", "endpoint")
+    __slots__ = ("rule", "pattern", "methods", "endpoint")
 
     def __init__(self, rule: str, methods, endpoint: str):
-        parts = re.split(r"<(\w+)>", rule)
-        regex = "".join(re.escape(p) if i % 2 == 0 else f"(?P<{p}>[^/]+)"
-                        for i, p in enumerate(parts))
-        self.pattern = re.compile(regex + r"\Z")
+        self.rule = rule
+        regex, at = "", 0
+        for m in re.finditer(r"<(?:(path):)?(\w+)>", rule):
+            regex += (re.escape(rule[at:m.start()])
+                      + f"(?P<{m[2]}>{_CONVERTERS[m[1]]})")
+            at = m.end()
+        self.pattern = re.compile(regex + re.escape(rule[at:]) + r"\Z")
         self.methods = {m.upper() for m in methods}
         if "GET" in self.methods:
             self.methods.add("HEAD")
@@ -405,6 +414,11 @@ class TestResponse:
 
     def get_data(self, as_text: bool = False):
         return self.data.decode() if as_text else self.data
+
+    @property
+    def mimetype(self) -> str:
+        """The content type without its parameters (werkzeug's)."""
+        return self.headers.get("Content-Type", "").split(";")[0].strip()
 
     def get_json(self):
         return json.loads(self.data)

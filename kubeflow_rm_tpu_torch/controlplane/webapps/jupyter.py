@@ -344,13 +344,7 @@ def create_app(api: APIServer, *, config_path: str | None = None,
         node has."""
         offered = [o for o in defaults.get("tpu", {}).get("options", [])
                    if o != "none"]
-        shapes = set()
-        for node in api.list("Node"):
-            labels = node["metadata"].get("labels") or {}
-            shapes.add((labels.get(gpu_api.NODE_LABEL_ACCELERATOR),
-                        labels.get(gpu_api.NODE_LABEL_TOPOLOGY)))
-        live = {t.accelerator_type for t in gpu_api.TOPOLOGIES.values()
-                if (t.gke_accelerator, t.topology) in shapes}
+        live = set(gpu_api.slice_types_on(api.list("Node")))
         available = [o for o in offered if o in live]
         return {"tpus": [
             {"acceleratorType": a,

@@ -52,6 +52,9 @@ CONTROL_PLANE_FAMILIES = (
     # the web apps (7f-2a): the readiness hub's key registry and its
     # per-notebook condvars, the jupyter app's lazy hub
     "readiness.registry", "readiness.key", "jupyter.hub_registry",
+    # the dashboard (7f-2b): its metrics history's lazy sampler start and
+    # its ring
+    "metrics_service.sampler_thread", "metrics_service.sampler",
 )
 
 
@@ -537,6 +540,48 @@ def test_readiness_wake_lock_order_is_clean():
             {k: e[k] for k in ("from", "to")} for e in rep["edges"]]
     assert [tlg.LOCK_HIERARCHY[n] for n in families] == [
         jhier.LOCK_HIERARCHY[n] for n in families] == [410, 420, 430]
+
+
+def test_metrics_history_lock_order_is_clean():
+    """The dashboard's two families (the history's lazy sampler start
+    450, its ring 460): a dashboard made over each package's apiserver,
+    read through ``/api/metrics/history`` (the seed sample, the sampler
+    thread's lazy start, a fresh sample) while its sampler ticks, shows
+    no cycle, no rank inversion and no downhill or unranked edge, in the
+    port as in JAX."""
+    import json
+
+    families = ("metrics_service.sampler_thread", "metrics_service.sampler")
+    reports = {}
+    for pkg, lg in (("port", tlg), ("jax", jlg)):
+        lg.set_enabled(True)
+        lg.reset()
+        app = None
+        try:
+            api = cp_module(pkg, "apiserver").APIServer()
+            app = cp_module(pkg, "webapps.dashboard").create_app(
+                api, history_interval_s=0.05)
+            client = app.test_client(user="a@example.com")
+            for _ in range(3):
+                resp = client.get("/api/metrics/history")
+                assert resp.status_code == 200
+                assert json.loads(resp.get_data())["series"]
+                time.sleep(0.1)
+            app.metrics_history.stop()
+            reports[pkg] = lg.report()
+        finally:
+            if app is not None:
+                app.metrics_history.stop()
+            lg.reset()
+            lg.set_enabled(False)
+    port, jax = reports["port"], reports["jax"]
+    assert tlg.check_edges(port["edges"]) == []
+    assert jhier.check_edges(jax["edges"]) == []
+    for rep in (port, jax):
+        assert rep["cycles"] == [] and rep["order_violations"] == []
+        assert set(families) <= set(rep["locks"])
+    assert [tlg.LOCK_HIERARCHY[n] for n in families] == [
+        jhier.LOCK_HIERARCHY[n] for n in families] == [450, 460]
 
 
 def test_zz_jax_switches_hold_defaults():

@@ -37,8 +37,16 @@ recorder taking the chaos trigger and the supervisor's death hook (each
 death a ``shard_death`` bundle or a suppression; the owner's bundle
 whole, with slow traces from this process and the shards whose critical
 paths sum to their durations), and a ``ShardAutoscaler`` making the
-merge on the federated queue depth. Every gate of the phase holds, as
-on the card."""
+merge on the federated queue depth; then arm F, the platform as its
+manifests deploy it — ``controller-manager`` (under ``LEADER_ELECT``),
+``webhook-server`` and ``gateway`` (``DEV_USER``) as ``python -m
+kubeflow_rm_tpu_torch.controlplane`` processes over one shard's facade:
+the SPA's shell and ``app.js``, the workgroup, the spawner's form spawn
+read ``ready`` through the long-poll, the webhook process's review equal
+to the in-process handler's, the pod's one step equal to arm B's step 1,
+the dashboard's metrics, history, alerts, harvest and traces, no torch
+in the three processes, and each exiting 0 on SIGTERM. Every gate of the
+phase holds, as on the card."""
 
 import json
 import socket
@@ -158,6 +166,26 @@ def test_controlplane_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
         "shard-deaths"}
     assert o["tsdb"]["series"] > 0 and o["tsdb"]["evictions"] == 0
     assert o["ticks"] > 0 and o["flight"]["triggered_total"] >= 2
+    f = line["arm_f"]
+    assert list(f["steps_s"]) == ["profile", "spawn", "webhook_review",
+                                  "delete", "teardown"]
+    procs = ("controller-manager", "webhook-server", "gateway")
+    assert sorted(f["start_s"]) == sorted(procs)
+    assert f["torch_loaded"] == dict.fromkeys(procs, False)
+    assert f["torch_control"] is True
+    assert f["exits"] == dict.fromkeys(procs, 0)
+    assert f["child"]["steps"] == [1] and f["child"]["losses"] == losses[:1]
+    assert f["metrics"] == {"nodes": 1, "chips_capacity": 1.0,
+                            "chips_requested": 1.0, "notebooks_running": 1}
+    assert f["env_info"]["tpuSliceTypes"] == ["h100-80gb-1"]
+    assert f["series"] >= 1 and "shard-deaths" in f["slos"]
+    assert f["traces"]["enabled"] is False and f["traces"]["slow"] == []
+    assert f["polls"][-1]["ready"] is True
+    assert f["polls"][-1]["phase"] == "ready"
+    assert f["review"]["allowed"] is True and f["review"]["uid"] == "smoke-f"
+    assert {"shell", "app_js", "workgroup_create", "env_info", "config",
+            "tpus", "spawn_form", "readiness", "metrics", "history",
+            "alerts", "harvest", "traces", "delete"} == set(f["web_ms"])
 
 
 def test_zz_jax_switches_hold_defaults():

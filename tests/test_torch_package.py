@@ -140,6 +140,64 @@ def test_port_files_exist():
         "tensorboards", "kfam")} <= names
     assert (ROOT / "kubeflow_rm_tpu_torch/controlplane/webapps/"
                    "spawner_ui_config.json").exists()
+    # the browser-facing layer and the entry point (7f-2b): the metrics
+    # service, the dashboard with its SPA, the gateway and ``__main__``
+    assert {f"kubeflow_rm_tpu_torch/controlplane/{f}.py" for f in (
+        "webapps/metrics_service", "webapps/dashboard", "webapps/gateway",
+        "__main__")} <= names
+    for f in ("app.js", "index.html", "style.css"):
+        assert (ROOT / "kubeflow_rm_tpu_torch/controlplane/webapps/static"
+                / f).is_file()
+    # ... and ship in the package beside the spawner's config
+    data = [ln for ln in (ROOT / "pyproject.toml").read_text().splitlines()
+            if ln.startswith('"kubeflow_rm_tpu_torch.controlplane.webapps"')]
+    assert data == ['"kubeflow_rm_tpu_torch.controlplane.webapps" = '
+                    '["*.json", "static/*"]']
+
+
+#: a JAX file's path → its counterpart's in the port
+RENAMES = {
+    "api/tpu.py": "api/gpu.py",
+    "webhook/tpu_inject.py": "webhook/gpu_inject.py",
+    "launcher/torchxla.py": "launcher/torchrun.py",
+    "webapps/spawner_ui_config.yaml": "webapps/spawner_ui_config.json",
+    "analysis/jaxcheck/": "analysis/torchcheck/",
+}
+#: JAX files without a counterpart: the lock hierarchy's table is folded
+#: into the port's ``analysis/lockgraph.py``
+JAX_ONLY = {"analysis/hierarchy.py"}
+#: the port's files without a JAX counterpart: the kernels and their
+#: build, the device choice, the CLIs and the port's own helpers
+PORT_ONLY = {
+    "device.py", "finetune.py", "serve.py", "kernels/__init__.py",
+    "kernels/build.py", "kernels/csrc/flash_bwd.cu",
+    "kernels/csrc/flash_fwd.cu", "kernels/csrc/hopper.cuh",
+    "models/params.py", "models/remat.py", "parallel/collectives.py",
+    "parallel/sharded.py",
+}
+
+
+def _package_files(name: str) -> set[str]:
+    root = ROOT / name
+    return {p.relative_to(root).as_posix() for p in root.rglob("*")
+            if p.is_file() and "__pycache__" not in p.parts
+            and p.suffix != ".pyc"
+            and "_build" not in p.relative_to(root).parts}
+
+
+def test_file_lists_equal_under_the_renames():
+    """Every file of the JAX package has its counterpart in the port at
+    the same path under :data:`RENAMES` but :data:`JAX_ONLY`, and the
+    port has no file JAX lacks but :data:`PORT_ONLY`."""
+    def rename(path):
+        for old, new in RENAMES.items():
+            if path.endswith(old) or path.startswith(old):
+                path = path.replace(old, new)
+        return path
+    jax = {rename(f) for f in _package_files("kubeflow_rm_tpu")}
+    port = _package_files("kubeflow_rm_tpu_torch")
+    assert jax - port == JAX_ONLY
+    assert port - jax == PORT_ONLY
 
 
 def test_shard_modules_keep_jax_public_names():
@@ -183,17 +241,32 @@ def test_no_yaml_imports(path):
 
 
 def test_web_apps_and_the_control_plane_load_no_torch():
-    """The web apps and the controllers (``profile`` takes the identity
-    header from ``webapps/core``, which builds on ``webapps/serving``'s
-    WSGI surface) import no torch: a shard worker or a web-app process
-    starts without CUDA's libraries."""
-    mods = ["kubeflow_rm_tpu_torch.controlplane.controllers.profile"] + [
+    """The web apps, the gateway, the entry point and the controllers
+    (``profile`` takes the identity header from ``webapps/core``, which
+    builds on ``webapps/serving``'s WSGI surface) import no torch: a
+    shard worker or a web-app process starts without CUDA's libraries.
+    A dashboard made and read loads none either (its ``Observer`` bridges
+    the torch-free probes of ``analysis/torchcheck``)."""
+    mods = ["kubeflow_rm_tpu_torch.controlplane.controllers.profile",
+            "kubeflow_rm_tpu_torch.controlplane.__main__"] + [
         f"kubeflow_rm_tpu_torch.controlplane.webapps.{m}" for m in (
             "core", "status", "readiness", "jupyter", "volumes",
-            "tensorboards", "kfam")]
+            "tensorboards", "kfam", "metrics_service", "dashboard",
+            "gateway")]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
+            "from kubeflow_rm_tpu_torch.controlplane.apiserver import "
+            "APIServer\n"
+            "from kubeflow_rm_tpu_torch.controlplane.webapps import gateway\n"
+            "gw = gateway.make_gateway(APIServer(), dev_user='a@b.c')\n"
+            "from kubeflow_rm_tpu_torch.controlplane.webapps.core import "
+            "Client\n"
+            "c = Client(gw)\n"
+            "for u in ('/', '/api/metrics', '/api/metrics/history', "
+            "'/api/alerts', '/api/harvest', '/api/traces'):\n"
+            "    assert c.get(u).status_code == 200, u\n"
+            "gw.app.metrics_history.stop()\n"
             "print('torch' in sys.modules)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
