@@ -3393,16 +3393,6 @@ def phase_qlora(card):
     return launches
 
 
-def active_dense(cfg):
-    """The dense Llama whose matmuls a token of the MoE ``cfg`` runs:
-    hidden width top_k × the expert width (the router's D × E aside)."""
-    from kubeflow_rm_tpu_torch.models.llama import LlamaConfig
-
-    dense = LlamaConfig(**{f: getattr(cfg, f)
-                           for f in LlamaConfig.__dataclass_fields__})
-    return replace(dense, hidden_dim=cfg.moe.top_k * cfg.hidden_dim)
-
-
 def phase_moe(card):
     """Mixtral 8x7B at full width and 16 of its 32 layers (bf16): the
     forward, kernel against dense attention on 4 layers, fused decode
@@ -3429,9 +3419,7 @@ def phase_moe(card):
     from kubeflow_rm_tpu_torch.training.train import (
         TrainConfig, init_train_state, make_train_step,
     )
-    from kubeflow_rm_tpu_torch.utils.flops import (
-        matmul_param_count, train_flops_per_token,
-    )
+    from kubeflow_rm_tpu_torch.utils.flops import matmul_param_count
 
     def free():
         gc.collect()
@@ -3454,8 +3442,7 @@ def phase_moe(card):
                            dtype=torch.int32)
     out = dict(card=card, preset="mixtral_8x7b", n_layers=L,
                params=n_params, param_bytes=quantized_bytes(params),
-               active_params=matmul_param_count(active_dense(cfg))
-               + cfg.n_layers * cfg.dim * cfg.moe.n_experts, init_s=init_s)
+               active_params=matmul_param_count(cfg), init_s=init_s)
 
     with torch.inference_mode():
         reset_launches()
@@ -3583,16 +3570,13 @@ def phase_moe(card):
     metrics = {k: float(v) for k, v in box["m"].items()}
     step_ms = statistics.median(h.step_time_ms for h in timed_h)
     tps = statistics.median(h.tokens_per_sec for h in timed_h)
-    peak = peaks_for(torch.cuda.get_device_name(0))[1]
     out.update(lora=dict(
         rank=16, targets=["wq", "wv"], tokens=[B, T], steps=steps,
         learning_rate=TRAIN_LR, remat=cfg.remat_policy, losses=losses,
         grad_norms=[h.grad_norm for h in history], launches=lora_counts,
         router_aux=metrics.get("router_aux"), step_time_ms=step_ms,
         tokens_per_s=tps,
-        mfu_pct_dense_count=statistics.median(h.mfu_pct for h in timed_h),
-        mfu_pct_active_count=100 * tps * train_flops_per_token(
-            active_dense(cfg), T, frozen_base=True) / peak,
+        mfu_pct=statistics.median(h.mfu_pct for h in timed_h),
         peak_mem_gb=peak_gb, base_bit_identical=before == after,
         profile_one_step=prof))
     emit("moe", **out)

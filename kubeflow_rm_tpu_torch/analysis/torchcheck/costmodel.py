@@ -46,8 +46,8 @@ and of the CPU's plain path count the same FLOPs. Their bytes are their
 own operands and results; the backward's float32 δ temporaries count as
 scratch.
 
-**Regions.** ``record_function`` regions the program enters (the train
-step's ``train.microbatch``) are reported with their own FLOPs
+**Regions.** The spans the program opens (``utils.profiling.annotate``:
+the train step's ``train.microbatch``) are reported with their own FLOPs
 (``estimate(..., regions=)``): the memory planner walks two microbatches
 of an accumulation and counts the rest from the second one's, as JAX's
 walk multiplies a scan body by its trip count.
@@ -61,15 +61,18 @@ trip by trip.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import inspect
+import threading
 import weakref
 from dataclasses import dataclass
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from kubeflow_rm_tpu_torch.utils.profiling import observe
 from kubeflow_rm_tpu_torch.utils.pytree import tree_leaves
 
 #: the caching allocator's granularity: every block is a multiple
@@ -256,7 +259,7 @@ def _flash_scratch(name: str, args) -> tuple[int, int]:
 class _Walk:
     """Accumulators of one walk: flops, traffic, the live-bytes tallies
     of both columns (donation honoured, and ignored), and the flops
-    inside every ``record_function`` region (``regions``: name ->
+    inside every span the program opened (``regions``: name ->
     [(flops, flash calls)] per entry, resolved by ``estimate``)."""
     args: dict                 # storage key -> (bytes, donated)
     flops: float = 0.0
@@ -274,7 +277,7 @@ class _Walk:
         self._finalizers: list = []
         self._shadow: set = set()     # args written, donation honoured
         self._shadow_nd: set = set()  # args written, donation ignored
-        self._open: list = []         # open regions: (name, flops, flash)
+        self.thread = threading.get_ident()
         self.live = self.live_nd = sum(b for b, _ in self.args.values())
         self.peak, self.peak_nd = self.live, self.live_nd
 
@@ -316,19 +319,23 @@ class _Walk:
             self._shadow.add(key)
             self.live += b
 
-    def marker(self, func, args) -> None:
-        """``record_function`` enter/exit: note the flops at each end
-        (regions nest, so an exit closes the last region entered)."""
-        if func.overloadpacket.__name__.endswith("enter_new"):
-            self._open.append((args[0], self.flops, dict(self.flash)))
+    @contextlib.contextmanager
+    def region(self, name: str):
+        """A span the program opens (``profiling.annotate``): note the
+        flops and flash calls at its two ends. Only the walk's own
+        thread's spans: another thread's would take this walk's FLOPs
+        for its own."""
+        if threading.get_ident() != self.thread:
+            yield
             return
-        if not self._open:
-            return
-        name, flops0, flash0 = self._open.pop()
-        flash = {k: n - flash0.get(k, 0) for k, n in self.flash.items()
-                 if n > flash0.get(k, 0)}
-        self.regions.setdefault(name, []).append(
-            (self.flops - flops0, flash))
+        flops0, flash0 = self.flops, dict(self.flash)
+        try:
+            yield
+        finally:
+            flash = {k: n - flash0.get(k, 0) for k, n in self.flash.items()
+                     if n > flash0.get(k, 0)}
+            self.regions.setdefault(name, []).append(
+                (self.flops - flops0, flash))
 
     def mark(self, before: int = 0, beside: int = 0,
              live_before: tuple = (0, 0)) -> None:
@@ -379,7 +386,7 @@ class _CostMode(TorchDispatchMode):
         out = func(*args, **kwargs)
 
         if kind == "marker":
-            w.marker(func, args)
+            # a record_function's enter or exit: no tensor work
             return out
         flat_out = ([out] if isinstance(out, torch.Tensor)
                     else _tensors(out, {}) if isinstance(out, (list, tuple))
@@ -515,8 +522,8 @@ def estimate(fn, *args, donate_argnums=(), donate_argnames=(),
     gives up. ``as_device``: the device type the dispatch decisions take
     the tensors to be on ("cuda", the default: the card's path; None:
     their own). ``regions``, if given, receives the FLOPs of every
-    ``record_function`` region the program entered: ``{name: [flops of
-    each entry]}``."""
+    span the program opened (``profiling.annotate``): ``{name: [flops
+    of each entry]}``."""
     from kubeflow_rm_tpu_torch.ops.attention import as_device as _as
 
     args, kwargs = _map(to_meta, (args, kwargs))
@@ -527,7 +534,7 @@ def estimate(fn, *args, donate_argnums=(), donate_argnames=(),
         walk.watch_arg(key, storage)
     del donated
     try:
-        with _as(as_device), _CostMode(walk):
+        with _as(as_device), _CostMode(walk), observe(walk.region):
             out = fn(*args, **kwargs)
         walk.mark()
         out_bytes = sum({_storage_key(t): _rounded(t.untyped_storage()

@@ -20,6 +20,7 @@ import subprocess
 from pathlib import Path
 
 from kubeflow_rm_tpu_torch.analysis.lockgraph import make_lock
+from kubeflow_rm_tpu_torch.utils.profiling import annotate
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -120,8 +121,10 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            path = build([name])[name]
-            lib = ctypes.CDLL(str(path))
+            # a set-up part: the build, or the cached library's load
+            with annotate("kernels.load"):
+                path = build([name])[name]
+                lib = ctypes.CDLL(str(path))
             for symbol, argtypes in SIGNATURES[name].items():
                 fn = getattr(lib, symbol)
                 fn.argtypes = argtypes

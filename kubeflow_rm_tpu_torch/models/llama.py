@@ -16,7 +16,9 @@ RoPE work in float32 internally, and the logits are ``x @ lm_head`` in
 Rematerialization (``LlamaConfig.remat``/``remat_policy``) wraps each
 block in ``torch.utils.checkpoint`` with the selective-checkpoint
 policies of ``models.remat``, which save what JAX's ``_remat_policy``
-saves (``llama.py:162-180``).
+saves (``llama.py:162-180``). The forward names its parts as spans
+(``utils.profiling.annotate``): ``embed``, each block's ``block.attn``
+and ``block.mlp``, and ``head``.
 
 On a mesh (``forward(..., mesh=)``) each rank runs the same blocks on its
 local shards through ``parallel.sharded.MeshView``: weights gathered over
@@ -44,6 +46,7 @@ from kubeflow_rm_tpu_torch.models.remat import (
 from kubeflow_rm_tpu_torch.ops.attention import dot_product_attention
 from kubeflow_rm_tpu_torch.ops.norms import rms_norm
 from kubeflow_rm_tpu_torch.ops.rope import apply_rope, rope_angles
+from kubeflow_rm_tpu_torch.utils.profiling import annotate
 
 
 @dataclass(frozen=True)
@@ -395,22 +398,23 @@ def _attention_half(cfg: LlamaConfig, x, layer, cos, sin, positions,
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     if view is not None:
         H, KVH = view.local_heads(cfg)
-    h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-    proj = _projector(cfg, layer, view)
-    q = checkpoint_name(
-        apply_rope(proj("wq", h).reshape(B, T, H, hd), cos, sin), "q_rope")
-    k = checkpoint_name(
-        apply_rope(proj("wk", h).reshape(B, T, KVH, hd), cos, sin), "k_rope")
-    v = checkpoint_name(proj("wv", h).reshape(B, T, KVH, hd), "v_proj")
-    if view is None:
-        attn = dot_product_attention(
-            q, k, v, causal=True, positions_q=positions,
-            positions_kv=positions, segment_ids_q=segments,
-            segment_ids_kv=segments, impl=impl)
-    else:
-        attn = view.attention(cfg, q, k, v, positions, segments, impl)
-    attn = checkpoint_name(attn, "attn_out")
-    return x + proj("wo", attn.reshape(B, T, H * hd))
+    with annotate("block.attn"):
+        h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+        proj = _projector(cfg, layer, view)
+        q = checkpoint_name(apply_rope(
+            proj("wq", h).reshape(B, T, H, hd), cos, sin), "q_rope")
+        k = checkpoint_name(apply_rope(
+            proj("wk", h).reshape(B, T, KVH, hd), cos, sin), "k_rope")
+        v = checkpoint_name(proj("wv", h).reshape(B, T, KVH, hd), "v_proj")
+        if view is None:
+            attn = dot_product_attention(
+                q, k, v, causal=True, positions_q=positions,
+                positions_kv=positions, segment_ids_q=segments,
+                segment_ids_kv=segments, impl=impl)
+        else:
+            attn = view.attention(cfg, q, k, v, positions, segments, impl)
+        attn = checkpoint_name(attn, "attn_out")
+        return x + proj("wo", attn.reshape(B, T, H * hd))
 
 
 def _mlp(cfg: LlamaConfig, layer, h, view=None):
@@ -426,8 +430,9 @@ def _block(cfg: LlamaConfig, x, layer, cos, sin, positions, segments, impl,
     """One transformer block (attention + dense SwiGLU MLP)."""
     x = _attention_half(cfg, x, layer, cos, sin, positions, segments, impl,
                         view)
-    return x + _mlp(cfg, layer, rms_norm(x, layer["mlp_norm"], cfg.norm_eps),
-                    view)
+    with annotate("block.mlp"):
+        return x + _mlp(cfg, layer,
+                        rms_norm(x, layer["mlp_norm"], cfg.norm_eps), view)
 
 
 def embed(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, view=None):
@@ -444,10 +449,11 @@ def _epilogue(params: dict, x: torch.Tensor, cfg: LlamaConfig, view=None,
     dtype, float32 logits: the end of ``forward`` and of the pipeline
     (JAX's ``_epilogue``). On a mesh ``local_vocab`` keeps this rank's
     tp columns of the vocabulary."""
-    if view is not None:
-        return view.head(params, x, cfg, local_vocab=local_vocab)
-    x = rms_norm(x, params["out_norm"], cfg.norm_eps)
-    return (x @ maybe_dequant(params["lm_head"], cfg.dtype)).float()
+    with annotate("head"):
+        if view is not None:
+            return view.head(params, x, cfg, local_vocab=local_vocab)
+        x = rms_norm(x, params["out_norm"], cfg.norm_eps)
+        return (x @ maybe_dequant(params["lm_head"], cfg.dtype)).float()
 
 
 def stacked_layers(blocks: dict) -> int:
@@ -525,14 +531,15 @@ def _prologue(params, tokens, cfg, positions, packed, view=None):
     positions are the global ones of this rank's sp chunk."""
     B, T = tokens.shape
     attn_positions = None if (positions is None or packed) else positions
-    if positions is None:
-        if view is None:
-            positions = torch.arange(T, dtype=torch.int32,
-                                     device=tokens.device).expand(B, T)
-        else:
-            positions = view.chunk_positions(B, T, tokens.device)
-    cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
-    return embed(params, tokens, cfg, view), cos, sin, attn_positions
+    with annotate("embed"):
+        if positions is None:
+            if view is None:
+                positions = torch.arange(T, dtype=torch.int32,
+                                         device=tokens.device).expand(B, T)
+            else:
+                positions = view.chunk_positions(B, T, tokens.device)
+        cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+        return embed(params, tokens, cfg, view), cos, sin, attn_positions
 
 
 def remat_block(block, cfg):

@@ -32,6 +32,7 @@ from kubeflow_rm_tpu_torch.models.llama import (
 )
 from kubeflow_rm_tpu_torch.ops.norms import rms_norm
 from kubeflow_rm_tpu_torch.parallel.moe import MoeConfig, moe_ffn
+from kubeflow_rm_tpu_torch.utils.profiling import annotate
 
 
 @dataclass(frozen=True)
@@ -96,9 +97,10 @@ def _moe_block(cfg: MixtralConfig, x, layer, cos, sin, positions, segments,
     rank's experts). Returns (x, aux)."""
     x = _attention_half(cfg, x, layer, cos, sin, positions, segments, impl,
                         view)
-    h = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
-    out, aux = moe_ffn(layer, h, cfg.moe, dtype=cfg.dtype, view=view)
-    return x + out, aux
+    with annotate("block.mlp"):
+        h = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
+        out, aux = moe_ffn(layer, h, cfg.moe, dtype=cfg.dtype, view=view)
+        return x + out, aux
 
 
 def forward(

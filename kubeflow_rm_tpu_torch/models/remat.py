@@ -33,6 +33,10 @@ every policy recomputes it; ``dots``, which saves only unbatched
 products (``aten.mm``), recomputes all three expert products, as JAX's
 ``checkpoint_dots_with_no_batch_dims`` does. The flash forward reruns
 under every policy, because its lse is never a saved name, as in JAX.
+
+Every policy's recompute of a block runs inside the ``remat.replay``
+span (``utils.profiling.annotate``): a range in a profiler's trace that
+dispatches no op, so the policy never sees it.
 """
 
 from __future__ import annotations
@@ -46,6 +50,8 @@ from torch.utils._python_dispatch import _disable_current_modes
 from torch.utils.checkpoint import (
     CheckpointPolicy, create_selective_checkpoint_contexts,
 )
+
+from kubeflow_rm_tpu_torch.utils.profiling import annotate
 
 #: named-tensor remat presets (JAX's): save the listed activations,
 #: recompute the rest in the backward
@@ -149,9 +155,12 @@ def _save_names(names, ctx, func, *args, **kwargs):
 
 @contextmanager
 def _replay(sac_ctx, skip: frozenset):
+    """The recompute context of every policy: the ``remat.replay`` span
+    over the whole recompute of a block, the projections it may skip,
+    and the policy's own context."""
     token = _SKIP.set(skip)
     try:
-        with sac_ctx:
+        with annotate("remat.replay"), sac_ctx:
             yield
     finally:
         _SKIP.reset(token)
@@ -159,6 +168,11 @@ def _replay(sac_ctx, skip: frozenset):
 
 def _full_contexts():
     return nullcontext(), _replay(nullcontext(), _UNREAD)
+
+
+def _dots_contexts():
+    fwd, rec = create_selective_checkpoint_contexts(_save_dots)
+    return fwd, _replay(rec, frozenset())
 
 
 def _named_contexts(names: frozenset):
@@ -173,7 +187,7 @@ def remat_context_fn(policy: str):
     if policy == "full":
         return _full_contexts
     if policy == "dots":
-        return partial(create_selective_checkpoint_contexts, _save_dots)
+        return _dots_contexts
     if policy in _NAME_POLICIES:
         return partial(_named_contexts, frozenset(_NAME_POLICIES[policy]))
     raise ValueError(f"remat_policy must be one of "

@@ -10,7 +10,9 @@ The expert products are batched matmuls (``torch.einsum``, and
 ``models.remat.project`` for the two whose outputs the remat policies
 name), as the JAX package computes them in XLA outside any Pallas
 kernel. On a mesh (``moe_ffn(..., view=)``) the experts are split
-over ``ep`` and routing runs over the global token axis.
+over ``ep`` and routing runs over the global token axis. ``moe_ffn``
+names its four parts as spans (``utils.profiling.annotate``):
+``moe.route``, ``moe.dispatch``, ``moe.experts`` and ``moe.combine``.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch.nn.functional as F
 from kubeflow_rm_tpu_torch.parallel.collectives import (
     all_reduce, copy_to_group,
 )
+from kubeflow_rm_tpu_torch.utils.profiling import annotate
 
 
 @dataclass(frozen=True)
@@ -141,27 +144,34 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: MoeConfig,
             return view.weight(f"blocks/{name}", params[name], dtype)
 
         router, over = view.moe_router(params), view.moe_route(B, T)
-    logits = xf.float() @ router.float()
-    dispatch, combine, aux = route(
-        logits, cfg, expert_capacity(cfg, over.get("n_global", N)), **over)
-    if view is not None:
-        dispatch, combine, xf = view.moe_local(dispatch, combine, xf)
+    with annotate("moe.route"):
+        logits = xf.float() @ router.float()
+        dispatch, combine, aux = route(
+            logits, cfg, expert_capacity(cfg, over.get("n_global", N)),
+            **over)
+        if view is not None:
+            dispatch, combine, xf = view.moe_local(dispatch, combine, xf)
 
-    expert_in = torch.einsum("nec,nd->ecd", dispatch.to(dtype), xf.to(dtype))
-    if view is not None:
-        expert_in = copy_to_group(expert_in, view.g_tp)
-    # the dense MLP's names, so the named remat policies ("mlp",
-    # "attn+mlp") save the expert activations as they save the MLP's;
-    # ``project`` lets their replay skip the products that made them
-    gate = checkpoint_name(project(
-        expert_in, weight("moe_gate"), "moe_gate"), "mlp_gate")
-    up = checkpoint_name(project(
-        expert_in, weight("moe_up"), "moe_up"), "mlp_up")
-    h = F.silu(gate) * up
-    expert_out = torch.einsum("ecf,efd->ecd", h, weight("moe_down"))
-    if view is not None:
-        expert_out = all_reduce(expert_out, view.g_tp)
-    out = torch.einsum("nec,ecd->nd", combine.to(dtype), expert_out)
-    if view is not None:
-        out = all_reduce(out, view.g_ep)
+    with annotate("moe.dispatch"):
+        expert_in = torch.einsum("nec,nd->ecd", dispatch.to(dtype),
+                                 xf.to(dtype))
+        if view is not None:
+            expert_in = copy_to_group(expert_in, view.g_tp)
+    with annotate("moe.experts"):
+        # the dense MLP's names, so the named remat policies ("mlp",
+        # "attn+mlp") save the expert activations as they save the
+        # MLP's; ``project`` lets their replay skip the products that
+        # made them
+        gate = checkpoint_name(project(
+            expert_in, weight("moe_gate"), "moe_gate"), "mlp_gate")
+        up = checkpoint_name(project(
+            expert_in, weight("moe_up"), "moe_up"), "mlp_up")
+        h = F.silu(gate) * up
+        expert_out = torch.einsum("ecf,efd->ecd", h, weight("moe_down"))
+        if view is not None:
+            expert_out = all_reduce(expert_out, view.g_tp)
+    with annotate("moe.combine"):
+        out = torch.einsum("nec,ecd->nd", combine.to(dtype), expert_out)
+        if view is not None:
+            out = all_reduce(out, view.g_ep)
     return out.reshape(B, T, D), aux

@@ -6,8 +6,13 @@
   first step, so start-up never pollutes the interval throughput, and
   at log boundaries.
 - **MFU in the loop** from the port's ``utils.flops`` (6N + attention,
-  4N with a frozen base) against the card's bf16 peak; 0 on a device
-  the peak table does not know (the CPU).
+  4N with a frozen base; a mixture's N its router and top-k experts)
+  against the card's bf16 peak; 0 on a device the peak table does not
+  know (the CPU).
+- **Spans** (``utils.profiling.annotate``, free unless a profiler runs
+  or an observer is installed): ``fit.data`` and ``fit.to_device`` each
+  step, and the set-up's ``make_train_step`` and ``fit.first_step``
+  (the first step to the sync after it).
 - **Checkpoint/resume** via ``training.checkpoint``: ``fit`` restores
   the latest step when the directory has one, fast-forwards the data
   past the batches those steps consumed, saves every
@@ -39,6 +44,7 @@ from kubeflow_rm_tpu_torch.training.train import (
 from kubeflow_rm_tpu_torch.utils.flops import (
     device_peak_flops, train_flops_per_token,
 )
+from kubeflow_rm_tpu_torch.utils.profiling import annotate
 
 log = logging.getLogger("kubeflow_rm_tpu_torch.train")
 
@@ -130,7 +136,8 @@ def fit(cfg: TrainConfig, data: Iterable[dict], loop: LoopConfig = LoopConfig(),
             except StopIteration:
                 break
     try:
-        first = next(data)
+        with annotate("fit.data"):
+            first = next(data)
     except StopIteration:
         log.warning("data exhausted before step %d; nothing to do",
                     state.step)
@@ -139,39 +146,51 @@ def fit(cfg: TrainConfig, data: Iterable[dict], loop: LoopConfig = LoopConfig(),
         return state, []
     if batch_keys is None:
         batch_keys = tuple(first.keys())
-    step_fn = make_train_step(cfg, state, grad_accum=loop.grad_accum,
-                              offload=loop.offload, mesh=mesh)
+    with annotate("make_train_step"):
+        step_fn = make_train_step(cfg, state, grad_accum=loop.grad_accum,
+                                  offload=loop.offload, mesh=mesh)
     peak = device_peak_flops(dev)
     world = 1 if mesh is None else mesh.size()
 
     history: list[LoopMetrics] = []
     start = state.step
     total = loop.total_steps
+
+    def launch(state, batch):
+        host = {k: batch[k] for k in batch_keys}
+        with annotate("fit.to_device"):
+            if mesh is not None:
+                host = shard_batch(host, mesh)
+            dev_batch = to_device(host, dev)
+        # hot region: the step must not wait on the card — the
+        # deliberate metric reads below run outside it
+        # (KFRM_HOSTSYNC_PROBE records any implicit sync in here)
+        with _hostsync.region("train.step"):
+            return step_fn(state, dev_batch)
+
     t0 = time.perf_counter()
     interval_start = start
     batch = first
     try:
         for i in range(start, total):
-            host = {k: batch[k] for k in batch_keys}
-            rows, batch_len = tuple(host["tokens"].shape)
-            if mesh is not None:
-                host = shard_batch(host, mesh)
-            dev_batch = to_device(host, dev)
-            # hot region: the step must not wait on the card — the
-            # deliberate metric reads below run outside it
-            # (KFRM_HOSTSYNC_PROBE records any implicit sync in here)
-            with _hostsync.region("train.step"):
-                state, metrics = step_fn(state, dev_batch)
             now = i + 1
+            rows, batch_len = tuple(batch["tokens"].shape)
             if now == start + 1:
-                # one sync after the first step: start-up (kernel builds,
-                # allocator warm-up) stays out of the interval numbers
-                metrics["loss"].item()
+                # set-up's last part: the first step, to one sync after
+                # it, so start-up (kernel builds, allocator warm-up)
+                # stays out of the interval numbers
+                with annotate("fit.first_step"):
+                    state, metrics = launch(state, batch)
+                    with _hostsync.sanctioned("fit.first_step"):
+                        metrics["loss"].item()
                 t0 = time.perf_counter()
                 interval_start = now
+            else:
+                state, metrics = launch(state, batch)
             if now < total:
                 try:
-                    batch = next(data)
+                    with annotate("fit.data"):
+                        batch = next(data)
                 except StopIteration:
                     log.warning("data exhausted at step %d (< total_steps "
                                 "%d); stopping", now, total)

@@ -114,10 +114,6 @@ def schedule(cfg: OptimConfig, count: int) -> float:
     return float(peak * (f32(1 - alpha) * cosine + f32(alpha)))
 
 
-_NP_FLOATS = {torch.float16: np.float16, torch.float32: np.float32,
-              torch.float64: np.float64}
-
-
 def _weak(x: float, t: torch.Tensor) -> float:
     """The Python scalar ``x`` as JAX's weak typing uses it against
     ``t``: rounded to ``t``'s dtype, as ``torch.tensor(x, dtype).item()``
@@ -128,10 +124,16 @@ def _weak(x: float, t: torch.Tensor) -> float:
         return float(x)
     with np.errstate(over="ignore"):
         f = np.float32(x)
-        if t.dtype != torch.bfloat16:
-            return float(_NP_FLOATS[t.dtype](f))
+    if t.dtype == torch.float32:
+        return float(f)
     if np.isnan(f):
-        return math.nan
+        # torch's 16-bit casts drop a NaN's payload: float16 keeps the
+        # sign, bfloat16 gives the positive quiet NaN
+        return math.copysign(math.nan, f) if t.dtype == torch.float16 \
+            else math.nan
+    if t.dtype == torch.float16:
+        with np.errstate(over="ignore"):
+            return float(np.float16(f))
     # round to nearest even on the upper 16 bits; inf stays inf
     bits = int(f.view(np.uint32))
     bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000

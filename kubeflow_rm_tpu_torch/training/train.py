@@ -12,6 +12,11 @@ memory and the update runs there.
 For a MoE family the loss adds ``cfg.model.moe.router_aux_weight`` times
 the router aux loss, which the metrics report as ``router_aux``.
 
+The step names its parts as spans (``utils.profiling.annotate``):
+``train.forward``, ``loss`` inside it, ``train.backward`` and
+``train.optimizer`` (the global norm and the update);
+``init_train_state`` is one too.
+
 With ``OptimConfig(train_only="lora")`` the frozen leaves are set to
 ``requires_grad=False``: the backward computes no base-weight gradient
 and the optimizer keeps no moments for them. That includes the int8 and
@@ -123,18 +128,19 @@ def init_train_state(cfg: TrainConfig, generator: torch.Generator | None = None,
     rank's slices as they are drawn (``models.init_params(mesh=)``),
     given ones are sliced (``shard_params``; local ones pass through),
     and the moments are built on the slices."""
-    if params is None:
-        params = init_params(cfg.model, generator, device, mesh=mesh)
-    elif mesh is not None:
-        params = shard_params(params, mesh)
-    flat = leaf_paths(params)
-    train = {p: flat[p] for p in trainable_paths(cfg, params)}
-    if cfg.optim.offload == "optimizer":
-        opt_state = make_offload_optimizer(cfg.optim, params,
-                                           mesh=mesh).init(params)
-    else:
-        opt_state = make_optimizer(cfg.optim, mesh=mesh).init(train)
-    return TrainState(step=0, params=params, opt_state=opt_state)
+    with annotate("init_train_state"):
+        if params is None:
+            params = init_params(cfg.model, generator, device, mesh=mesh)
+        elif mesh is not None:
+            params = shard_params(params, mesh)
+        flat = leaf_paths(params)
+        train = {p: flat[p] for p in trainable_paths(cfg, params)}
+        if cfg.optim.offload == "optimizer":
+            opt_state = make_offload_optimizer(cfg.optim, params,
+                                               mesh=mesh).init(params)
+        else:
+            opt_state = make_optimizer(cfg.optim, mesh=mesh).init(train)
+        return TrainState(step=0, params=params, opt_state=opt_state)
 
 
 def loss_fn(params: dict, batch: dict, cfg: TrainConfig, mesh=None,
@@ -171,12 +177,13 @@ def loss_fn(params: dict, batch: dict, cfg: TrainConfig, mesh=None,
 
         def total(t):
             return all_reduce(t, group)
-    loss, aux = softmax_cross_entropy(logits, batch["labels"],
-                                      z_loss=cfg.z_loss, total=total,
-                                      vocab_group=vocab)
-    if router_aux is not None:
-        aux = dict(aux, router_aux=router_aux)
-        loss = loss + cfg.model.moe.router_aux_weight * router_aux
+    with annotate("loss"):
+        loss, aux = softmax_cross_entropy(logits, batch["labels"],
+                                          z_loss=cfg.z_loss, total=total,
+                                          vocab_group=vocab)
+        if router_aux is not None:
+            aux = dict(aux, router_aux=router_aux)
+            loss = loss + cfg.model.moe.router_aux_weight * router_aux
     return loss, aux
 
 
@@ -273,10 +280,12 @@ def make_train_step(cfg: TrainConfig, state: TrainState,
     def grads_of(params, batch):
         flat = leaf_paths(params)
         leaves = [flat[p] for p in train_paths]
-        (loss, aux) = (loss_fn(params, batch, cfg) if mesh is None
-                       else loss_fn(params, batch, cfg, mesh,
-                                    n_microbatches))
-        grads = torch.autograd.grad(loss, leaves)
+        with annotate("train.forward"):
+            (loss, aux) = (loss_fn(params, batch, cfg) if mesh is None
+                           else loss_fn(params, batch, cfg, mesh,
+                                        n_microbatches))
+        with annotate("train.backward"):
+            grads = torch.autograd.grad(loss, leaves)
         grads = dict(zip(train_paths, grads))
         if mesh is not None:
             grads = reduce_grads(grads, flat, mesh)
@@ -330,9 +339,10 @@ def make_train_step(cfg: TrainConfig, state: TrainState,
     def step(state: TrainState, batch: dict):
         loss, aux, grads = compute_grads(state.params, batch)
         flat = leaf_paths(state.params)
-        gnorm = norm_of(grads, flat)
-        opt.update(grads, state.opt_state,
-                   {p: flat[p] for p in train_paths}, gnorm)
+        with annotate("train.optimizer"):
+            gnorm = norm_of(grads, flat)
+            opt.update(grads, state.opt_state,
+                       {p: flat[p] for p in train_paths}, gnorm)
         metrics = {"loss": loss, "grad_norm": gnorm, **aux}
         state.step += 1
         return state, metrics

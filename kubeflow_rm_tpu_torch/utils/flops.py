@@ -5,7 +5,9 @@ MFU = model FLOPs per second achieved / the card's dense bf16 peak.
 Model FLOPs follow the JAX package's convention: 6 per matmul parameter
 per trained token (forward 2 + backward 4; 4 with a frozen base), plus
 the attention score and value products (12·L·H·hd·T per token, halved
-for causal), and no rematerialization recompute.
+for causal), and no rematerialization recompute. A mixture counts the
+parameters a token passes through: its router and ``top_k`` experts,
+not the experts it skips nor the dispatch and combine products.
 """
 
 from __future__ import annotations
@@ -45,11 +47,15 @@ def device_peak_flops(device) -> float | None:
 
 
 def matmul_param_count(cfg: LlamaConfig) -> int:
-    """Parameters that take part in matmuls (excludes the embedding
-    gather and the norm gains)."""
+    """Parameters a token passes through in matmuls (excludes the
+    embedding gather and the norm gains); of a mixture
+    (``MixtralConfig``), the router and ``top_k`` experts a layer."""
     L, D, V = cfg.n_layers, cfg.dim, cfg.vocab_size
     H, KVH, hd, F = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.hidden_dim
-    per_layer = D * H * hd + 2 * D * KVH * hd + H * hd * D + 3 * D * F
+    moe = getattr(cfg, "moe", None)
+    ffn = (3 * D * F if moe is None
+           else moe.top_k * 3 * D * F + D * moe.n_experts)
+    per_layer = D * H * hd + 2 * D * KVH * hd + H * hd * D + ffn
     return L * per_layer + D * V  # + lm_head
 
 
@@ -67,9 +73,3 @@ def train_flops_per_token(cfg: LlamaConfig, seq_len: int,
         attn /= 2.0
     return mat + attn
 
-
-def mfu(tokens_per_sec: float, cfg: LlamaConfig, seq_len: int,
-        n_devices: int, peak_flops_per_device: float) -> float:
-    """Model FLOPs utilization in [0, 1]."""
-    achieved = tokens_per_sec * train_flops_per_token(cfg, seq_len)
-    return achieved / (n_devices * peak_flops_per_device)

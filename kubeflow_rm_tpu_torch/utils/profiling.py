@@ -4,11 +4,14 @@ Two layers:
 - **Device**: ``trace()`` wraps ``torch.profiler`` (CPU and, where a
   card is present, CUDA activity) so a notebook user captures a trace of
   a training interval and views it in Perfetto or ``chrome://tracing``;
-  ``annotate()`` names host regions in that trace, and on the card also
-  in an NVTX range.
+  ``annotate()`` names host regions (spans) in that trace, and on the
+  card also in an NVTX range. A span costs one flag check while no
+  profiler runs and no observer is installed (``observe``). ``SPANS``
+  names the spans of the port's training path.
 - **Control plane (host)**: ``profile_wsgi`` adds on-demand cProfile
   capture around a WSGI app for the "why is this request slow"
-  question; ``PhaseRecorder`` aggregates named wall-clock phases.
+  question; ``PhaseRecorder`` aggregates named wall-clock phases, and
+  ``observe(recorder.phase)`` feeds it every span's host wall.
 """
 
 from __future__ import annotations
@@ -111,21 +114,105 @@ def trace(logdir: str):
     prof.trace_path = path
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """A named host region in the trace (``record_function``) and, on
-    the card, an NVTX range of the same name. Regions nest."""
-    import torch
+#: the spans the port's training path and its set-up open, by name:
+#: what ``portbench.spans`` attributes a trace's kernels and idle to
+SPANS = frozenset({
+    "fit.data", "fit.to_device", "fit.first_step",
+    "train.forward", "train.backward", "train.optimizer",
+    "train.microbatch",
+    "embed", "block.attn", "block.mlp", "head", "loss",
+    "moe.route", "moe.dispatch", "moe.experts", "moe.combine",
+    "remat.replay",
+    "kernels.load", "init_train_state", "make_train_step",
+})
 
-    nvtx = torch.cuda.is_available()
-    with torch.profiler.record_function(name):
-        if nvtx:
-            torch.cuda.nvtx.range_push(name)
-        try:
-            yield
-        finally:
-            if nvtx:
-                torch.cuda.nvtx.range_pop()
+# one shared, reentrant null context serves every span while nothing
+# listens (the pattern of ``analysis.torchcheck.hostsync.region``)
+_NULL = contextlib.nullcontext()
+#: ``torch.autograd.profiler`` and the span hooks, bound at the first
+#: span (this module is imported by torch-free control-plane processes)
+_torch = None
+#: installed ``observe`` hooks: name -> a context manager for the span
+_observers: tuple = ()
+
+
+class _Torch:
+    def __init__(self):
+        import torch
+        from torch.autograd import profiler
+
+        self.profiler = profiler
+        # a range on the profiler's own clock that no dispatch mode (the
+        # remat policy's) sees: it dispatches no op
+        self.fast = torch._C._profiler._RecordFunctionFast
+        self.nvtx = torch.cuda.nvtx if torch.cuda.is_available() else None
+
+
+def annotate(name: str):
+    """A named span of host work, nested like the calls it wraps.
+
+    While a ``torch.profiler`` profile is active the span is a range in
+    its trace, on the clock of the CUDA events, and on the card an NVTX
+    range; every ``observe`` hook installed sees it too. Otherwise (the
+    run that is not traced) it is a shared null context after one flag
+    check."""
+    t = _torch or _bind()
+    if not (t.profiler._is_profiler_enabled or _observers):
+        return _NULL
+    return _Span(name, t)
+
+
+def _bind():
+    global _torch
+    _torch = _Torch()
+    return _torch
+
+
+class _Span:
+    __slots__ = ("name", "range", "nvtx", "hooks")
+
+    def __init__(self, name: str, t: _Torch):
+        self.name = name
+        on = t.profiler._is_profiler_enabled
+        self.range = t.fast(name) if on else None
+        self.nvtx = t.nvtx if on else None
+        self.hooks = [h(name) for h in _observers]
+
+    def __enter__(self):
+        if self.range is not None:
+            self.range.__enter__()
+            if self.nvtx is not None:
+                self.nvtx.range_push(self.name)
+        for h in self.hooks:
+            h.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for h in reversed(self.hooks):
+            h.__exit__(*exc)
+        if self.range is not None:
+            if self.nvtx is not None:
+                self.nvtx.range_pop()
+            self.range.__exit__(*exc)
+        return False
+
+
+@contextlib.contextmanager
+def observe(hook):
+    """Install ``hook(name) -> context manager`` around every span
+    opened while the block runs, on any thread: the backward on the
+    card runs on the autograd engine's own threads, and a set-up part
+    such as ``kernels.load`` may open there. ``observe(recorder.phase)``
+    records each span's host wall into a ``PhaseRecorder``; the cost
+    model counts FLOPs by span, and takes only its own thread's. Hooks
+    nest; none is called once the block ends."""
+    global _observers
+    _observers = _observers + (hook,)
+    try:
+        yield hook
+    finally:
+        i = max(i for i, h in enumerate(_observers) if h is hook)
+        _observers = _observers[:i] + _observers[i + 1:]
 
 
 @contextlib.contextmanager

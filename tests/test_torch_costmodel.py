@@ -24,6 +24,7 @@ from kubeflow_rm_tpu_torch.ops import flash_attention as fa
 from kubeflow_rm_tpu_torch.training.train import (
     TrainConfig, init_train_state, make_train_step,
 )
+from kubeflow_rm_tpu_torch.utils.profiling import annotate
 from kubeflow_rm_tpu_torch.utils.pytree import tree_size_bytes
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -175,13 +176,14 @@ def test_flash_backward_holds_its_float32_scratch():
 
 
 def test_regions_report_their_own_flops():
-    """``record_function`` regions come back with the FLOPs inside each
-    entry — what the planner multiplies by the accumulation count."""
+    """The program's spans (``profiling.annotate``) come back with the
+    FLOPs inside each entry — what the planner multiplies by the
+    accumulation count."""
     x = _meta(1000)
 
     def two(v):
         for n in (1, 3):
-            with torch.profiler.record_function("body"):
+            with annotate("body"):
                 for _ in range(n):
                     v = v + 1.0
         return v * 2.0
@@ -190,3 +192,27 @@ def test_regions_report_their_own_flops():
     est = costmodel.estimate(two, x, regions=regions)
     assert regions == {"body": [1000.0, 3000.0]}
     assert est.flops == 5000.0
+
+
+def test_regions_leave_out_other_threads_spans():
+    """A span another thread opens while the walk runs is not one of
+    the walk's regions: only the walk's own thread's spans count."""
+    import threading
+
+    x = _meta(1000)
+
+    def elsewhere():
+        with annotate("elsewhere"):
+            pass
+
+    def body(v):
+        t = threading.Thread(target=elsewhere)
+        t.start()
+        t.join()
+        with annotate("here"):
+            v = v + 1.0
+        return v
+
+    regions = {}
+    costmodel.estimate(body, x, regions=regions)
+    assert regions == {"here": [1000.0]}
